@@ -1,0 +1,68 @@
+"""Device-resident replay ring buffer.
+
+Counterpart of :mod:`alphatpu.buffer` (single shard): one dense tensor per
+field, written in place by masked scatters in round-major, then game order.
+Encoded states and final-state features are 0/1 and {-1, +1}, stored as
+int8.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class ReplayBuffer:
+    state: torch.Tensor  # i8[cap, 2*VS]
+    policy: torch.Tensor  # f32[cap, A]
+    player: torch.Tensor  # i8[cap]
+    value: torch.Tensor  # f32[cap]
+    fstate: torch.Tensor  # i8[cap, fsize]
+    cursor: torch.Tensor  # i32[1] - next write slot
+    total: torch.Tensor  # i32[1] - total ever written
+
+    @property
+    def capacity(self) -> int:
+        return self.state.shape[0]
+
+
+def create_buffer(game, capacity: int, device=None) -> ReplayBuffer:
+    return ReplayBuffer(
+        state=torch.zeros((capacity, 2 * game.vectorized_state),
+                          dtype=torch.int8, device=device),
+        policy=torch.zeros((capacity, game.max_actions), dtype=torch.float32,
+                           device=device),
+        player=torch.zeros((capacity,), dtype=torch.int8, device=device),
+        value=torch.zeros((capacity,), dtype=torch.float32, device=device),
+        fstate=torch.zeros((capacity, game.feature_size), dtype=torch.int8,
+                           device=device),
+        cursor=torch.zeros((1,), dtype=torch.int32, device=device),
+        total=torch.zeros((1,), dtype=torch.int32, device=device),
+    )
+
+
+def buffer_size(buffer: ReplayBuffer) -> torch.Tensor:
+    """Number of valid samples."""
+    return torch.clamp_max(buffer.total[0], buffer.capacity)
+
+
+def write_samples(buffer: ReplayBuffer, state, policy, player, value, fstate,
+                  mask) -> ReplayBuffer:
+    """Append the ``mask``-selected rows (flat leading axis N) to the ring
+    in order, in place.  Of more rows than the capacity, the last
+    ``capacity`` are kept, as ring order implies."""
+    cap = buffer.capacity
+    cursor = buffer.cursor[0].to(torch.int64)
+    offs = torch.cumsum(mask.to(torch.int64), 0) - 1
+    n = mask.sum()
+    keep = mask & (offs >= n - cap)
+    slot = ((cursor + offs) % cap)[keep]
+    buffer.state[slot] = state[keep].to(torch.int8)
+    buffer.policy[slot] = policy[keep]
+    buffer.player[slot] = player[keep].to(torch.int8)
+    buffer.value[slot] = value[keep]
+    buffer.fstate[slot] = fstate[keep].to(torch.int8)
+    buffer.cursor[0] = ((cursor + n) % cap).to(torch.int32)
+    buffer.total[0] += n.to(torch.int32)
+    return buffer

@@ -1,0 +1,252 @@
+"""Continuous selfplay: every game decides a move per round with a full
+MCTS search, and a finished game's lane restarts at once.
+
+Counterpart of the continuous mode of :mod:`alphatpu.selfplay`
+(``selfplay_continuous`` with its :class:`EpisodeCarry`).  The reference
+runs the rounds as one jitted ``scan``; here they are a Python loop over
+tensors on the games' device, with the same per-round semantics:
+
+* move selection samples from the root policy while the lane's in-episode
+  move index is below ``temp_moves`` and takes the argmax after,
+* the recorded sample is (root encoding, root policy, player to move);
+  value and final feature are back-filled per episode once it ends,
+* an episode still running after the last round is handed to the next call
+  through the carry, so no searched move is dropped.
+
+Random numbers come from a ``torch.Generator`` on the device (the carry
+keeps it, so chained calls continue one stream), or - for tests that hold
+the port to the reference - from pre-drawn :class:`SelfplayUniforms`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .buffer import ReplayBuffer, write_samples
+from .games.base import where_games
+from .mcts.newton import cdf_sample, row_sum
+from .mcts.search import run_mcts
+from .mcts.tree import init_tree, reset_tree
+
+
+class SelfplayConfig(NamedTuple):
+    num_games: int = 32768
+    rollouts: int = 64
+    cpuct: float = 1.5
+    temp_moves: int = 25  # sample below this in-episode move index
+    rounds: int | None = None  # defaults to 2 * game.max_game_length
+    # recompute the root policy after the final backup (see run_mcts)
+    fresh_root_policy: bool = False
+
+
+class SelfplayUniforms(NamedTuple):
+    """Pre-drawn uniforms for ``T`` rounds: the injection point that lets a
+    test feed this port and the reference the same random numbers."""
+
+    probs: torch.Tensor  # f32[T, R, D, G] - per round, rollout and depth
+    move: torch.Tensor  # f32[T, G] - per round, the move-sampling uniform
+
+
+def broadcast_initial(game, num_games: int, device=None):
+    return game.initial(num_games, device)
+
+
+@dataclasses.dataclass
+class EpisodeCarry:
+    """Each lane's in-flight episode, handed from one call to the next."""
+
+    positions: object  # game state, leaves leading with G
+    count: torch.Tensor  # i32[G] - moves already recorded this episode
+    enc: torch.Tensor  # i8[G, L, 2*VS] - root encodings, rows [0, count)
+    pol: torch.Tensor  # f32[G, L, A] - root policies
+    player: torch.Tensor  # i8[G, L] - player to move
+    rng: torch.Generator | None  # continues the selfplay stream
+
+
+def make_carry(game, num_games: int, generator: torch.Generator | None,
+               device=None) -> EpisodeCarry:
+    """Fresh carry: all lanes start new episodes."""
+    L = game.max_game_length
+    return EpisodeCarry(
+        positions=broadcast_initial(game, num_games, device),
+        count=torch.zeros((num_games,), dtype=torch.int32, device=device),
+        enc=torch.zeros((num_games, L, 2 * game.vectorized_state),
+                        dtype=torch.int8, device=device),
+        pol=torch.zeros((num_games, L, game.max_actions), dtype=torch.float32,
+                        device=device),
+        player=torch.zeros((num_games, L), dtype=torch.int8, device=device),
+        rng=generator,
+    )
+
+
+def _decide_moves(game, net, positions, tree, ep_move, cfg: SelfplayConfig,
+                  generator=None, probs=None, u=None):
+    """One move round: search every lane's position (the tree is reset in
+    place), pick a move and play it.
+
+    Returns ``(root_enc, player, pol, ok, newpos, finished, result)``;
+    ``ok`` is the legality of each chosen move."""
+    G = positions.player.shape[0]
+    reset_tree(tree, positions)
+    _, pol = run_mcts(
+        game, net, tree, rollouts=cfg.rollouts, cpuct=cfg.cpuct,
+        training=True, generator=generator, probs=probs,
+        final_root_policy=cfg.fresh_root_policy,
+    )
+    root_enc = game.encode(positions).to(torch.int8)
+
+    # pol is [A, G]: sample as uniform * total mass with the CDF walk
+    if u is None:
+        u = torch.rand((G,), generator=generator, device=pol.device)
+    sampled = cdf_sample(pol, u * row_sum(pol))
+    greedy = torch.argmax(pol, dim=0).to(torch.int32)
+    action = torch.where(ep_move < cfg.temp_moves, sampled, greedy)
+
+    legal = game.legal_mask(positions)
+    ok = legal.gather(1, action.long()[:, None])[:, 0]
+    newpos = game.play(positions, action)
+    finished, result = game.is_over(newpos)
+    return root_enc, positions.player, pol, ok, newpos, finished, result
+
+
+def selfplay_continuous(game, net, buffer: ReplayBuffer,
+                        generator: torch.Generator | None,
+                        cfg: SelfplayConfig,
+                        carry: EpisodeCarry | None = None,
+                        uniforms: SelfplayUniforms | None = None):
+    """Play ``cfg.rounds`` move rounds on ``cfg.num_games`` lanes, recycling
+    every finished lane into a fresh game, and write every completed
+    episode's samples to ``buffer`` (in place).
+
+    ``carry`` (None = fresh start) continues in-flight episodes: when one
+    ends, its moves recorded in earlier calls are written with this call's.
+    Given a carry, its ``rng`` continues the stream and ``generator`` is
+    ignored.  ``uniforms`` replaces every random draw.
+
+    Returns ``(buffer, stats, carry')``: ``stats`` is a dict of 0-d tensors
+    (wins / draws / losses from the first mover's view, mean_length,
+    illegal_moves, unfinished, carried, games_finished, samples_written).
+    """
+    G = cfg.num_games
+    T = cfg.rounds or 2 * game.max_game_length
+    E = T // game.min_game_length + 2  # episode table rows per lane
+    L = game.max_game_length
+    A = game.max_actions
+    dev = buffer.state.device
+    if carry is None:
+        carry = make_carry(game, G, generator, dev)
+    gen = carry.rng
+    g = torch.arange(G, device=dev)
+    fresh = broadcast_initial(game, G, dev)
+    tree = init_tree(game, carry.positions, cfg.rollouts)
+
+    positions = carry.positions
+    eid = torch.zeros((G,), dtype=torch.int32, device=dev)
+    ep_start = -carry.count  # continuing episodes began count moves ago
+    res_table = torch.zeros((E, G), dtype=torch.int8, device=dev)
+    ftable = torch.zeros((E, G, game.feature_size), dtype=torch.int8,
+                         device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    wins, draws, losses, length_sum, illegal = zero, zero, zero, zero, zero
+    enc_s = torch.empty((T, G, 2 * game.vectorized_state), dtype=torch.int8,
+                        device=dev)
+    pol_s = torch.empty((T, G, A), dtype=torch.float32, device=dev)
+    player_s = torch.empty((T, G), dtype=torch.int8, device=dev)
+    eid_s = torch.empty((T, G), dtype=torch.int32, device=dev)
+
+    for t in range(T):
+        ep_move = t - ep_start
+        root_enc, player_t, pol, ok, positions, f, r = _decide_moves(
+            game, net, positions, tree, ep_move, cfg, generator=gen,
+            probs=None if uniforms is None else uniforms.probs[t],
+            u=None if uniforms is None else uniforms.move[t],
+        )
+        illegal = illegal + (~ok).sum()
+
+        # terminated lanes: record the episode, then recycle
+        fe = f & (eid < E)
+        res_table[eid.long()[fe], g[fe]] = r[fe]
+        ftable[eid.long()[fe], g[fe]] = game.final_feature(positions)[fe]
+        wins = wins + (f & (r == 1)).sum()
+        draws = draws + (f & (r == 0)).sum()
+        losses = losses + (f & (r == -1)).sum()
+        length_sum = length_sum + torch.where(f, ep_move, 0).sum()
+        positions = where_games(f, fresh, positions)
+        enc_s[t] = root_enc
+        pol_s[t] = pol.T
+        player_s[t] = player_t
+        eid_s[t] = eid
+        eid = eid + f.to(torch.int32)
+        ep_start = torch.where(f, t + 1, ep_start)
+
+    # per-sample episode lookups and the back-fill
+    eid_l = eid_s.long().clamp_max(E - 1)
+    res_s = torch.gather(res_table, 0, eid_l)  # [T, G]
+    fstate_ep = ftable[eid_l, g[None, :]]  # [T, G, fsize]
+    value_s = (1.0 + res_s.to(torch.float32)
+               * player_s.to(torch.float32)) / 2.0
+    fstate_s = fstate_ep * player_s[:, :, None]
+    completed = eid_s < eid[None, :]  # episode finished before round T
+
+    # carried-in rows belong to episode 0: back-fill from table row 0
+    lio = torch.arange(L, device=dev)[None, :]  # [1, L]
+    pend_value = (1.0 + res_table[0].to(torch.float32)[:, None]
+                  * carry.player.to(torch.float32)) / 2.0
+    pend_fstate = ftable[0][:, None, :] * carry.player[:, :, None]
+    pend_mask = (lio < carry.count[:, None]) & (eid > 0)[:, None]
+
+    # carried rows are older than this call's: write them first
+    write_samples(
+        buffer,
+        torch.cat([carry.enc.reshape(G * L, -1), enc_s.reshape(T * G, -1)]),
+        torch.cat([carry.pol.reshape(G * L, A), pol_s.reshape(T * G, A)]),
+        torch.cat([carry.player.reshape(G * L), player_s.reshape(T * G)]),
+        torch.cat([pend_value.reshape(G * L), value_s.reshape(T * G)]),
+        torch.cat([pend_fstate.reshape(G * L, -1),
+                   fstate_s.reshape(T * G, -1)]),
+        torch.cat([pend_mask.reshape(G * L), completed.reshape(T * G)]),
+    )
+
+    # next carry: the rows of each lane's still-running episode, which
+    # started at round s (negative: the carried-in episode, still running)
+    s = ep_start
+    new_count = T - s
+    overflow = new_count > L  # outlived maxLengthGame: reset the lane
+    src = torch.clamp(lio + s[:, None], 0, T - 1).long()  # [G, L]
+    from_old = lio < -s[:, None]
+
+    def merge(old_gl, new_tg):  # [G, L, ...] <- [T, G, ...]
+        new_g = torch.movedim(new_tg, 0, 1)  # [G, T, ...]
+        tail = tuple(new_g.shape[2:])
+        idx = src.reshape(src.shape + (1,) * len(tail)).expand(
+            (G, L) + tail)
+        gathered = torch.gather(new_g, 1, idx)
+        keep = from_old.reshape(from_old.shape + (1,) * len(tail))
+        return torch.where(keep, old_gl, gathered)
+
+    new_carry = EpisodeCarry(
+        positions=where_games(overflow, fresh, positions),
+        count=torch.where(overflow, 0, new_count).to(torch.int32),
+        enc=merge(carry.enc, enc_s),
+        pol=merge(carry.pol, pol_s),
+        player=merge(carry.player, player_s),
+        rng=gen,
+    )
+
+    finished = eid.sum()
+    stats = {
+        "wins": wins,
+        "draws": draws,
+        "losses": losses,
+        "mean_length": length_sum.to(torch.float32)
+        / torch.clamp_min(finished, 1).to(torch.float32),
+        "illegal_moves": illegal,
+        # rows dropped because an episode outlived maxLengthGame
+        "unfinished": torch.where(overflow, T - s, 0).sum(),
+        "carried": new_carry.count.sum(),
+        "games_finished": finished,
+        "samples_written": pend_mask.sum() + completed.sum(),
+    }
+    return buffer, stats, new_carry

@@ -1,0 +1,276 @@
+"""The port's MCTS kernels against the reference's Pallas kernels.
+
+``alphatpu.mcts.pallas_kernels.select_apply_packed`` and ``backup_pallas``
+run in the Pallas interpreter on the CPU; the port's wrappers run their
+plain torch versions (the tensors lie on the CPU).  Both get the same trees,
+pending updates and uniforms, made from numpy seeds.
+
+Tolerances: the packed and prior planes are exactly equal (integer adds
+and copies).  Paths, leaves and needs_alloc are exactly equal except on a
+lane whose CDF sample lands on a prefix-sum tie: the Pallas kernel sums
+prefixes in Hillis-Steele order and the port in action order, so such a
+lane may pick another action (pallas_kernels.py:38-42); at most 1 lane in
+128 may do so, and the test prints it.  The root policy matches to rtol
+1e-5 (the two sum the Newton terms in different orders).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alphatpu.games import make_game as jax_make_game
+from alphatpu.mcts import pallas_kernels as PK
+from alphatpu.mcts.newton import cdf_sample as jax_cdf_sample
+from alphatpu.mcts.newton import regularized_policy as jax_regularized_policy
+from alphatpu.mcts.search import descend, run_mcts
+from alphatpu.mcts.tree import init_tree
+from alphatpu.nets import apply_inference, config_for_game, init_params
+from alphatpu.selfplay import broadcast_initial
+from alphatpu_torch.mcts import kernels as K
+from alphatpu_torch.mcts.newton import cdf_sample, regularized_policy
+
+CPUCT = 1.5
+
+
+def _t(x, dtype=None):
+    t = torch.from_numpy(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+def _grown_tree(game_name, G, V, monkeypatch, seed=0):
+    """A mid-search tree grown by the reference's packed twin (wsum on the
+    1/value_scale grid), with free slots left so needs_alloc still fires."""
+    game = jax_make_game(game_name)
+    params = init_params(jax.random.key(seed),
+                         config_for_game(game, width=32, depth=2))
+    tree = init_tree(game, broadcast_initial(game, G), V)
+    monkeypatch.setenv("ALPHATPU_NO_KERNELS", "1")
+    tree, _ = run_mcts(game, apply_inference, params, tree,
+                       jax.random.key(seed + 1), rollouts=V - 2, cpuct=CPUCT,
+                       training=True, packed_stats=True)
+    monkeypatch.delenv("ALPHATPU_NO_KERNELS")
+    return game, jax.device_get(tree)
+
+
+def _diverged_lanes(a, b):
+    """Lanes where any path output of two selections differs."""
+    bad = np.zeros(a[0].shape[-1], bool)
+    for x, y in zip(a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        bad |= (x != y).reshape(-1, x.shape[-1]).any(0)
+    return np.flatnonzero(bad)
+
+
+def _run_both(tree, probs, pend, scale):
+    """One select_apply_packed call in each engine on copies of the same
+    inputs; returns (jax outputs, port Selection, port prior, port packed)."""
+    packed = np.asarray(PK.pack_stats(jnp.asarray(tree.wsum),
+                                      jnp.asarray(tree.visits), scale))
+    j = PK.select_apply_packed(
+        jnp.asarray(tree.prior), jnp.asarray(packed), jnp.asarray(tree.parent),
+        jnp.asarray(tree.action_from), jnp.asarray(tree.expanded),
+        jnp.asarray(probs), *(jnp.asarray(x) for x in pend), CPUCT,
+        scale=scale, interpret=True)
+    prior_t = _t(tree.prior)
+    packed_t = _t(packed)
+    sel = K.select_apply_packed(
+        prior_t, packed_t, _t(tree.parent), _t(tree.action_from),
+        _t(tree.expanded), _t(probs), K.PendingUpdate(*(_t(x) for x in pend)),
+        CPUCT, scale)
+    return jax.device_get(j), sel, prior_t, packed_t
+
+
+@pytest.mark.parametrize("game_name,G,V", [
+    ("connect4", 128, 16),
+    ("hex5", 128, 16),  # A = 25: the wide-board path of the Pallas kernel
+])
+def test_select_apply_packed_matches_pallas(game_name, G, V, monkeypatch):
+    game, tree = _grown_tree(game_name, G, V, monkeypatch)
+    A = game.max_actions
+    D = min(game.max_game_length, V)
+    scale = PK.value_scale(V)
+    rng = np.random.default_rng(11)
+    before = K.select_apply_packed.launches
+
+    # call 1: the empty pending update of a first rollout
+    pend0 = tuple(np.asarray(x) for x in jax.device_get(
+        K.empty_pending(D, A, G)))
+    probs = rng.random((D, G), dtype=np.float32)
+    j, sel, _, _ = _run_both(tree, probs, pend0, scale)
+
+    # call 2: a pending update made of call 1's walk, with a random value
+    # on the grid and a random prior row; some lanes do not write, and
+    # some claim leaf == V (a full tree), which must write nothing
+    nodes, actions = j[2], j[3]
+    leaf = np.where(j[6], tree.next_idx, j[4]).astype(np.int32)
+    leaf[:4] = V
+    write = rng.random(G) < 0.9
+    newp = rng.random((A, G), dtype=np.float32)
+    newp /= newp.sum(0, keepdims=True)
+    value = np.asarray(PK.quantize_value(
+        jnp.asarray(rng.random(G, dtype=np.float32)), scale))
+    pend = (nodes, actions, (nodes >= 0).sum(0).astype(np.int32), value,
+            leaf, newp, write)
+    probs2 = rng.random((D, G), dtype=np.float32)
+    j2, sel2, prior_t, packed_t = _run_both(tree, probs2, pend, scale)
+
+    # the plain versions ran: no kernel was launched on the CPU
+    assert K.select_apply_packed.launches == before
+    # the apply phase is lane-independent of the walk: planes exactly equal
+    np.testing.assert_array_equal(prior_t.numpy(), np.asarray(j2[0]))
+    np.testing.assert_array_equal(packed_t.numpy(), np.asarray(j2[1]))
+
+    for jj, ss in ((j, sel), (j2, sel2)):
+        ref = (jj[2], jj[3], jj[4], jj[5], jj[6])
+        got = tuple(x.numpy() for x in (ss.nodes, ss.actions, ss.leaf,
+                                         ss.leaf_action, ss.needs_alloc))
+        bad = _diverged_lanes(ref, got)
+        if len(bad):
+            print(f"{game_name}: CDF-tie lanes diverged: {bad.tolist()}")
+        assert len(bad) <= G // 128, bad
+        ok = np.setdiff1d(np.arange(G), bad)
+        for x, y in zip(ref, got):
+            np.testing.assert_array_equal(np.asarray(x)[..., ok], y[..., ok])
+        np.testing.assert_allclose(ss.root_pi.numpy(), np.asarray(jj[7]),
+                                   rtol=1e-5, atol=1e-6)
+    # the walk reached past the root on most lanes
+    assert (sel2.nodes.numpy()[1] >= 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("game_name,G,V", [
+    ("connect4", 128, 16),
+    ("hex5", 128, 16),
+])
+def test_backup_matches_pallas(game_name, G, V, monkeypatch):
+    game, tree = _grown_tree(game_name, G, V, monkeypatch, seed=3)
+    D = min(game.max_game_length, V)
+    rng = np.random.default_rng(5)
+    probs = rng.random((D, G), dtype=np.float32)
+    path, *_ = jax.device_get(descend(game, tree, jnp.asarray(probs), CPUCT))
+    value = rng.random(G, dtype=np.float32)
+
+    jw, jv = jax.device_get(PK.backup_pallas(
+        jnp.asarray(tree.wsum), jnp.asarray(tree.visits), path.nodes,
+        path.actions, path.length, jnp.asarray(value), interpret=True))
+    wsum, visits = _t(tree.wsum), _t(tree.visits)
+    before = K.backup.launches
+    K.backup(wsum, visits, _t(path.nodes), _t(path.actions),
+             _t(path.length), _t(value))
+    assert K.backup.launches == before
+    np.testing.assert_array_equal(visits.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(wsum.numpy(), np.asarray(jw), rtol=1e-6,
+                               atol=1e-7)
+    assert (visits.numpy() != np.asarray(tree.visits)).sum() > G
+
+
+def test_pack_helpers_match_reference():
+    """pack/unpack/quantize against the reference, exactly - including
+    wsum halves with bit 31 set (a root edge that took every rollout)."""
+    rng = np.random.default_rng(0)
+    for R in (1, 16, 64, 100, 1000):
+        assert K.value_scale(R) == PK.value_scale(R)
+    R = 64
+    S = K.value_scale(R)
+    visits = rng.integers(0, R + 1, size=(7, 64, 256)).astype(np.float32)
+    wfix = (rng.random(visits.shape) * (visits * S + 1)).astype(np.int64)
+    wfix = np.minimum(wfix, (visits * S).astype(np.int64))
+    wfix[0, 0, :8] = R * S  # the top value: bit 31 of the word
+    visits[0, 0, :8] = R
+    wsum = (wfix / S).astype(np.float32)
+    ref = np.asarray(PK.pack_stats(jnp.asarray(wsum), jnp.asarray(visits), S))
+    got = K.pack_stats(_t(wsum), _t(visits), S)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref < 0).any()  # bit 31 was exercised
+    np.testing.assert_array_equal(K.unpack_wsum(got, S).numpy(), wsum)
+    np.testing.assert_array_equal(K.unpack_visits(got).numpy(), visits)
+    np.testing.assert_array_equal(
+        K.unpack_wsum(got, S).numpy(), np.asarray(PK.unpack_wsum(ref, S)))
+    # quantize: random values plus exact half-grid ties (half to even)
+    v = np.concatenate([rng.random(4096, dtype=np.float32),
+                        ((np.arange(64) + 0.5) / S).astype(np.float32)])
+    np.testing.assert_array_equal(
+        K.quantize_value(_t(v), S).numpy(),
+        np.asarray(PK.quantize_value(jnp.asarray(v), S)))
+
+
+def _policy_rows(rng, A, G):
+    """Realistic node rows: normalized priors over random legal masks,
+    integer visits and values on the 1/512 grid."""
+    legal = rng.random((A, G)) < 0.8
+    legal[0] = True
+    prior = np.where(legal, rng.random((A, G)), 0.0)
+    prior = (prior / prior.sum(0)).astype(np.float32)
+    visits = np.where(legal, rng.integers(0, 9, (A, G)), 0).astype(np.float32)
+    wsum = np.floor(rng.random((A, G)) * visits * 512) / 512
+    q = np.where(visits > 0, wsum / np.maximum(visits, 1), 0.0)
+    return prior, q.astype(np.float32), visits
+
+
+@pytest.mark.parametrize("A", [7, 25, 169])
+def test_newton_and_cdf_match_reference(A):
+    rng = np.random.default_rng(A)
+    G = 512
+    prior, q, visits = _policy_rows(rng, A, G)
+    ref = np.asarray(jax_regularized_policy(
+        jnp.asarray(prior), jnp.asarray(q), jnp.asarray(visits), CPUCT))
+    got = regularized_policy(_t(prior), _t(q), _t(visits), CPUCT).numpy()
+    # the engines sum the Newton terms in different orders, so a lane whose
+    # error lands next to the stopping test may take one step more in one
+    # of them: at most 1 lane in 128, and both stopped inside the tolerance
+    off = np.flatnonzero(
+        (np.abs(got - ref) > 1e-7 + 1e-5 * np.abs(ref)).any(0))
+    assert len(off) <= G // 128, off
+    assert (np.abs(got[:, off].sum(0) - 1.0) < 1e-3).all()
+    assert (np.abs(ref[:, off].sum(0) - 1.0) < 1e-3).all()
+    ok = np.setdiff1d(np.arange(G), off)
+    np.testing.assert_allclose(got[:, ok], ref[:, ok], rtol=1e-5, atol=1e-7)
+
+    prob = rng.random(G, dtype=np.float32) * ref.sum(0)
+    a_ref = np.asarray(jax_cdf_sample(jnp.asarray(ref), jnp.asarray(prob)))
+    a_got = cdf_sample(_t(ref), _t(prob)).numpy()
+    ties = np.flatnonzero(a_ref != a_got)
+    # only a prefix-sum tie may pick another action, and it picks a
+    # neighbour of the reference's
+    assert len(ties) <= 1, ties
+    assert (np.abs(a_ref[ties] - a_got[ties]) <= 1).all()
+    # the fallback: no prefix reaches the uniform -> last positive action
+    over = cdf_sample(_t(ref), _t(np.full(G, 2.0, np.float32))).numpy()
+    np.testing.assert_array_equal(
+        over, np.asarray(jax_cdf_sample(jnp.asarray(ref),
+                                        jnp.full((G,), 2.0))))
+    zero = cdf_sample(torch.zeros((A, 4)), torch.full((4,), 0.5)).numpy()
+    np.testing.assert_array_equal(zero, 0)
+
+
+def test_plain_kernel_policy_matches_newton():
+    """The walk's per-node policy (the kernels' arithmetic) equals the
+    search-level regularized policy on visited rows and returns the raw
+    prior on fresh ones."""
+    rng = np.random.default_rng(2)
+    prior, q, visits = _policy_rows(rng, 7, 256)
+    visits[:, :32] = 0.0
+    q[:, :32] = 0.0
+    got = K.node_policy_rows(_t(prior), _t(q), _t(visits), CPUCT).numpy()
+    ref = regularized_policy(_t(prior), _t(q), _t(visits), CPUCT).numpy()
+    np.testing.assert_array_equal(got[:, 32:], ref[:, 32:])
+    np.testing.assert_array_equal(got[:, :32], prior[:, :32])
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper runs its plain version only for CPU tensors; any other
+    device launches the kernel or raises."""
+    meta = torch.device("meta")
+    A, V, G, D = 7, 8, 4, 8
+    t = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=meta)
+    pend = K.PendingUpdate(t(D, G, dt=torch.int32), t(D, G, dt=torch.int32),
+                           t(G, dt=torch.int32), t(G), t(G, dt=torch.int32),
+                           t(A, G), t(G, dt=torch.bool))
+    with pytest.raises(ValueError, match="no kernel"):
+        K.select_apply_packed(t(A, V, G), t(A, V, G, dt=torch.int32),
+                              t(V, G, dt=torch.int32), t(V, G, dt=torch.int32),
+                              t(V, G, dt=torch.bool), t(D, G), pend, CPUCT, 512)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.backup(t(A, V, G), t(A, V, G), t(D, G, dt=torch.int32),
+                 t(D, G, dt=torch.int32), t(G, dt=torch.int32), t(G))
