@@ -2,10 +2,12 @@
 
 The sources under ``alphatpu_torch/csrc/`` are compiled by ``nvcc`` into
 one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds) and loaded with ``ctypes``.  The library lands in
-``alphatpu_torch/_build/`` under a name that hashes the sources and the
-flags, so an edited source is rebuilt on its next use.  Nothing is built
-at import: the first kernel launch calls :func:`load_library`.
+build takes seconds) and loaded with ``ctypes``: one ``nvcc -c`` per
+``.cu`` file, all started together, then one link.  The library lands in
+``alphatpu_torch/_build/`` under a name that hashes every source - the
+``.cu`` files and the ``.cuh`` headers they include - and the flags, so an
+edited source or header is rebuilt on its next use.  Nothing is built at
+import: the first kernel launch calls :func:`load_library`.
 
 Flags: Hopper only (``sm_90a``), ``-fmad=false`` so that no multiply-add is
 contracted, and nvcc's default IEEE division and square root (no
@@ -30,15 +32,22 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # pointers x 19, A, V, G, D, cpuct, scale, stream
-    "launch_select_apply_packed": [_P] * 19 + [_I] * 4
-                                  + [ctypes.c_float, _I, _P],
+    "launch_select_apply_packed": [_P] * 19 + [_I] * 4 + [_F, _I, _P],
+    # pointers x 18, A, V, G, D, cpuct, bits_v, bits_w, scale, stream
+    "launch_select_apply_packed1": [_P] * 18 + [_I] * 4 + [_F] + [_I] * 3
+                                   + [_P],
+    # pointers x 20, A, V, G, D, cpuct, stream
+    "launch_select_apply": [_P] * 20 + [_I] * 4 + [_F, _P],
+    # pointers x 13, A, V, G, D, cpuct, stream
+    "launch_select": [_P] * 13 + [_I] * 4 + [_F, _P],
     # pointers x 6, A, V, G, D, stream
     "launch_backup": [_P] * 6 + [_I] * 4 + [_P],
 }
@@ -49,7 +58,13 @@ build_report = {"log": ""}
 
 
 def sources() -> list[Path]:
+    """The translation units: every ``.cu`` file, one object each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def hashed_sources() -> list[Path]:
+    """Everything the build reads: the ``.cu`` files and their headers."""
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -65,30 +80,46 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in hashed_sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libalphatpu_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _start(cmd: list[str]):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _wait(started) -> str:
+    """Wait for every started ``(cmd, Popen)``, then raise on the first
+    that failed.  Returns their joined output."""
+    outs = [p.communicate() for _, p in started]
+    log = ""
+    for (cmd, p), (out, err) in zip(started, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}{err}")
+        log += out + err
+    return log
+
+
 def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
+    """Compile the sources unless a library of the same hash exists: one
+    ``nvcc -c`` per ``.cu`` file in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_report["log"] = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        log = _wait([_start([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj])
+                     for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        log += _wait([_start([nvcc, "-shared", "-o", lib, *objs])])
+        os.replace(lib, out)
+    build_report["log"] = log
     return out
 
 

@@ -1,0 +1,254 @@
+// The root-to-leaf selection walk of one game, shared by the port's four
+// walk kernels (select_apply_packed.cu, select_apply_packed1.cu,
+// select_apply.cu, select.cu), and the per-game pieces of their apply
+// phase and of backup.cu.  Counterpart of the reference's _walk,
+// _walk_packed and _walk_packed1 (alphatpu/mcts/pallas_kernels.py), with
+// _node_policy_2d and _cdf_sample_2d, and of _backup_edges and
+// _backup_edges_packed.
+//
+// The kernels differ only in how a node's row is stored, so the walk is a
+// template on a row loader: ``rows.load(i, &p, &w, &n)`` returns the prior,
+// value sum and visit count of the edge at flat index ``i`` of the
+// [A, V, G] planes as floats.  Each loader is exact (integer fields times a
+// power of two), so the walk's arithmetic is the same operation for
+// operation whatever the storage.  At each depth: the regularized policy of
+// the node (the latched Newton solve, or the raw prior on a node with no
+// visits), a CDF sample against probs[d], and the child lookup through
+// parent/action_from.  It stops at an unexpanded node or a missing child,
+// and records the path, the leaf, the leaf action, needs_alloc and the
+// depth-0 policy.
+//
+// Arithmetic is that of the plain torch version in
+// alphatpu_torch/mcts/kernels.py (_walk_plain), and sums over actions run
+// in action order.  Built with -fmad=false and IEEE division and square
+// root, the two agree bit for bit.
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace walk {
+
+constexpr int kMaxActions = 169;
+constexpr int kThreads = 128;
+constexpr int kNewtonSteps = 96;  // 12 chunks x 8 in the reference
+constexpr float kNewtonTol = 1e-3f;
+constexpr float kAlphaFloor = 1e-4f;
+
+// One game's walk.  The rows of the current node live in per-thread arrays
+// (local memory, cached in L1) so that A is a runtime argument up to
+// kMaxActions.
+template <class Rows>
+__device__ __forceinline__ void walk_game(
+    const Rows& rows, const int32_t* __restrict__ parent,
+    const int32_t* __restrict__ action_from, const bool* __restrict__ expanded,
+    const float* __restrict__ probs, int32_t* __restrict__ nodes_out,
+    int32_t* __restrict__ actions_out, int32_t* __restrict__ leaf_out,
+    int32_t* __restrict__ laction_out, bool* __restrict__ alloc_out,
+    float* __restrict__ rootpi_out, int A, int V, int G, int D, float cpuct,
+    int g) {
+  const size_t gs = static_cast<size_t>(G);
+  const size_t vg = static_cast<size_t>(V) * gs;
+  for (int d = 0; d < D; ++d) {
+    nodes_out[d * gs + g] = -1;
+    actions_out[d * gs + g] = 0;
+  }
+  float P[kMaxActions];
+  float Q[kMaxActions];
+  int node = 0;
+  int leaf_action = 0;
+  bool needs_alloc = false;
+  for (int d = 0; d < D; ++d) {
+    const size_t row = static_cast<size_t>(node) * gs + g;
+    const bool exp = expanded[row];
+    float nvis = 0.0f;
+    float acts = 0.0f;
+    for (int a = 0; a < A; ++a) {
+      float p, w, nv;
+      rows.load(a * vg + row, &p, &w, &nv);
+      P[a] = p;
+      Q[a] = nv > 0.0f ? w / fmaxf(nv, 1.0f) : 0.0f;
+      nvis += nv;
+      acts += p > 0.0f ? 1.0f : 0.0f;
+    }
+    const float n = 1.0f + nvis;
+    const float lam = cpuct * sqrtf(n) / (acts + n);
+    const bool fresh = nvis == 0.0f;
+    float alpha = -INFINITY;
+    for (int a = 0; a < A; ++a)
+      alpha = fmaxf(alpha, Q[a] + fmaxf(lam * P[a], kAlphaFloor));
+    if (!fresh) {
+      float prev_err = INFINITY;
+      for (int it = 0; it < kNewtonSteps; ++it) {
+        float s = 0.0f;
+        float gsum = 0.0f;
+        for (int a = 0; a < A; ++a) {
+          const float r = 1.0f / (alpha - Q[a]);
+          const float frac = (lam * P[a]) * r;
+          s += frac;
+          gsum += frac * r;
+        }
+        const float grad = -gsum;
+        const float err = s - 1.0f;
+        if (err < kNewtonTol || err == prev_err) break;  // latched
+        alpha = alpha - err / (grad == 0.0f ? 1.0f : grad);
+        prev_err = err;
+      }
+    }
+    // policy row (recomputed where read: the same operations each time)
+    auto pi = [&](int a) {
+      return fresh ? P[a] : (lam * P[a]) / (alpha - Q[a]);
+    };
+    if (d == 0)
+      for (int a = 0; a < A; ++a) rootpi_out[a * gs + g] = pi(a);
+
+    // CDF sample: first action whose inclusive prefix sum reaches the
+    // uniform and has mass, else the last action with mass, else 0
+    const float prob = probs[d * gs + g];
+    float c = 0.0f;
+    int first = A;
+    int last = -1;
+    for (int a = 0; a < A; ++a) {
+      const float p = pi(a);
+      c += p;
+      if (p > 0.0f) {
+        if (first == A && c >= prob) first = a;
+        last = a;
+      }
+    }
+    const int action = first < A ? first : (last > 0 ? last : 0);
+
+    if (exp) {
+      nodes_out[d * gs + g] = node;
+      actions_out[d * gs + g] = action;
+    }
+    int cid = 0;  // the child under (node, action); 0 = none
+    for (int v = 0; v < V; ++v) {
+      const size_t i = static_cast<size_t>(v) * gs + g;
+      if (parent[i] == node && action_from[i] == action) cid += v;
+    }
+    const bool hit_missing = exp && cid == 0;
+    if (hit_missing) {
+      leaf_action = action;
+      needs_alloc = true;
+    }
+    if (!exp || hit_missing) break;
+    node = cid;
+  }
+  leaf_out[g] = node;
+  laction_out[g] = leaf_action;
+  alloc_out[g] = needs_alloc;
+}
+
+// Row loaders, one per storage of the edge stats.
+
+// Three f32 planes (select_apply.cu, select.cu).
+struct F32Rows {
+  const float* prior;
+  const float* wsum;
+  const float* visits;
+  __device__ __forceinline__ void load(size_t i, float* p, float* w,
+                                       float* n) const {
+    *p = prior[i];
+    *w = wsum[i];
+    *n = visits[i];
+  }
+};
+
+// f32 prior plane + the packed [wsum * S u16 | visits u16] word
+// (select_apply_packed.cu).
+struct PackedRows {
+  const float* prior;
+  const uint32_t* packed;
+  float inv_scale;
+  __device__ __forceinline__ void load(size_t i, float* p, float* w,
+                                       float* n) const {
+    const uint32_t pk = packed[i];
+    *p = prior[i];
+    *w = static_cast<float>(pk >> 16) * inv_scale;
+    *n = static_cast<float>(pk & 0xFFFFu);
+  }
+};
+
+// The 1-plane word [prior u11 | wsum * S1 u(bits_w) | visits u(bits_v)]
+// (select_apply_packed1.cu).
+struct Packed1Rows {
+  const uint32_t* packed;
+  int bits_v;
+  int bits_w;
+  float inv_scale;
+  __device__ __forceinline__ void load(size_t i, float* p, float* w,
+                                       float* n) const {
+    const uint32_t pk = packed[i];
+    *p = static_cast<float>(pk >> (bits_v + bits_w)) * (1.0f / 2048.0f);
+    *w = static_cast<float>((pk >> bits_v) & ((1u << bits_w) - 1u)) *
+         inv_scale;
+    *n = static_cast<float>(pk & ((1u << bits_v) - 1u));
+  }
+};
+
+// The apply phase of the select_apply kernels: the previous rollout's
+// deferred writes, applied before the walk.
+
+// The node whose prior row a pending update writes, or -1: the lane does
+// not write, or its leaf is V (the tree was full, no slot was allocated).
+__device__ __forceinline__ int pending_row_node(const bool* __restrict__ write,
+                                                const int32_t* __restrict__ leaf,
+                                                int V, int g) {
+  const int node = leaf[g];
+  return write[g] && node >= 0 && node < V ? node : -1;
+}
+
+// The backup of one game's recorded path (node -1 = nothing recorded at
+// that depth): per edge at depth d the leaf value's contribution is 1 - v
+// on the leaf edge and every second edge above it, v on the others.  A
+// path's edges are distinct tree edges, so no two threads - and no two
+// steps of one thread - write the same word: no atomics.
+
+// f32 planes: wsum += contrib, visits += 1 (backup.cu, select_apply.cu).
+__device__ __forceinline__ void add_path_f32(
+    float* __restrict__ wsum, float* __restrict__ visits,
+    const int32_t* __restrict__ nodes, const int32_t* __restrict__ actions,
+    int len, float value, int V, int G, int D, int g) {
+  const size_t gs = static_cast<size_t>(G);
+  const size_t vg = static_cast<size_t>(V) * gs;
+  for (int d = 0; d < D; ++d) {
+    const int node = nodes[d * gs + g];
+    if (node < 0) continue;
+    const int k = len - 1 - d;
+    const float contrib = (k % 2 == 0) ? 1.0f - value : value;
+    const size_t i = static_cast<size_t>(actions[d * gs + g]) * vg +
+                     static_cast<size_t>(node) * gs + g;
+    wsum[i] = wsum[i] + contrib;
+    visits[i] = visits[i] + 1.0f;
+  }
+}
+
+// A packed word with an integer wsum field at bit ``wshift`` and visits
+// below it: one add of ((contrib * scale) << wshift) + 1 per edge.  The
+// value lies on the 1/scale grid, so contrib * scale is an exact integer;
+// the add is unsigned, where the carry into bit 31 is defined.
+__device__ __forceinline__ void add_path_packed(
+    uint32_t* __restrict__ packed, const int32_t* __restrict__ nodes,
+    const int32_t* __restrict__ actions, int len, float value, float fscale,
+    int wshift, int V, int G, int D, int g) {
+  const size_t gs = static_cast<size_t>(G);
+  const size_t vg = static_cast<size_t>(V) * gs;
+  for (int d = 0; d < D; ++d) {
+    const int node = nodes[d * gs + g];
+    if (node < 0) continue;
+    const int k = len - 1 - d;
+    const float contrib = (k % 2 == 0) ? 1.0f - value : value;
+    const uint32_t cfix =
+        static_cast<uint32_t>(static_cast<int32_t>(contrib * fscale));
+    const size_t a = static_cast<size_t>(actions[d * gs + g]);
+    packed[a * vg + static_cast<size_t>(node) * gs + g] +=
+        (cfix << wshift) + 1u;
+  }
+}
+
+inline int blocks_for(int G) { return (G + kThreads - 1) / kThreads; }
+
+}  // namespace walk

@@ -1,24 +1,34 @@
-"""The MCTS kernels of the port: packed-stat helpers, the two kernel
-wrappers with their launch counters, and the plain torch version of each.
+"""The MCTS kernels of the port: packed-stat helpers, the kernel wrappers
+with their launch counters, and the plain torch version of each.
 
-Counterpart of ``alphatpu/mcts/pallas_kernels.py``.  The rollout loop of
-:func:`alphatpu_torch.mcts.search.run_mcts` calls two kernels, each written
-by hand in CUDA C++ for Hopper (``alphatpu_torch/csrc/``):
+Counterpart of ``alphatpu/mcts/pallas_kernels.py``.  Five kernels, each
+written by hand in CUDA C++ for Hopper (``alphatpu_torch/csrc/``):
 
-* :func:`select_apply_packed` - once per rollout: apply the previous
-  rollout's deferred prior-row write and backup adds to the packed
-  ``(wsum | visits)`` plane, then walk every game from its root to a leaf
-  (replaces ``pallas_kernels.select_apply_packed``),
-* :func:`backup` - once per move: the f32 backup adds of the last rollout,
-  the flush after the loop (replaces ``pallas_kernels.backup_pallas``).
+* :func:`select_apply_packed` - the level-1 engine, once per rollout:
+  apply the previous rollout's deferred prior-row write and backup adds to
+  the packed ``(wsum | visits)`` plane, then walk every game from its root
+  to a leaf (replaces ``pallas_kernels.select_apply_packed``),
+* :func:`select_apply_packed1` - the level-2 engine: the same on the
+  1-plane ``(prior | wsum | visits)`` word (replaces
+  ``pallas_kernels.select_apply_packed1``),
+* :func:`select_apply` - the level-0 engine: the same on three f32 planes,
+  with unquantized values (replaces ``pallas_kernels.select_apply_pallas``),
+* :func:`select` - the read-only walk over three f32 planes, behind the
+  per-phase search API (replaces ``pallas_kernels.select_pallas``),
+* :func:`backup` - the f32 backup adds of a recorded path: the flush after
+  every engine's rollout loop (replaces ``pallas_kernels.backup_pallas``).
 
-Each wrapper runs its plain torch version (``*_plain``) when - and only
-when - its tensors lie on the CPU; on CUDA tensors it launches the kernel
-or raises.  ``launches`` on each wrapper counts the kernel launches.
+The four walks share one CUDA walk (``csrc/walk.cuh``) and one plain walk
+(:func:`_walk_plain`); they differ in how a node's row is loaded.  Each
+wrapper runs its plain torch version (``*_plain``) when - and only when -
+its tensors lie on the CPU; on CUDA tensors it launches the kernel or
+raises.  ``launches`` on each wrapper counts the kernel launches.
 
-Packed plane: one int32 word per edge, ``[round(wsum * S) u16 | visits
-u16]`` with ``S = value_scale(R)``; leaf values are quantized to the 1/S
-grid before they are backed up, so every sum is exact.
+Packed plane (level 1): one int32 word per edge, ``[round(wsum * S) u16 |
+visits u16]`` with ``S = value_scale(R)``.  1-plane word (level 2):
+``[prior u11 | wsum * S1 | visits]`` per :func:`packed1_layout`.  Leaf
+values are quantized to the 1/S grid (and at level 2 prior rows to the
+1/2048 grid) before they are stored, so every sum is exact.
 """
 from __future__ import annotations
 
@@ -73,9 +83,79 @@ def unpack_visits(packed: torch.Tensor) -> torch.Tensor:
     return (packed & 0xFFFF).to(torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# 1-plane (prior | wsum | visits) helpers
+# ---------------------------------------------------------------------------
+
+PRIOR_BITS = 11
+_PRIOR_GRID = float(1 << PRIOR_BITS)
+
+
+class Packed1Layout(NamedTuple):
+    """Field sizes of the 1-plane word ``[prior u11 | wsum * scale
+    u(bits_w) | visits u(bits_v)]``."""
+
+    bits_v: int
+    bits_w: int
+    scale: int
+
+
+def packed1_layout(rollouts: int) -> Packed1Layout:
+    """The 1-plane word of an R-rollout search: the visits field holds R,
+    the wsum field gets the rest below the prior, and ``scale`` is the
+    largest power of two with R * scale inside the wsum field."""
+    bits_v = max(1, int(rollouts).bit_length())
+    bits_w = 32 - PRIOR_BITS - bits_v
+    if bits_w < 8:
+        raise ValueError(f"rollouts={rollouts} leaves {bits_w} < 8 wsum "
+                         "bits in the 1-plane word")
+    s = 1
+    while rollouts * (s * 2) < (1 << bits_w):
+        s *= 2
+    return Packed1Layout(bits_v, bits_w, s)
+
+
+def quantize_prior(p: torch.Tensor) -> torch.Tensor:
+    """Round a prior in [0, 1] to the 1/2048 grid (half to even), clamped
+    to 2047/2048 so that 1.0 fits the u11 field."""
+    return (torch.clamp_max(torch.round(p * _PRIOR_GRID), _PRIOR_GRID - 1.0)
+            * (1.0 / _PRIOR_GRID))
+
+
+def _prior_fix(p: torch.Tensor) -> torch.Tensor:
+    """The u11 prior field of ``p`` as int64."""
+    return torch.clamp_max(torch.round(p * _PRIOR_GRID),
+                           _PRIOR_GRID - 1.0).to(torch.int64)
+
+
+def pack1_stats(prior, wsum, visits, layout: Packed1Layout) -> torch.Tensor:
+    """f32 x3 -> i32 ``[prior u11 | wsum fix | visits]``; lossless for
+    on-grid prior and wsum and integer visits."""
+    bits_v, bits_w, s = layout
+    wfix = torch.round(wsum * s).to(torch.int64)
+    return _as_int32((_prior_fix(prior) << (bits_v + bits_w))
+                     | (wfix << bits_v) | visits.to(torch.int64))
+
+
+def unpack1_prior(packed: torch.Tensor, layout: Packed1Layout):
+    """Top 11 bits -> f32 (masked: torch's ``>>`` on int32 is
+    arithmetic, and the field uses bit 31)."""
+    fix = (packed >> (layout.bits_v + layout.bits_w)) & ((1 << PRIOR_BITS) - 1)
+    return fix.to(torch.float32) * (1.0 / _PRIOR_GRID)
+
+
+def unpack1_wsum(packed: torch.Tensor, layout: Packed1Layout):
+    fix = (packed >> layout.bits_v) & ((1 << layout.bits_w) - 1)
+    return fix.to(torch.float32) * (1.0 / layout.scale)
+
+
+def unpack1_visits(packed: torch.Tensor, layout: Packed1Layout):
+    return (packed & ((1 << layout.bits_v) - 1)).to(torch.float32)
+
+
 class PendingUpdate(NamedTuple):
     """One rollout's deferred stat writes, applied by the next rollout's
-    :func:`select_apply_packed`."""
+    select_apply kernel."""
 
     nodes: torch.Tensor  # i32[D, G] - recorded path (backup targets)
     actions: torch.Tensor  # i32[D, G]
@@ -138,34 +218,18 @@ def node_policy_rows(P, Q, N, cpuct):
     return torch.where(fresh[None, :], P, top / (alpha[None, :] - Q))
 
 
-def select_apply_packed_plain(prior, packed, parent, action_from, expanded,
-                              probs, pend: PendingUpdate, cpuct: float,
-                              scale: int) -> Selection:
-    """Plain torch version of :func:`select_apply_packed` (same arguments,
-    same in-place updates, same result), lockstep over games."""
-    A, V, G = prior.shape
-    D = probs.shape[0]
-    g = torch.arange(G, device=prior.device)
-
-    # pending prior-row write; leaf == V means a full tree: nothing to write
-    w = pend.write & (pend.leaf < V)
-    prior[:, pend.leaf.long()[w], g[w]] = pend.newp[:, w]
-
-    # pending backup adds: one integer add of (contrib*S) << 16 | 1 per edge
-    for d in range(pend.nodes.shape[0]):
-        valid = pend.nodes[d] >= 0
-        cfix = (_path_contrib(pend.length, pend.value, d) * scale
-                ).to(torch.int64)
-        idx = (pend.actions[d].long()[valid], pend.nodes[d].long()[valid],
-               g[valid])
-        packed[idx] = _as_int32(packed[idx].to(torch.int64)
-                                + ((cfix[valid] << 16) + 1))
-
-    # the walk
-    nodes_out = torch.full((D, G), -1, dtype=torch.int32, device=prior.device)
-    actions_out = torch.zeros((D, G), dtype=torch.int32, device=prior.device)
-    node = torch.zeros((G,), dtype=torch.int32, device=prior.device)
-    found = torch.zeros((G,), dtype=torch.bool, device=prior.device)
+def _walk_plain(load_rows, parent, action_from, expanded, probs,
+                cpuct: float) -> Selection:
+    """Plain version of the CUDA walk (``csrc/walk.cuh``), lockstep over
+    games.  ``load_rows(n, g)`` returns the (prior, wsum, visits) f32 rows
+    [A, G] of node ``n[g]`` of each game."""
+    D, G = probs.shape
+    dev = probs.device
+    g = torch.arange(G, device=dev)
+    nodes_out = torch.full((D, G), -1, dtype=torch.int32, device=dev)
+    actions_out = torch.zeros((D, G), dtype=torch.int32, device=dev)
+    node = torch.zeros((G,), dtype=torch.int32, device=dev)
+    found = torch.zeros((G,), dtype=torch.bool, device=dev)
     leaf_action = torch.zeros_like(node)
     needs_alloc = torch.zeros_like(found)
     root_pi = None
@@ -174,11 +238,9 @@ def select_apply_packed_plain(prior, packed, parent, action_from, expanded,
             break
         n = node.long()
         exp = expanded[n, g]
-        PK = packed[:, n, g]
-        W = unpack_wsum(PK, scale)
-        N = unpack_visits(PK)
+        P, W, N = load_rows(n, g)
         Q = torch.where(N > 0, W / torch.clamp_min(N, 1.0), 0.0)
-        PI = node_policy_rows(prior[:, n, g], Q, N, cpuct)
+        PI = node_policy_rows(P, Q, N, cpuct)
         if d == 0:
             root_pi = PI
         action = cdf_sample(PI, probs[d])
@@ -193,6 +255,83 @@ def select_apply_packed_plain(prior, packed, parent, action_from, expanded,
         node = torch.where(live & (cid > 0), cid, node)
     return Selection(nodes_out, actions_out, node, leaf_action, needs_alloc,
                      root_pi)
+
+
+def _write_rows(plane, pend: PendingUpdate, rows) -> None:
+    """The pending prior-row write: ``rows`` [A, G] at each writing lane's
+    leaf, in place; leaf == V means a full tree: nothing to write."""
+    V, G = plane.shape[1], plane.shape[2]
+    g = torch.arange(G, device=plane.device)
+    w = pend.write & (pend.leaf < V)
+    plane[:, pend.leaf.long()[w], g[w]] = rows[:, w]
+
+
+def _add_paths_packed(packed, pend: PendingUpdate, scale: int,
+                      wshift: int) -> None:
+    """The pending backup adds on a packed plane, in place: one integer
+    add of ``(contrib * scale) << wshift | 1`` per edge, folded back to the
+    int32 bit pattern."""
+    g = torch.arange(packed.shape[2], device=packed.device)
+    for d in range(pend.nodes.shape[0]):
+        valid = pend.nodes[d] >= 0
+        cfix = (_path_contrib(pend.length, pend.value, d) * scale
+                ).to(torch.int64)
+        idx = (pend.actions[d].long()[valid], pend.nodes[d].long()[valid],
+               g[valid])
+        packed[idx] = _as_int32(packed[idx].to(torch.int64)
+                                + ((cfix[valid] << wshift) + 1))
+
+
+def select_apply_packed_plain(prior, packed, parent, action_from, expanded,
+                              probs, pend: PendingUpdate, cpuct: float,
+                              scale: int) -> Selection:
+    """Plain torch version of :func:`select_apply_packed` (same arguments,
+    same in-place updates, same result)."""
+    _write_rows(prior, pend, pend.newp)
+    _add_paths_packed(packed, pend, scale, 16)
+
+    def rows(n, g):
+        pk = packed[:, n, g]
+        return prior[:, n, g], unpack_wsum(pk, scale), unpack_visits(pk)
+
+    return _walk_plain(rows, parent, action_from, expanded, probs, cpuct)
+
+
+def select_apply_packed1_plain(packed, parent, action_from, expanded, probs,
+                               pend: PendingUpdate, cpuct: float,
+                               layout: Packed1Layout) -> Selection:
+    """Plain torch version of :func:`select_apply_packed1`: the pending row
+    overwrites whole words (quantized prior, zero stats)."""
+    bits_v, bits_w, s = layout
+    _write_rows(packed, pend,
+                _as_int32(_prior_fix(pend.newp) << (bits_v + bits_w)))
+    _add_paths_packed(packed, pend, s, bits_v)
+
+    def rows(n, g):
+        pk = packed[:, n, g]
+        return (unpack1_prior(pk, layout), unpack1_wsum(pk, layout),
+                unpack1_visits(pk, layout))
+
+    return _walk_plain(rows, parent, action_from, expanded, probs, cpuct)
+
+
+def select_apply_plain(prior, wsum, visits, parent, action_from, expanded,
+                       probs, pend: PendingUpdate, cpuct: float) -> Selection:
+    """Plain torch version of :func:`select_apply`: f32 adds of the
+    unquantized value, one per edge."""
+    _write_rows(prior, pend, pend.newp)
+    backup_plain(wsum, visits, pend.nodes, pend.actions, pend.length,
+                 pend.value)
+    return select_plain(prior, wsum, visits, parent, action_from, expanded,
+                        probs, cpuct)
+
+
+def select_plain(prior, wsum, visits, parent, action_from, expanded, probs,
+                 cpuct: float) -> Selection:
+    """Plain torch version of :func:`select`: the read-only walk."""
+    return _walk_plain(
+        lambda n, g: (prior[:, n, g], wsum[:, n, g], visits[:, n, g]),
+        parent, action_from, expanded, probs, cpuct)
 
 
 def backup_plain(wsum, visits, nodes, actions, length, value) -> None:
@@ -226,17 +365,77 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _check_walk(kernel, planes, parent, action_from, expanded, probs,
+                pend=None):
+    """Validate a walk kernel's arguments against the first stat plane's
+    [A, V, G] and probs' D.  ``planes``: (name, tensor, dtype) of each stat
+    plane.  Returns (A, V, G, D)."""
+    A, V, G = planes[0][1].shape
+    D = probs.shape[0]
+    dev = planes[0][1].device
+    if not 1 <= A <= MAX_ACTIONS:
+        raise ValueError(f"{kernel}: A={A} outside 1..{MAX_ACTIONS}")
+    specs = [(name, t, dt, (A, V, G)) for name, t, dt in planes] + [
+        ("parent", parent, torch.int32, (V, G)),
+        ("action_from", action_from, torch.int32, (V, G)),
+        ("expanded", expanded, torch.bool, (V, G)),
+        ("probs", probs, torch.float32, (D, G)),
+    ]
+    if pend is not None:
+        specs += [
+            ("pend.nodes", pend.nodes, torch.int32, (D, G)),
+            ("pend.actions", pend.actions, torch.int32, (D, G)),
+            ("pend.length", pend.length, torch.int32, (G,)),
+            ("pend.value", pend.value, torch.float32, (G,)),
+            ("pend.leaf", pend.leaf, torch.int32, (G,)),
+            ("pend.newp", pend.newp, torch.float32, (A, G)),
+            ("pend.write", pend.write, torch.bool, (G,)),
+        ]
+    for name, t, dt, shape in specs:
+        _check(f"{kernel}: {name}", t, dt, shape, dev)
+    return A, V, G, D
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
-
-
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(entry: str, device, *args) -> None:
+    """Call the library's ``entry`` with ``args`` (tensors as pointers) and
+    the current stream on ``device``; raise on a launch error."""
+    from .._build import load_library
+
+    lib = load_library()
+    args = [_ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, _stream())
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+
+
+def _selection_out(A, G, D, dev) -> Selection:
+    return Selection(
+        nodes=torch.empty((D, G), dtype=torch.int32, device=dev),
+        actions=torch.empty((D, G), dtype=torch.int32, device=dev),
+        leaf=torch.empty((G,), dtype=torch.int32, device=dev),
+        leaf_action=torch.empty((G,), dtype=torch.int32, device=dev),
+        needs_alloc=torch.empty((G,), dtype=torch.bool, device=dev),
+        root_pi=torch.empty((A, G), dtype=torch.float32, device=dev),
+    )
+
+
+def _on_cuda(kernel: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor (the plain version
+    runs); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for {t.device}")
+    return True
 
 
 def select_apply_packed(prior, packed, parent, action_from, expanded, probs,
@@ -249,59 +448,82 @@ def select_apply_packed(prior, packed, parent, action_from, expanded, probs,
     ``action_from`` i32[V, G], ``expanded`` bool[V, G], ``probs`` f32[D, G]
     (one uniform per depth), ``pend`` the previous rollout's
     :class:`PendingUpdate`.  Returns the :class:`Selection`."""
-    if prior.device.type == "cpu":
+    if not _on_cuda("select_apply_packed", prior):
         return select_apply_packed_plain(prior, packed, parent, action_from,
                                          expanded, probs, pend, cpuct, scale)
-    if prior.device.type != "cuda":
-        raise ValueError(f"select_apply_packed: no kernel for {prior.device}")
-    A, V, G = prior.shape
-    D = probs.shape[0]
-    dev = prior.device
-    if not 1 <= A <= MAX_ACTIONS:
-        raise ValueError(f"select_apply_packed: A={A} outside 1..{MAX_ACTIONS}")
-    for name, t, dt, shape in (
-        ("prior", prior, torch.float32, (A, V, G)),
-        ("packed", packed, torch.int32, (A, V, G)),
-        ("parent", parent, torch.int32, (V, G)),
-        ("action_from", action_from, torch.int32, (V, G)),
-        ("expanded", expanded, torch.bool, (V, G)),
-        ("probs", probs, torch.float32, (D, G)),
-        ("pend.nodes", pend.nodes, torch.int32, (D, G)),
-        ("pend.actions", pend.actions, torch.int32, (D, G)),
-        ("pend.length", pend.length, torch.int32, (G,)),
-        ("pend.value", pend.value, torch.float32, (G,)),
-        ("pend.leaf", pend.leaf, torch.int32, (G,)),
-        ("pend.newp", pend.newp, torch.float32, (A, G)),
-        ("pend.write", pend.write, torch.bool, (G,)),
-    ):
-        _check(name, t, dt, shape, dev)
-    from .._build import load_library
-
-    lib = load_library()
-    out = Selection(
-        nodes=torch.empty((D, G), dtype=torch.int32, device=dev),
-        actions=torch.empty((D, G), dtype=torch.int32, device=dev),
-        leaf=torch.empty((G,), dtype=torch.int32, device=dev),
-        leaf_action=torch.empty((G,), dtype=torch.int32, device=dev),
-        needs_alloc=torch.empty((G,), dtype=torch.bool, device=dev),
-        root_pi=torch.empty((A, G), dtype=torch.float32, device=dev),
-    )
-    with torch.cuda.device(dev):
-        err = lib.launch_select_apply_packed(
-            _ptr(prior), _ptr(packed), _ptr(parent), _ptr(action_from),
-            _ptr(expanded), _ptr(probs),
-            _ptr(pend.nodes), _ptr(pend.actions), _ptr(pend.length),
-            _ptr(pend.value), _ptr(pend.leaf), _ptr(pend.newp),
-            _ptr(pend.write),
-            _ptr(out.nodes), _ptr(out.actions), _ptr(out.leaf),
-            _ptr(out.leaf_action), _ptr(out.needs_alloc), _ptr(out.root_pi),
-            A, V, G, D, ctypes.c_float(cpuct), scale, _stream())
-    _raise_on(err, "select_apply_packed launch")
+    A, V, G, D = _check_walk(
+        "select_apply_packed",
+        (("prior", prior, torch.float32), ("packed", packed, torch.int32)),
+        parent, action_from, expanded, probs, pend)
+    out = _selection_out(A, G, D, prior.device)
+    _launch("launch_select_apply_packed", prior.device, prior, packed,
+            parent, action_from, expanded, probs, *pend, *out, A, V, G, D,
+            ctypes.c_float(cpuct), scale)
     select_apply_packed.launches += 1
     return out
 
 
-select_apply_packed.launches = 0
+def select_apply_packed1(packed, parent, action_from, expanded, probs,
+                         pend: PendingUpdate, cpuct: float,
+                         layout: Packed1Layout) -> Selection:
+    """:func:`select_apply_packed` on the 1-plane word: ``packed``
+    i32[A, V, G] (``[prior u11 | wsum | visits]`` per ``layout``) is
+    updated in place; the pending row is written quantized, with zero
+    stats."""
+    if not _on_cuda("select_apply_packed1", packed):
+        return select_apply_packed1_plain(packed, parent, action_from,
+                                          expanded, probs, pend, cpuct,
+                                          layout)
+    A, V, G, D = _check_walk(
+        "select_apply_packed1", (("packed", packed, torch.int32),),
+        parent, action_from, expanded, probs, pend)
+    out = _selection_out(A, G, D, packed.device)
+    _launch("launch_select_apply_packed1", packed.device, packed, parent,
+            action_from, expanded, probs, *pend, *out, A, V, G, D,
+            ctypes.c_float(cpuct), *layout)
+    select_apply_packed1.launches += 1
+    return out
+
+
+def select_apply(prior, wsum, visits, parent, action_from, expanded, probs,
+                 pend: PendingUpdate, cpuct: float) -> Selection:
+    """:func:`select_apply_packed` on three f32 planes ``prior``, ``wsum``
+    and ``visits`` [A, V, G] (updated in place), with the pending value
+    backed up as it is (no quantization)."""
+    if not _on_cuda("select_apply", prior):
+        return select_apply_plain(prior, wsum, visits, parent, action_from,
+                                  expanded, probs, pend, cpuct)
+    f32 = torch.float32
+    A, V, G, D = _check_walk(
+        "select_apply", (("prior", prior, f32), ("wsum", wsum, f32),
+                         ("visits", visits, f32)),
+        parent, action_from, expanded, probs, pend)
+    out = _selection_out(A, G, D, prior.device)
+    _launch("launch_select_apply", prior.device, prior, wsum, visits, parent,
+            action_from, expanded, probs, *pend, *out, A, V, G, D,
+            ctypes.c_float(cpuct))
+    select_apply.launches += 1
+    return out
+
+
+def select(prior, wsum, visits, parent, action_from, expanded, probs,
+           cpuct: float) -> Selection:
+    """The read-only walk over three f32 planes [A, V, G]: every game from
+    its root to a leaf."""
+    if not _on_cuda("select", prior):
+        return select_plain(prior, wsum, visits, parent, action_from,
+                            expanded, probs, cpuct)
+    f32 = torch.float32
+    A, V, G, D = _check_walk(
+        "select", (("prior", prior, f32), ("wsum", wsum, f32),
+                   ("visits", visits, f32)),
+        parent, action_from, expanded, probs)
+    out = _selection_out(A, G, D, prior.device)
+    _launch("launch_select", prior.device, prior, wsum, visits, parent,
+            action_from, expanded, probs, *out, A, V, G, D,
+            ctypes.c_float(cpuct))
+    select.launches += 1
+    return out
 
 
 def backup(wsum, visits, nodes, actions, length, value) -> None:
@@ -309,10 +531,8 @@ def backup(wsum, visits, nodes, actions, length, value) -> None:
     ``visits += 1`` (f32, in place).  wsum/visits f32[A, V, G], nodes and
     actions i32[D, G] (node -1 = nothing recorded), length i32[G], value
     f32[G]."""
-    if wsum.device.type == "cpu":
+    if not _on_cuda("backup", wsum):
         return backup_plain(wsum, visits, nodes, actions, length, value)
-    if wsum.device.type != "cuda":
-        raise ValueError(f"backup: no kernel for {wsum.device}")
     A, V, G = wsum.shape
     D = nodes.shape[0]
     dev = wsum.device
@@ -324,21 +544,19 @@ def backup(wsum, visits, nodes, actions, length, value) -> None:
         ("length", length, torch.int32, (G,)),
         ("value", value, torch.float32, (G,)),
     ):
-        _check(name, t, dt, shape, dev)
-    from .._build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.launch_backup(
-            _ptr(wsum), _ptr(visits), _ptr(nodes), _ptr(actions),
-            _ptr(length), _ptr(value), A, V, G, D, _stream())
-    _raise_on(err, "backup launch")
+        _check(f"backup: {name}", t, dt, shape, dev)
+    _launch("launch_backup", dev, wsum, visits, nodes, actions, length, value,
+            A, V, G, D)
     backup.launches += 1
 
 
-backup.launches = 0
+KERNELS = (select_apply_packed, select_apply_packed1, select_apply, select,
+           backup)
 
 
 def reset_launch_counts() -> None:
-    select_apply_packed.launches = 0
-    backup.launches = 0
+    for k in KERNELS:
+        k.launches = 0
+
+
+reset_launch_counts()

@@ -1,33 +1,44 @@
-"""Batched MCTS: the packed, pipelined rollout loop.
+"""Batched MCTS: the per-phase search and the pipelined rollout loop.
 
-Counterpart of :mod:`alphatpu.mcts.search`, ported on the reference's
-production engine only: the packed level-1 pipeline (``fused_body_packed``
-and its unpack-and-flush).  Per rollout:
+Counterpart of :mod:`alphatpu.mcts.search`.  Two ways to search:
 
-* :func:`~alphatpu_torch.mcts.kernels.select_apply_packed` applies the
-  previous rollout's deferred writes (its leaf's prior row and its backup
-  adds on the packed ``(wsum | visits)`` plane) and walks every game from
-  the root to a leaf,
-* the net evaluates every game's leaf in one batch,
-* :func:`expand` allocates the new children and computes the leaf's prior
-  row, which - with the path and the leaf value - becomes the next
-  rollout's :class:`~alphatpu_torch.mcts.kernels.PendingUpdate`.
+* the per-phase API of the reference - :func:`select` (the read-only walk,
+  the ``select`` kernel; :func:`descend` is its plain version),
+  :func:`leaf_positions`, :func:`expand` and :func:`backup` (the
+  ``backup`` kernel) - one rollout at a time, the stats written at once;
+* :func:`run_mcts`, the pipelined rollout loop with three engines, as in
+  the reference (search.py:474-505).  Per rollout one select_apply kernel
+  applies the previous rollout's deferred writes (its leaf's prior row and
+  its backup adds) and walks every game from the root to a leaf; the net
+  evaluates every game's leaf in one batch; :func:`expand` allocates the
+  new children and computes the leaf's prior row, which - with the path
+  and the leaf value - becomes the next rollout's
+  :class:`~alphatpu_torch.mcts.kernels.PendingUpdate`.  After the loop
+  the f32 stats are rebuilt from the engine's plane and the last pending
+  update is flushed (:func:`backup_flush`).
 
-After the loop the f32 stats are rebuilt from the packed plane and the last
-pending update is flushed (:func:`backup_flush`).  The tree is updated in
-place throughout; the reference rebuilt its arrays.
+The engines (:func:`engine_level`):
+
+* level 1, the default: ``select_apply_packed`` on the packed ``(wsum |
+  visits)`` plane, leaf values on the 1/value_scale(R) grid,
+* level 2 (``packed_stats=2`` or ``ALPHATPU_PACK=2``):
+  ``select_apply_packed1`` on the 1-plane ``(prior | wsum | visits)``
+  word, leaf values on the 1/S1 grid and prior rows on the 1/2048 grid,
+* level 0, f32 (``packed_stats=False``, ``ALPHATPU_NO_PACK=1``, or a
+  pre-grown tree, ``segment_rollouts=False``): ``select_apply`` on three
+  f32 planes, values unquantized.
+
+The tree is updated in place throughout; the reference rebuilt its arrays.
 """
 from __future__ import annotations
 
-from typing import Callable
+import os
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..games.base import where_games
-from .kernels import (
-    PendingUpdate, backup, empty_pending, pack_stats, quantize_value,
-    select_apply_packed, unpack_visits, unpack_wsum, value_scale,
-)
+from . import kernels as K
 from .newton import regularized_policy
 from .tree import Tree, gather_states, scatter_states
 
@@ -104,11 +115,88 @@ def leaf_value_of(leaf_player, value_nn, done, result):
     return torch.where(done, terminal, value_nn)
 
 
-def backup_flush(tree: Tree, pend: PendingUpdate) -> None:
+class Path(NamedTuple):
+    """Edges traversed in one rollout: entry d is the edge taken at depth
+    d (node -1 = the game recorded nothing at that depth)."""
+
+    nodes: torch.Tensor  # i32[D, G]
+    actions: torch.Tensor  # i32[D, G]
+    length: torch.Tensor  # i32[G] - number of recorded edges
+
+
+def _walk_result(sel: K.Selection):
+    path = Path(sel.nodes, sel.actions,
+                (sel.nodes >= 0).sum(0, dtype=torch.int32))
+    return path, sel.leaf, sel.leaf_action, sel.needs_alloc, sel.root_pi
+
+
+def descend(game, tree: Tree, probs, cpuct):
+    """Walk every game from its root to a leaf, computing each node's
+    regularized policy on the fly; read-only over the tree.  The plain
+    torch version of :func:`select`'s kernel.
+
+    ``probs``: f32[D, G] uniforms, one per depth.  Returns ``(path, node,
+    leaf_action, needs_alloc, root_pi)``: lanes with ``needs_alloc`` sampled
+    an edge with no child yet (``node`` is its parent); the others stopped
+    at the unexpanded node ``node``; ``root_pi`` [A, G] is the depth-0
+    policy."""
+    return _walk_result(K.select_plain(
+        tree.prior, tree.wsum, tree.visits, tree.parent, tree.action_from,
+        tree.expanded, probs, cpuct))
+
+
+def select(game, tree: Tree, probs, cpuct):
+    """One rollout's walk, as :func:`descend` returns it: the ``select``
+    kernel on a tree on the card, :func:`descend` on a tree on the CPU."""
+    return _walk_result(K.select(
+        tree.prior, tree.wsum, tree.visits, tree.parent, tree.action_from,
+        tree.expanded, probs.contiguous(), cpuct))
+
+
+def backup(tree: Tree, path: Path, leaf_player, value_nn, done, result,
+           value_scale: int | None = None) -> Tree:
+    """Back up every game's leaf value along its recorded path, in place:
+    per edge wsum += the parity-flipped value, visits += 1 (the ``backup``
+    kernel).  ``value_scale`` first rounds the value to the 1/value_scale
+    grid, as the level-1 engine stores it.  Returns ``tree``."""
+    leaf_value = leaf_value_of(leaf_player, value_nn, done, result)
+    if value_scale is not None:
+        leaf_value = K.quantize_value(leaf_value, value_scale)
+    K.backup(tree.wsum, tree.visits, path.nodes, path.actions, path.length,
+             leaf_value)
+    return tree
+
+
+def backup_flush(tree: Tree, pend: K.PendingUpdate) -> None:
     """Apply a pending update's backup adds to the f32 stats, in place
     (the flush after the rollout loop; one kernel launch)."""
-    backup(tree.wsum, tree.visits, pend.nodes, pend.actions, pend.length,
-           pend.value)
+    K.backup(tree.wsum, tree.visits, pend.nodes, pend.actions, pend.length,
+             pend.value)
+
+
+def engine_level(packed_stats, segment_rollouts: bool) -> int:
+    """The engine ``run_mcts`` runs: 0 (f32), 1 (packed) or 2 (1-plane).
+
+    ``packed_stats=None`` picks ``ALPHATPU_PACK`` (default 1) on a fresh
+    tree, and the f32 engine under ``ALPHATPU_NO_PACK`` or on a pre-grown
+    tree (``segment_rollouts=False``); both switches are read at each call.
+    An explicit level >= 1 on a pre-grown tree raises: the packed fields
+    bound one fresh search's stats only."""
+    if packed_stats is None:
+        if not segment_rollouts or os.environ.get("ALPHATPU_NO_PACK"):
+            return 0
+        level = int(os.environ.get("ALPHATPU_PACK") or 1)
+    else:
+        level = int(packed_stats)
+        if level and not segment_rollouts:
+            raise ValueError(
+                f"packed_stats={packed_stats!r} requires a freshly reset tree "
+                "(segment_rollouts=True): the packed fields bound a single "
+                "search's visits and wsum only.  Search a pre-grown tree "
+                "with packed_stats=False (the f32 engine).")
+    if level not in (0, 1, 2):
+        raise ValueError(f"stat engine level {level}: expected 0, 1 or 2")
+    return level
 
 
 def run_mcts(
@@ -125,9 +213,9 @@ def run_mcts(
     segment_rollouts: bool = True,
     packed_stats: bool | int | None = None,
 ):
-    """One search over all games from a freshly reset ``tree``:
-    ``rollouts`` x (select -> batched net forward -> expand), pipelined
-    through the packed stat plane, then unpack and flush.
+    """One search over all games: ``rollouts`` x (select -> batched net
+    forward -> expand), pipelined through the engine's stat plane, then
+    unpack and flush.
 
     ``net(enc [G, in]) -> (logits [G, A], value [G])``.  ``probs``: optional
     f32[rollouts, D, G] uniforms (D = min(max_game_length, V)), one per
@@ -139,40 +227,58 @@ def run_mcts(
     computed (the reference's convention), or with ``final_root_policy``
     the policy recomputed from the final stats.
 
-    Only the reference's production engine is ported: ``packed_stats``
-    must be None, True or 1 and ``segment_rollouts`` True (the tree must be
-    freshly reset - the u16 halves of the packed word bound one search's
-    stats), and the stats f32.  The reference's ``vseg`` node-span
-    segmentation is dropped: it bounded the TPU's HBM stream of each
-    rollout and never changed a result.
+    ``segment_rollouts=False`` declares a pre-grown tree, and
+    ``packed_stats`` picks the engine (:func:`engine_level`).  The stats
+    must be f32.  The reference's ``vseg`` node-span segmentation is
+    dropped: it bounded the TPU's HBM stream of each rollout and never
+    changed a result.
     """
-    if packed_stats not in (None, True, 1):
-        raise ValueError(f"packed_stats={packed_stats!r}: only the packed "
-                         "level-1 engine (None/True/1) is ported")
-    if not segment_rollouts:
-        raise ValueError("segment_rollouts=False (a pre-grown tree) is not "
-                         "supported: the packed engine needs a fresh tree")
-    if tree.prior.dtype != torch.float32:
-        raise ValueError(f"stats of dtype {tree.prior.dtype}: only f32 "
-                         "stats are supported")
+    level = engine_level(packed_stats, segment_rollouts)
+    for name in ("prior", "wsum", "visits"):
+        if getattr(tree, name).dtype != torch.float32:
+            raise ValueError(f"{name} stats of dtype "
+                             f"{getattr(tree, name).dtype}: only f32 stats "
+                             "are supported")
     G, A, V = tree.num_games, tree.num_actions, tree.num_nodes
     dev = tree.device
     depth_cap = min(game.max_game_length, V)
-    scale = value_scale(rollouts)
     if probs is not None and tuple(probs.shape) != (rollouts, depth_cap, G):
         raise ValueError(f"probs shape {tuple(probs.shape)}, expected "
                          f"{(rollouts, depth_cap, G)}")
+    walk_args = (tree.parent, tree.action_from, tree.expanded)
 
-    packed = pack_stats(tree.wsum, tree.visits, scale)
-    pend = empty_pending(depth_cap, A, G, dev)
+    if level == 2:
+        layout = K.packed1_layout(rollouts)
+        if rollouts * layout.scale >= 1 << layout.bits_w:
+            raise ValueError(f"rollouts={rollouts}: one search's wsum does "
+                             "not fit the 1-plane word")
+        scale = layout.scale
+        plane = K.pack1_stats(tree.prior, tree.wsum, tree.visits, layout)
+
+        def walk(p, pend):
+            return K.select_apply_packed1(plane, *walk_args, p, pend, cpuct,
+                                          layout)
+    elif level == 1:
+        scale = K.value_scale(rollouts)
+        plane = K.pack_stats(tree.wsum, tree.visits, scale)
+
+        def walk(p, pend):
+            return K.select_apply_packed(tree.prior, plane, *walk_args, p,
+                                         pend, cpuct, scale)
+    else:
+        scale = None  # f32: values are backed up unquantized
+
+        def walk(p, pend):
+            return K.select_apply(tree.prior, tree.wsum, tree.visits,
+                                  *walk_args, p, pend, cpuct)
+
+    pend = K.empty_pending(depth_cap, A, G, dev)
     root_pi = torch.zeros((A, G), dtype=torch.float32, device=dev)
     for r in range(rollouts):
         p = (probs[r] if probs is not None else
              torch.rand((depth_cap, G), generator=generator, device=dev))
         root_was_expanded = tree.expanded[0].clone()
-        sel = select_apply_packed(
-            tree.prior, packed, tree.parent, tree.action_from, tree.expanded,
-            p.contiguous(), pend, cpuct, scale)
+        sel = walk(p.contiguous(), pend)
         leaf_states = leaf_positions(game, tree, sel.leaf, sel.leaf_action,
                                      sel.needs_alloc)
         with torch.no_grad():
@@ -182,26 +288,36 @@ def run_mcts(
             game, tree, sel.leaf, sel.leaf_action, sel.needs_alloc,
             leaf_states, prior, training, write_prior=False)
         # a root expanded by this very rollout reports its fresh prior row
+        # (unquantized at every level)
         root_pi = torch.where(root_was_expanded[None, :], sel.root_pi, newp)
-        pend = PendingUpdate(
+        value = leaf_value_of(leaf_states.player, v, done, result)
+        pend = K.PendingUpdate(
             nodes=sel.nodes,
             actions=sel.actions,
             length=(sel.nodes >= 0).sum(0, dtype=torch.int32),
-            value=quantize_value(
-                leaf_value_of(leaf_states.player, v, done, result), scale),
+            value=value if scale is None else K.quantize_value(value, scale),
             leaf=leaf,
             newp=newp.contiguous(),
             write=torch.ones((G,), dtype=torch.bool, device=dev),
         )
 
     # rebuild the f32 stats from the packed plane, then flush the last
-    # rollout's writes; its values are on the 1/scale grid, so the f32
-    # adds equal the fixed-point adds the kernel would have made
-    tree.wsum.copy_(unpack_wsum(packed, scale))
-    tree.visits.copy_(unpack_visits(packed))
+    # rollout's writes; packed values are on the 1/scale grid, so the f32
+    # adds equal the fixed-point adds the kernel would have made.  The
+    # prior write is gated on pend.write: a rollouts == 0 search leaves the
+    # root row of a pre-grown tree alone.
+    row = pend.newp
+    if level == 2:
+        tree.prior.copy_(K.unpack1_prior(plane, layout))
+        tree.wsum.copy_(K.unpack1_wsum(plane, layout))
+        tree.visits.copy_(K.unpack1_visits(plane, layout))
+        row = K.quantize_prior(row)
+    elif level == 1:
+        tree.wsum.copy_(K.unpack_wsum(plane, scale))
+        tree.visits.copy_(K.unpack_visits(plane))
     w = pend.write & (pend.leaf < V)
     g = torch.arange(G, device=dev)
-    tree.prior[:, pend.leaf.long()[w], g[w]] = pend.newp[:, w]
+    tree.prior[:, pend.leaf.long()[w], g[w]] = row[:, w]
     backup_flush(tree, pend)
     if final_root_policy:
         root_pi = node_policy(tree.prior[:, 0, :], tree.wsum[:, 0, :],

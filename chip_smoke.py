@@ -7,26 +7,39 @@ Phases, each fatal on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions; no CUDA device -> exit 1,
-2. build the CUDA kernels from ``alphatpu_torch/csrc`` (nvcc, sm_90a),
-3. kernel parity on the card: each kernel against its plain torch version
-   on the same inputs - at the production shape (connect4, A=7, V=64,
-   G=8192, D=42, on a tree grown by the port's own search) and at a
-   synthetic wide shape (A=169, V=64, G=2048) - and each kernel's time
-   against its plain version's at the production shape,
+2. build the CUDA kernels from ``alphatpu_torch/csrc`` (nvcc, sm_90a, one
+   process per source) and print ptxas's register, stack and spill lines,
+3. kernel parity on the card: each of the five kernels against its plain
+   torch version on the same inputs - at the production shape (connect4,
+   A=7, V=64, G=8192, D=42, on a tree grown by the port's own search) and
+   at a synthetic wide shape (A=169, V=64, G=2048) - with each kernel's
+   time against its plain version's at the production shape; and the
+   read-only ``select`` against ``select_apply``'s walk, bit for bit,
 4. the search on the card against the port's CPU path on a small input,
-5. the main path: continuous selfplay on connect4 with the 4x512 net from a
-   fixed seed, 8192 lanes, 64 rollouts per move, 48 rounds chained through
-   the episode carry, with every kernel's launch count checked,
-6. a JSON line of the kernels, then the result line
+   at each of the three engine levels,
+5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
+   one with ``segment_rollouts=False`` (the f32 engine),
+6. the per-phase search (``search.select`` / ``expand`` / ``backup``) at
+   8192 lanes, against the f32 engine's ``run_mcts`` on the same uniforms,
+7. the main paths: continuous selfplay on connect4 with the 4x512 net from
+   a fixed seed, 8192 lanes, 64 rollouts per move - 48 rounds at level 1
+   (two chained calls), 24 under ``ALPHATPU_PACK=2``, 24 under
+   ``ALPHATPU_NO_PACK=1`` - each with its launch counts checked,
+8. a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Kernel parity: the packed and prior planes must be exactly equal; paths,
-leaves and needs_alloc exactly equal outside the CDF-tie class (a lane
-whose sampled uniform lands on a prefix-sum tie may take another action),
-at most max(2, G // 500) lanes; the root policy to rtol 1e-5; the backup's
-visits exactly and its wsum to rtol 1e-6.
+Launch counts: before each path every count is set to 0, and after it the
+counts must be exactly what the path owes (launches made for the parity
+checks are not counted).
+
+Kernel parity: the stat planes after the apply phase must be exactly equal;
+paths, leaves and needs_alloc exactly equal outside the CDF-tie class (a
+lane whose sampled uniform lands on a prefix-sum tie may take another
+action), at most max(2, G // 500) lanes; the root policy to rtol 1e-5; the
+backup's visits exactly and its wsum to rtol 1e-6.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -36,9 +49,19 @@ CPUCT = 1.5
 LANES = 8192
 ROLLOUTS = 64
 CHUNK_ROUNDS = 24
-CHUNKS = 2  # 48 rounds
-SELECT_SOURCE = "alphatpu_torch/csrc/select_apply_packed.cu"
-BACKUP_SOURCE = "alphatpu_torch/csrc/backup.cu"
+CHUNKS = 2  # 48 rounds at level 1
+WIDE = (169, 64, 2048)  # A, V, G of the synthetic wide shape
+SMALL_G = 512  # lanes of the card-vs-CPU searches
+CSRC = "alphatpu_torch/csrc/"
+PALLAS = "alphatpu/mcts/pallas_kernels.py:"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "select_apply_packed": ("select_apply_packed.cu", "1008"),
+    "select_apply_packed1": ("select_apply_packed1.cu", "1259"),
+    "select_apply": ("select_apply.cu", "707"),
+    "select": ("select.cu", "640"),
+    "backup": ("backup.cu", "1349"),
+}
 
 
 def card_line() -> str:
@@ -63,46 +86,59 @@ def diverged_lanes(a, b):
     return bad
 
 
-def compare_select(K, inputs, pend, probs, cpuct, scale):
-    """One select_apply_packed call through the kernel and one through the
-    plain version, each on its own copy of the mutable planes.  Returns
-    (n diverged lanes, max abs error, kernel Selection)."""
+def launch_counts(K) -> dict:
+    return {name: getattr(K, name).launches for name in KERNELS}
+
+
+def expect_launches(K, what: str, owed: dict) -> dict:
+    """The counts since the last reset, which must equal ``owed`` (kernels
+    not named there owe 0)."""
+    got = launch_counts(K)
+    want = {name: owed.get(name, 0) for name in KERNELS}
+    print(f"launches in {what}: {got}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, owed {want}")
+    return got
+
+
+def compare_walk(name, kernel, plain, planes):
+    """One walk kernel call and one plain call, each on its own copy of
+    the mutable ``planes``.  The planes must come out equal; returns
+    (n diverged lanes, root_pi max abs error, kernel Selection)."""
     import torch
 
-    prior, packed, parent, action_from, expanded = inputs
-    pk, ppk = prior.clone(), packed.clone()
-    pp, ppp = prior.clone(), packed.clone()
-    sk = K.select_apply_packed(pk, ppk, parent, action_from, expanded, probs,
-                               pend, cpuct, scale)
-    sp = K.select_apply_packed_plain(pp, ppp, parent, action_from, expanded,
-                                     probs, pend, cpuct, scale)
+    ka = [t.clone() for t in planes]
+    pa = [t.clone() for t in planes]
+    sk = kernel(*ka)
+    sp = plain(*pa)
     torch.cuda.synchronize()
-    if not torch.equal(pk, pp) or not torch.equal(ppk, ppp):
-        raise AssertionError("select_apply_packed: the updated planes differ")
+    for x, y in zip(ka, pa):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: the updated planes differ")
     bad = diverged_lanes(
         (sk.nodes, sk.actions, sk.leaf, sk.leaf_action, sk.needs_alloc),
         (sp.nodes, sp.actions, sp.leaf, sp.leaf_action, sp.needs_alloc))
     n = int(bad.sum())
     if n > tie_limit(bad.numel()):
-        raise AssertionError(f"select_apply_packed: {n} diverged lanes")
+        raise AssertionError(f"{name}: {n} diverged lanes")
     torch.testing.assert_close(sk.root_pi, sp.root_pi, rtol=1e-5, atol=1e-6)
-    err = float((sk.root_pi - sp.root_pi).abs().max())
-    return n, err, sk
+    return n, float((sk.root_pi - sp.root_pi).abs().max()), sk
 
 
 def pending_from(K, sel, next_idx, A, scale, gen):
     """A realistic pending update: the walk of ``sel``, a random leaf value
-    on the 1/scale grid, a random normalized prior row at the leaf."""
+    (on the 1/scale grid unless ``scale`` is None), a random normalized
+    prior row at the leaf."""
     import torch
 
     G = sel.leaf.shape[0]
     dev = sel.leaf.device
     newp = torch.rand((A, G), generator=gen, device=dev)
+    value = torch.rand((G,), generator=gen, device=dev)
     return K.PendingUpdate(
         nodes=sel.nodes, actions=sel.actions,
         length=(sel.nodes >= 0).sum(0, dtype=torch.int32),
-        value=K.quantize_value(torch.rand((G,), generator=gen, device=dev),
-                               scale),
+        value=value if scale is None else K.quantize_value(value, scale),
         leaf=torch.where(sel.needs_alloc, next_idx, sel.leaf),
         newp=newp / newp.sum(0, keepdim=True),
         write=torch.ones((G,), dtype=torch.bool, device=dev))
@@ -178,6 +214,290 @@ def synthetic_tree(A, V, G, scale, seed):
             np.full((G,), n, np.int32))
 
 
+def parity(K, tree, D, gen, cpuct, scale, label, timed):
+    """Kernel parity of the four walk kernels and backup on one tree (and
+    a level-1 ``scale``, ``D`` depths): each kernel against its plain
+    version with an
+    empty and with a real pending update, and select against
+    select_apply's walk bit for bit.  With ``timed``, each kernel's device
+    time and its plain version's wall time.  Returns {name: (max abs err,
+    ms, plain ms)}."""
+    import torch
+
+    prior, wsum, visits = tree.prior, tree.wsum, tree.visits
+    A, V, G = prior.shape
+    dev = prior.device
+    walk = (tree.parent, tree.action_from, tree.expanded)
+    layout = K.packed1_layout(V)
+    packed = K.pack_stats(wsum, visits, scale)
+    packed1 = K.pack1_stats(prior, wsum, visits, layout)
+    empty = K.empty_pending(D, A, G, dev)
+    probs = [torch.rand((D, G), generator=gen, device=dev) for _ in range(2)]
+
+    # each walk kernel: (planes, kernel(*planes, p, pend), plain, value
+    # grid of its pending update)
+    engines = {
+        "select_apply_packed": (
+            (prior, packed),
+            lambda pr, pk, p, pend: K.select_apply_packed(
+                pr, pk, *walk, p, pend, cpuct, scale),
+            lambda pr, pk, p, pend: K.select_apply_packed_plain(
+                pr, pk, *walk, p, pend, cpuct, scale), scale),
+        "select_apply_packed1": (
+            (packed1,),
+            lambda pk, p, pend: K.select_apply_packed1(
+                pk, *walk, p, pend, cpuct, layout),
+            lambda pk, p, pend: K.select_apply_packed1_plain(
+                pk, *walk, p, pend, cpuct, layout), layout.scale),
+        "select_apply": (
+            (prior, wsum, visits),
+            lambda pr, w, n, p, pend: K.select_apply(
+                pr, w, n, *walk, p, pend, cpuct),
+            lambda pr, w, n, p, pend: K.select_apply_plain(
+                pr, w, n, *walk, p, pend, cpuct), None),
+    }
+    out = {}
+    for name, (planes, kern, plain, grid) in engines.items():
+        n1, e1, sel = compare_walk(
+            name, lambda *x: kern(*x, probs[0], empty),
+            lambda *x: plain(*x, probs[0], empty), planes)
+        pend = pending_from(K, sel, tree.next_idx, A, grid, gen)
+        n2, e2, _ = compare_walk(
+            name, lambda *x: kern(*x, probs[1], pend),
+            lambda *x: plain(*x, probs[1], pend), planes)
+        depth = float((sel.nodes >= 0).sum(0).float().mean())
+        ms = plain_ms = float("nan")
+        if timed:
+            reps = 20
+            copies = [[t.clone() for t in planes] for _ in range(reps + 1)]
+            ms = device_ms(lambda i: kern(*copies[i], probs[1], pend), reps)
+            copies = [[t.clone() for t in planes] for _ in range(4)]
+            plain_ms = wall_ms(lambda i: plain(*copies[i], probs[1], pend), 3)
+            del copies
+        out[name] = (max(e1, e2), ms, plain_ms)
+        print(f"{name} parity, {label}: diverged lanes {n1}/{G} and {n2}/{G},"
+              f" root_pi max abs err {max(e1, e2):.3g}, mean path length "
+              f"{depth:.2f}" + (f"; kernel {ms:.4f} ms, plain "
+                                f"{plain_ms:.2f} ms" if timed else ""))
+
+    # select: the read-only walk, against its plain version and against
+    # select_apply's walk on the same planes with an empty pending update
+    name = "select"
+    errs, ns = [], []
+    for p in probs:
+        n, e, sk = compare_walk(
+            name, lambda *x: K.select(*x, *walk, p, cpuct),
+            lambda *x: K.select_plain(*x, *walk, p, cpuct),
+            (prior, wsum, visits))
+        errs.append(e)
+        ns.append(n)
+        s4 = K.select_apply(prior.clone(), wsum.clone(), visits.clone(),
+                            *walk, p, empty, cpuct)
+        if not all(torch.equal(x, y) for x, y in zip(sk, s4)):
+            raise AssertionError("select differs from select_apply's walk")
+    ms = plain_ms = float("nan")
+    if timed:
+        # a copy of the planes per launch, as for the other kernels: the
+        # three planes fit the 50 MB L2, and a search finds them cold
+        reps = 20
+        copies = [[t.clone() for t in (prior, wsum, visits)]
+                  for _ in range(reps + 1)]
+        ms = device_ms(lambda i: K.select(*copies[i], *walk, probs[1],
+                                          cpuct), reps)
+        plain_ms = wall_ms(lambda i: K.select_plain(
+            *copies[i], *walk, probs[1], cpuct), 3)
+        del copies
+    out[name] = (max(errs), ms, plain_ms)
+    print(f"select parity, {label}: diverged lanes {ns[0]}/{G} and "
+          f"{ns[1]}/{G}, root_pi max abs "
+          f"err {max(errs):.3g}; equal to select_apply's walk bit for bit"
+          + (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms" if timed
+             else ""))
+
+    # backup: the flush of a pending update onto the f32 stats (the path
+    # of the last engine's walk above)
+    name = "backup"
+    value = torch.rand((G,), generator=gen, device=dev)
+    bk = (wsum.clone(), visits.clone())
+    bp = (wsum.clone(), visits.clone())
+    K.backup(*bk, sel.nodes, sel.actions, pend.length, value)
+    K.backup_plain(*bp, sel.nodes, sel.actions, pend.length, value)
+    torch.cuda.synchronize()
+    if not torch.equal(bk[1], bp[1]):
+        raise AssertionError("backup: visits differ")
+    torch.testing.assert_close(bk[0], bp[0], rtol=1e-6, atol=0.0)
+    err = float(max((bk[0] - bp[0]).abs().max(), (bk[1] - bp[1]).abs().max()))
+    ms = plain_ms = float("nan")
+    if timed:
+        reps = 20
+        copies = [(wsum.clone(), visits.clone()) for _ in range(reps + 1)]
+        ms = device_ms(lambda i: K.backup(
+            *copies[i], sel.nodes, sel.actions, pend.length, value), reps)
+        plain_ms = wall_ms(lambda i: K.backup_plain(
+            *copies[i], sel.nodes, sel.actions, pend.length, value), 3)
+        del copies
+    out[name] = (err, ms, plain_ms)
+    print(f"backup parity, {label}: max abs err {err:.3g}"
+          + (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms" if timed
+             else ""))
+    return out
+
+
+def search_vs_cpu(game, net, net_cpu, dev, V, G, level):
+    """``run_mcts`` at one engine level on the card and on the CPU, from
+    the same uniforms.  Exact: the tree structure, visits and (packed
+    levels) wsum; the level-2 prior to one step of its 1/2048 grid, other
+    floats to rtol 1e-4 (the net's matmuls round differently on the two
+    devices, and a leaf value or prior that lands on the other side of a
+    grid point changes a lane; those lanes count as diverged)."""
+    import torch
+
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+
+    cpu = torch.device("cpu")
+    D = min(game.max_game_length, V)
+    probs = torch.rand((V, D, G), generator=torch.Generator().manual_seed(1))
+    searched = []
+    for d, n in ((dev, net), (cpu, net_cpu)):
+        t = init_tree(game, game.initial(G, d), V)
+        _, pi = run_mcts(game, n, t, rollouts=V, cpuct=CPUCT, training=True,
+                         probs=probs.to(d), packed_stats=level)
+        searched.append((t, pi))
+    (tg, pig), (tc, pic) = searched
+    fields = ["parent", "action_from", "expanded", "next_idx", "visits"]
+    if level:
+        fields.append("wsum")
+    bad = diverged_lanes(tuple(getattr(tg, f).cpu() for f in fields),
+                         tuple(getattr(tc, f) for f in fields))
+    n_bad = int(bad.sum())
+    if n_bad > tie_limit(G):
+        raise AssertionError(f"search card vs CPU, level {level}: {n_bad} "
+                             "diverged lanes")
+    ok = ~bad
+    grid = 1.0 / 2048 if level == 2 else 0.0
+    torch.testing.assert_close(tg.prior.cpu()[..., ok], tc.prior[..., ok],
+                               rtol=1e-4, atol=1e-6 + grid)
+    torch.testing.assert_close(tg.wsum.cpu()[..., ok], tc.wsum[..., ok],
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(pig.cpu()[:, ok], pic[:, ok], rtol=1e-4,
+                               atol=1e-6 + grid)
+    print(f"search on the card vs the CPU path, level {level} (G={G}, "
+          f"R={V}): diverged lanes {n_bad}/{G}")
+
+
+def phase_search(game, net, tree, probs, cpuct):
+    """The reference's per-rollout search through the per-phase API:
+    select -> leaf_positions -> net -> expand -> backup, one rollout at a
+    time.  Returns the root policy of the last rollout."""
+    import torch
+
+    from alphatpu_torch.mcts import search as S
+
+    root_pi = None
+    for p in probs:
+        root_was_expanded = tree.expanded[0].clone()
+        path, node, leaf_action, alloc, pi = S.select(game, tree, p, cpuct)
+        leaf_states = S.leaf_positions(game, tree, node, leaf_action, alloc)
+        with torch.no_grad():
+            logits, v = net(game.encode(leaf_states))
+        prior = torch.softmax(logits, dim=-1).T.contiguous()
+        _, done, result, newp = S.expand(game, tree, node, leaf_action, alloc,
+                                         leaf_states, prior, True)
+        root_pi = torch.where(root_was_expanded[None, :], pi, newp)
+        S.backup(tree, path, leaf_states.player, v, done, result)
+    return root_pi
+
+
+def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card):
+    """Continuous selfplay at full width under the engine switches ``env``,
+    ``chunks`` chained calls of CHUNK_ROUNDS rounds; checks the result and
+    the launches the path owes.  Returns (launches, env-steps/s)."""
+    import torch
+
+    from alphatpu_torch.buffer import buffer_size, create_buffer
+    from alphatpu_torch.selfplay import (
+        SelfplayConfig, make_carry, selfplay_continuous,
+    )
+
+    saved = {k: os.environ.get(k) for k in ("ALPHATPU_PACK",
+                                            "ALPHATPU_NO_PACK")}
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        G = LANES
+        cfg = SelfplayConfig(num_games=G, rollouts=ROLLOUTS, cpuct=CPUCT,
+                             rounds=CHUNK_ROUNDS)
+        buf = create_buffer(game, capacity=1 << 20, device=dev)
+        # warm-up (allocator, cuBLAS handles): two rounds, not counted
+        selfplay_continuous(game, net, create_buffer(game, 1 << 14,
+                                                     device=dev),
+                            torch.Generator(device=dev).manual_seed(SEED + 7),
+                            cfg._replace(rounds=2))
+        torch.cuda.synchronize()
+        carry = make_carry(game, G,
+                           torch.Generator(device=dev).manual_seed(SEED), dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        totals = {}
+        chunk_walls = []
+        for _ in range(chunks):
+            t1 = time.perf_counter()
+            buf, stats, carry = selfplay_continuous(game, net, buf, None, cfg,
+                                                    carry)
+            stats["length_sum"] = stats["mean_length"] * stats[
+                "games_finished"]
+            for k, v in stats.items():
+                totals[k] = totals.get(k, 0) + v
+            torch.cuda.synchronize()
+            chunk_walls.append(time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        rounds = chunks * CHUNK_ROUNDS
+        launches = expect_launches(
+            K, f"selfplay {label}",
+            {owed_kernel: rounds * ROLLOUTS, "backup": rounds})
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    totals = {k: float(v) for k, v in totals.items()}
+    carried = float(stats["carried"])
+    env_steps = totals["samples_written"] + carried
+    mean_len = totals["length_sum"] / max(totals["games_finished"], 1.0)
+    rate = env_steps / wall
+    print(f"selfplay {label}: connect4 4x512, {G} lanes, {ROLLOUTS} "
+          f"rollouts, {rounds} rounds in {chunks} chained calls: "
+          f"{rate:.1f} env-steps/s, wall {wall:.3f} s, "
+          f"env-steps {env_steps:.0f}, samples written "
+          f"{totals['samples_written']:.0f}, games finished "
+          f"{totals['games_finished']:.0f}, mean game length "
+          f"{mean_len:.2f}, illegal moves {totals['illegal_moves']:.0f}; "
+          f"per call " + ", ".join(f"{CHUNK_ROUNDS * G / w:.1f}"
+                                   for w in chunk_walls)
+          + f" env-steps/s  [{card}]")
+    if totals["illegal_moves"] != 0:
+        raise AssertionError(f"selfplay {label}: illegal moves")
+    if not totals["samples_written"] > 0 or not totals["games_finished"] > 0:
+        raise AssertionError(f"selfplay {label}: no samples / no game")
+    if env_steps != rounds * G:
+        raise AssertionError(f"selfplay {label}: written + carried != "
+                             "rounds x lanes")
+    n = int(buffer_size(buf))
+    if n != int(totals["samples_written"]):
+        raise AssertionError(f"selfplay {label}: buffer size != samples")
+    pol = buf.policy[:n]
+    if not bool(torch.isfinite(pol).all()):
+        raise AssertionError(f"selfplay {label}: non-finite policy rows")
+    if not bool(((pol.sum(-1) - 1.0).abs() < 0.05).all()):
+        raise AssertionError(f"selfplay {label}: policy rows do not sum to 1")
+    values = torch.unique(buf.value[:n]).tolist()
+    if not set(values) <= {0.0, 0.5, 1.0}:
+        raise AssertionError(f"selfplay {label}: back-filled values {values}")
+    return launches, rate
+
+
 def main() -> int:
     import torch
 
@@ -194,17 +514,12 @@ def main() -> int:
           f"device 0: {kind}, devices: {torch.cuda.device_count()}")
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # the level-1 phases run the default engine; selfplay_run sets the
+    # switches of the other two
+    for k in ("ALPHATPU_PACK", "ALPHATPU_NO_PACK"):
+        os.environ.pop(k, None)
 
     from alphatpu_torch import _build
-    from alphatpu_torch.buffer import buffer_size, create_buffer
-    from alphatpu_torch.games import make_game
-    from alphatpu_torch.mcts import kernels as K
-    from alphatpu_torch.mcts.search import run_mcts
-    from alphatpu_torch.mcts.tree import init_tree
-    from alphatpu_torch.nets import MLP, config_for_game
-    from alphatpu_torch.selfplay import (
-        SelfplayConfig, make_carry, selfplay_continuous,
-    )
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -212,203 +527,133 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
     for line in _build.build_report["log"].splitlines():
-        if "registers" in line or "spill" in line or "stack" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "stack")):
             print(f"  ptxas: {line.strip()}")
+
+    return smoke(dev, card, kind)
+
+
+def smoke(dev, card: str, kind: str) -> int:
+    """Phases 3-8 on the device ``dev``; ``card`` is the nvidia-smi line
+    printed beside every time, ``kind`` the device name."""
+    import torch
+
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import Tree, init_tree
+    from alphatpu_torch.nets import MLP, config_for_game
 
     # ---- 3. kernel parity ----
     game = make_game("connect4")
     net = MLP.from_seed(config_for_game(game), SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     A, V, G = game.max_actions, ROLLOUTS, LANES
-    D = min(game.max_game_length, V)
     scale = K.value_scale(ROLLOUTS)
 
     tree = init_tree(game, game.initial(G, dev), V)
     run_mcts(game, net, tree, rollouts=V - 2, cpuct=CPUCT, training=True,
              generator=gen)
-    packed = K.pack_stats(tree.wsum, tree.visits, scale)
-    inputs = (tree.prior, packed, tree.parent, tree.action_from,
-              tree.expanded)
-    empty = K.empty_pending(D, A, G, dev)
-    n1, e1, sel = compare_select(
-        K, inputs, empty, torch.rand((D, G), generator=gen, device=dev),
-        CPUCT, scale)
-    pend = pending_from(K, sel, tree.next_idx, A, scale, gen)
-    probs = torch.rand((D, G), generator=gen, device=dev)
-    n2, e2, _ = compare_select(K, inputs, pend, probs, CPUCT, scale)
-    print(f"select_apply_packed parity, connect4 A={A} V={V} G={G} D={D}: "
-          f"diverged lanes {n1}/{G} and {n2}/{G}, root_pi max abs err "
-          f"{max(e1, e2):.3g}")
-    sel_err = max(e1, e2)
+    D = min(game.max_game_length, V)
+    results = parity(K, tree, D, gen, CPUCT, scale,
+                     f"connect4 A={A} V={V} G={G} D={D}", True)
+    print(f"  [{card}]")
 
-    reps = 20
-    copies = [(tree.prior.clone(), packed.clone()) for _ in range(reps + 1)]
-    sel_ms = device_ms(lambda i: K.select_apply_packed(
-        copies[i][0], copies[i][1], tree.parent, tree.action_from,
-        tree.expanded, probs, pend, CPUCT, scale), reps)
-    plain_copies = [(tree.prior.clone(), packed.clone()) for _ in range(4)]
-    sel_plain_ms = wall_ms(lambda i: K.select_apply_packed_plain(
-        plain_copies[i][0], plain_copies[i][1], tree.parent,
-        tree.action_from, tree.expanded, probs, pend, CPUCT, scale), 3)
-    print(f"select_apply_packed at the production shape: kernel "
-          f"{sel_ms:.4f} ms, plain {sel_plain_ms:.2f} ms  [{card}]")
-
-    # backup: the flush of a pending update onto the f32 stats
-    value = torch.rand((G,), generator=gen, device=dev)
-    bk = (tree.wsum.clone(), tree.visits.clone())
-    bp = (tree.wsum.clone(), tree.visits.clone())
-    K.backup(*bk, pend.nodes, pend.actions, pend.length, value)
-    K.backup_plain(*bp, pend.nodes, pend.actions, pend.length, value)
-    torch.cuda.synchronize()
-    if not torch.equal(bk[1], bp[1]):
-        raise AssertionError("backup: visits differ")
-    torch.testing.assert_close(bk[0], bp[0], rtol=1e-6, atol=0.0)
-    bk_err = float(max((bk[0] - bp[0]).abs().max(),
-                       (bk[1] - bp[1]).abs().max()))
-    bcopies = [(tree.wsum.clone(), tree.visits.clone())
-               for _ in range(reps + 1)]
-    bk_ms = device_ms(lambda i: K.backup(
-        *bcopies[i], pend.nodes, pend.actions, pend.length, value), reps)
-    bk_plain_ms = wall_ms(lambda i: K.backup_plain(
-        *bcopies[i], pend.nodes, pend.actions, pend.length, value), 3)
-    print(f"backup parity, connect4 A={A} V={V} G={G}: max abs err "
-          f"{bk_err:.3g}; kernel {bk_ms:.4f} ms, plain {bk_plain_ms:.2f} ms"
-          f"  [{card}]")
-    del copies, plain_copies, bcopies
-
-    # the synthetic wide shape
-    Aw, Vw, Gw = 169, 64, 2048
+    Aw, Vw, Gw = WIDE
     arrays = synthetic_tree(Aw, Vw, Gw, scale, SEED + 1)
     prior_w, wsum_w, visits_w, parent_w, af_w, exp_w, next_w = (
         torch.from_numpy(x).to(dev) for x in arrays)
-    packed_w = K.pack_stats(wsum_w, visits_w, scale)
-    inputs_w = (prior_w, packed_w, parent_w, af_w, exp_w)
-    Dw = min(169, Vw)
-    n1, e1, sel_w = compare_select(
-        K, inputs_w, K.empty_pending(Dw, Aw, Gw, dev),
-        torch.rand((Dw, Gw), generator=gen, device=dev), CPUCT, scale)
-    pend_w = pending_from(K, sel_w, next_w, Aw, scale, gen)
-    n2, e2, _ = compare_select(
-        K, inputs_w, pend_w, torch.rand((Dw, Gw), generator=gen, device=dev),
-        CPUCT, scale)
-    wide_depth = float((sel_w.nodes >= 0).sum(0).float().mean())
-    print(f"select_apply_packed parity, synthetic A={Aw} V={Vw} G={Gw}: "
-          f"diverged lanes {n1}/{Gw} and {n2}/{Gw}, root_pi max abs err "
-          f"{max(e1, e2):.3g}, mean path length {wide_depth:.2f}")
-    sel_err = max(sel_err, e1, e2)
-    bk = (wsum_w.clone(), visits_w.clone())
-    bp = (wsum_w.clone(), visits_w.clone())
-    vw = torch.rand((Gw,), generator=gen, device=dev)
-    K.backup(*bk, pend_w.nodes, pend_w.actions, pend_w.length, vw)
-    K.backup_plain(*bp, pend_w.nodes, pend_w.actions, pend_w.length, vw)
-    if not torch.equal(bk[1], bp[1]):
-        raise AssertionError("backup (wide): visits differ")
-    torch.testing.assert_close(bk[0], bp[0], rtol=1e-6, atol=0.0)
-    print("backup parity, synthetic wide shape: ok")
-    del arrays, inputs_w, prior_w, wsum_w, visits_w, packed_w, bk, bp
+    wide = Tree(parent=parent_w, action_from=af_w, expanded=exp_w,
+                states=None, prior=prior_w, wsum=wsum_w, visits=visits_w,
+                next_idx=next_w)
+    wide_results = parity(K, wide, min(Aw, Vw), gen, CPUCT, scale,
+                          f"synthetic A={Aw} V={Vw} G={Gw}", False)
+    for name, (err, _, _) in wide_results.items():
+        ms, plain_ms = results[name][1:]
+        results[name] = (max(err, results[name][0]), ms, plain_ms)
+    del arrays, wide, prior_w, wsum_w, visits_w
 
     # ---- 4. the search on the card against the CPU path ----
-    Gs = 512
-    cpu = torch.device("cpu")
-    net_cpu = MLP.from_seed(config_for_game(game), SEED, device=cpu)
-    probs_s = torch.rand((V, D, Gs), generator=torch.Generator().manual_seed(1))
-    searched = []
-    for d, n in ((dev, net), (cpu, net_cpu)):
-        t = init_tree(game, game.initial(Gs, d), V)
-        _, pi = run_mcts(game, n, t, rollouts=V, cpuct=CPUCT, training=True,
-                         probs=probs_s.to(d))
-        searched.append((t, pi))
-    (tg, pig), (tc, pic) = searched
-    fields = ("parent", "action_from", "expanded", "next_idx", "wsum",
-              "visits")
-    bad = diverged_lanes(tuple(getattr(tg, f).cpu() for f in fields),
-                         tuple(getattr(tc, f) for f in fields))
-    n_bad = int(bad.sum())
-    if n_bad > tie_limit(Gs):
-        raise AssertionError(f"search card vs CPU: {n_bad} diverged lanes")
-    ok = ~bad
-    torch.testing.assert_close(tg.prior.cpu()[..., ok], tc.prior[..., ok],
-                               rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(pig.cpu()[:, ok], pic[:, ok], rtol=1e-4,
-                               atol=1e-6)
-    print(f"search on the card vs the CPU path (G={Gs}, R={V}): diverged "
-          f"lanes {n_bad}/{Gs}")
+    net_cpu = MLP.from_seed(config_for_game(game), SEED,
+                            device=torch.device("cpu"))
+    for level in (1, 2, 0):
+        search_vs_cpu(game, net, net_cpu, dev, V, SMALL_G, level)
 
-    # ---- 5. the main path: continuous selfplay ----
-    cfg = SelfplayConfig(num_games=G, rollouts=ROLLOUTS, cpuct=CPUCT,
-                         rounds=CHUNK_ROUNDS)
-    buf = create_buffer(game, capacity=1 << 20, device=dev)
-    # warm-up (allocator, cuBLAS handles): two rounds, not counted
-    selfplay_continuous(game, net, create_buffer(game, 1 << 14, device=dev),
-                        torch.Generator(device=dev).manual_seed(SEED + 7),
-                        cfg._replace(rounds=2))
+    # ---- 5. a pre-grown search at full width ----
+    half = ROLLOUTS // 2
+    tree = init_tree(game, game.initial(G, dev), V)
+    K.reset_launch_counts()
+    run_mcts(game, net, tree, rollouts=half, cpuct=CPUCT, training=True,
+             generator=gen)
+    _, pi = run_mcts(game, net, tree, rollouts=half, cpuct=CPUCT,
+                     training=True, generator=gen, segment_rollouts=False)
     torch.cuda.synchronize()
-    carry = make_carry(game, G, torch.Generator(device=dev).manual_seed(SEED),
-                       dev)
+    expect_launches(K, "the pre-grown search",
+                    {"select_apply_packed": half, "select_apply": half,
+                     "backup": 2})
+    root_total = tree.visits[:, 0, :].sum(0)
+    if not bool((root_total == 2 * half - 1).all()):
+        raise AssertionError("pre-grown search: root visits != rollouts - 1")
+    if not bool(torch.isfinite(pi).all()) or not bool(
+            (tree.wsum <= tree.visits).all()):
+        raise AssertionError("pre-grown search: bad stats")
+    print(f"pre-grown search: {G} lanes, {half} level-1 rollouts then {half}"
+          f" f32 rollouts; mean nodes allocated "
+          f"{float(tree.next_idx.float().mean()):.2f} of {V}")
+
+    # ---- 6. the per-phase search at full width ----
+    probs = torch.rand((V, D, G), generator=gen, device=dev)
+    tree = init_tree(game, game.initial(G, dev), V)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    totals = {}
-    for _ in range(CHUNKS):
-        buf, stats, carry = selfplay_continuous(game, net, buf, None, cfg,
-                                                carry)
-        stats["length_sum"] = stats["mean_length"] * stats["games_finished"]
-        for k, v in stats.items():
-            totals[k] = totals.get(k, 0) + v
+    pi = phase_search(game, net, tree, probs, CPUCT)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"select_apply_packed": K.select_apply_packed.launches,
-                "backup": K.backup.launches}
-    totals = {k: float(v) for k, v in totals.items()}
-    carried = float(stats["carried"])
-    rounds = CHUNKS * CHUNK_ROUNDS
-    env_steps = totals["samples_written"] + carried
-    mean_len = totals["length_sum"] / max(totals["games_finished"], 1.0)
-    print(f"selfplay: connect4 4x512, {G} lanes, {ROLLOUTS} rollouts, "
-          f"{rounds} rounds in {CHUNKS} chained calls: "
-          f"{env_steps / wall:.1f} env-steps/s, wall {wall:.3f} s, "
-          f"env-steps {env_steps:.0f}, samples written "
-          f"{totals['samples_written']:.0f}, games finished "
-          f"{totals['games_finished']:.0f}, mean game length "
-          f"{mean_len:.2f}, illegal moves {totals['illegal_moves']:.0f}"
-          f"  [{card}]")
-    print(f"launches in the main path: {launches}")
-    if totals["illegal_moves"] != 0:
-        raise AssertionError("illegal moves in selfplay")
-    if not totals["samples_written"] > 0 or not totals["games_finished"] > 0:
-        raise AssertionError("selfplay wrote no samples / finished no game")
-    if launches["select_apply_packed"] != rounds * ROLLOUTS:
-        raise AssertionError(f"select_apply_packed launched "
-                             f"{launches['select_apply_packed']} times")
-    if launches["backup"] != rounds:
-        raise AssertionError(f"backup launched {launches['backup']} times")
-    if env_steps != rounds * G:
-        raise AssertionError("written + carried != rounds x lanes")
-    n = int(buffer_size(buf))
-    if n != int(totals["samples_written"]):
-        raise AssertionError("buffer size != samples written")
-    pol = buf.policy[:n]
-    if not bool(torch.isfinite(pol).all()):
-        raise AssertionError("non-finite policy rows")
-    if not bool(((pol.sum(-1) - 1.0).abs() < 0.05).all()):
-        raise AssertionError("policy rows do not sum to 1")
-    values = torch.unique(buf.value[:n]).tolist()
-    if not set(values) <= {0.0, 0.5, 1.0}:
-        raise AssertionError(f"back-filled values {values}")
+    phase_wall = time.perf_counter() - t0
+    phase_launches = expect_launches(K, "the per-phase search",
+                                     {"select": V, "backup": V})
+    ref = init_tree(game, game.initial(G, dev), V)
+    _, ref_pi = run_mcts(game, net, ref, rollouts=V, cpuct=CPUCT,
+                         training=True, probs=probs, packed_stats=False)
+    fields = ("parent", "action_from", "expanded", "next_idx", "prior",
+              "wsum", "visits")
+    bad = diverged_lanes(tuple(getattr(tree, f) for f in fields) + (pi,),
+                         tuple(getattr(ref, f) for f in fields) + (ref_pi,))
+    print(f"per-phase search (select, expand, backup): {G} lanes, {V} "
+          f"rollouts in {phase_wall:.3f} s; lanes that differ from the f32 "
+          f"engine's run_mcts: {int(bad.sum())}/{G}")
+    if int(bad.sum()) != 0:
+        raise AssertionError("per-phase search != the f32 engine")
+    del tree, ref, probs
 
-    # ---- 6. result ----
+    # ---- 7. the main paths: continuous selfplay ----
+    launches = {}
+    rates = {}
+    for label, env, chunks, kernel in (
+            ("level 1", {}, CHUNKS, "select_apply_packed"),
+            ("level 2 (ALPHATPU_PACK=2)", {"ALPHATPU_PACK": "2"}, 1,
+             "select_apply_packed1"),
+            ("level 0 (ALPHATPU_NO_PACK=1)", {"ALPHATPU_NO_PACK": "1"}, 1,
+             "select_apply")):
+        got, rates[label] = selfplay_run(K, game, net, dev, label, env,
+                                         chunks, kernel, card)
+        launches[kernel] = got[kernel]
+        if kernel == "select_apply_packed":
+            launches["backup"] = got["backup"]
+    launches["select"] = phase_launches["select"]
+    print("env-steps/s in this run: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()) + f"  [{card}]")
+
+    # ---- 8. result ----
     print(json.dumps({"kernels": [
-        {"name": "select_apply_packed", "route": "cuda",
-         "source": SELECT_SOURCE,
-         "replaces": "alphatpu/mcts/pallas_kernels.py:1008",
-         "launches": launches["select_apply_packed"],
-         "max_abs_err": sel_err, "ms": sel_ms, "plain_ms": sel_plain_ms},
-        {"name": "backup", "route": "cuda", "source": BACKUP_SOURCE,
-         "replaces": "alphatpu/mcts/pallas_kernels.py:1349",
-         "launches": launches["backup"], "max_abs_err": bk_err,
-         "ms": bk_ms, "plain_ms": bk_plain_ms},
-    ]}))
+        {"name": name, "route": "cuda", "source": CSRC + src,
+         "replaces": PALLAS + line, "launches": launches[name],
+         "max_abs_err": results[name][0], "ms": results[name][1],
+         "plain_ms": results[name][2]}
+        for name, (src, line) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -1,17 +1,21 @@
 """The port's MCTS kernels against the reference's Pallas kernels.
 
-``alphatpu.mcts.pallas_kernels.select_apply_packed`` and ``backup_pallas``
-run in the Pallas interpreter on the CPU; the port's wrappers run their
-plain torch versions (the tensors lie on the CPU).  Both get the same trees,
-pending updates and uniforms, made from numpy seeds.
+``alphatpu.mcts.pallas_kernels`` runs its kernels (``select_apply_packed``,
+``select_apply_packed1``, ``select_apply_pallas``, ``select_pallas``,
+``backup_pallas``) in the Pallas interpreter on the CPU; the port's
+wrappers run their plain torch versions (the tensors lie on the CPU).
+Both get the same trees, pending updates and uniforms, made from numpy
+seeds, at connect4 (A = 7) and hex5 (A = 25, the wide-board path of the
+Pallas kernels).
 
-Tolerances: the packed and prior planes are exactly equal (integer adds
-and copies).  Paths, leaves and needs_alloc are exactly equal except on a
-lane whose CDF sample lands on a prefix-sum tie: the Pallas kernel sums
-prefixes in Hillis-Steele order and the port in action order, so such a
-lane may pick another action (pallas_kernels.py:38-42); at most 1 lane in
-128 may do so, and the test prints it.  The root policy matches to rtol
-1e-5 (the two sum the Newton terms in different orders).
+Tolerances: the stat planes after the apply phase are exactly equal
+(integer adds, copies, and one f32 add per edge).  Paths, leaves and
+needs_alloc are exactly equal except on a lane whose CDF sample lands on a
+prefix-sum tie: the Pallas kernel sums prefixes in Hillis-Steele order and
+the port in action order, so such a lane may pick another action
+(pallas_kernels.py:38-42); at most 1 lane in 128 may do so, and the test
+prints it.  The root policy matches to rtol 1e-5 (the two sum the Newton
+terms in different orders).
 """
 import jax
 import jax.numpy as jnp
@@ -23,12 +27,18 @@ from alphatpu.games import make_game as jax_make_game
 from alphatpu.mcts import pallas_kernels as PK
 from alphatpu.mcts.newton import cdf_sample as jax_cdf_sample
 from alphatpu.mcts.newton import regularized_policy as jax_regularized_policy
+from alphatpu.mcts.search import backup as jax_backup
 from alphatpu.mcts.search import descend, run_mcts
 from alphatpu.mcts.tree import init_tree
 from alphatpu.nets import apply_inference, config_for_game, init_params
 from alphatpu.selfplay import broadcast_initial
 from alphatpu_torch.mcts import kernels as K
 from alphatpu_torch.mcts.newton import cdf_sample, regularized_policy
+from alphatpu_torch.mcts.search import Path as PortPath
+from alphatpu_torch.mcts.search import backup as port_backup
+from alphatpu_torch.mcts.search import descend as port_descend
+from alphatpu_torch.mcts.search import select as port_select
+from alphatpu_torch.mcts.tree import Tree
 
 CPUCT = 1.5
 
@@ -60,6 +70,46 @@ def _diverged_lanes(a, b):
         x, y = np.asarray(x), np.asarray(y)
         bad |= (x != y).reshape(-1, x.shape[-1]).any(0)
     return np.flatnonzero(bad)
+
+
+def _real_pending(rng, tree, walk, A, V, G, scale=None):
+    """A pending update made of a walk's outputs (numpy: nodes, actions,
+    leaf, needs_alloc), with a random leaf value (on the 1/scale grid when
+    ``scale`` is given) and a random prior row; some lanes do not write,
+    and some claim leaf == V (a full tree), which must write nothing."""
+    nodes, actions, node, alloc = walk
+    leaf = np.where(alloc, tree.next_idx, node).astype(np.int32)
+    leaf[:4] = V
+    write = rng.random(G) < 0.9
+    newp = rng.random((A, G), dtype=np.float32)
+    newp /= newp.sum(0, keepdims=True)
+    value = rng.random(G, dtype=np.float32)
+    if scale is not None:
+        value = np.asarray(PK.quantize_value(jnp.asarray(value), scale))
+    return (nodes, actions, (nodes >= 0).sum(0).astype(np.int32), value,
+            leaf, newp, write)
+
+
+def _empty_pending(D, A, G):
+    return tuple(np.asarray(x) for x in K.empty_pending(D, A, G))
+
+
+def _assert_walks_match(game_name, G, jwalk, sel):
+    """The reference's walk outputs (nodes, actions, leaf, leaf_action,
+    needs_alloc, root_pi) against the port's Selection, outside the
+    CDF-tie lanes."""
+    ref = tuple(np.asarray(x) for x in jwalk[:5])
+    got = tuple(x.numpy() for x in (sel.nodes, sel.actions, sel.leaf,
+                                     sel.leaf_action, sel.needs_alloc))
+    bad = _diverged_lanes(ref, got)
+    if len(bad):
+        print(f"{game_name}: CDF-tie lanes diverged: {bad.tolist()}")
+    assert len(bad) <= G // 128, bad
+    ok = np.setdiff1d(np.arange(G), bad)
+    for x, y in zip(ref, got):
+        np.testing.assert_array_equal(x[..., ok], y[..., ok])
+    np.testing.assert_allclose(sel.root_pi.numpy(), np.asarray(jwalk[5]),
+                               rtol=1e-5, atol=1e-6)
 
 
 def _run_both(tree, probs, pend, scale):
@@ -94,24 +144,11 @@ def test_select_apply_packed_matches_pallas(game_name, G, V, monkeypatch):
     before = K.select_apply_packed.launches
 
     # call 1: the empty pending update of a first rollout
-    pend0 = tuple(np.asarray(x) for x in jax.device_get(
-        K.empty_pending(D, A, G)))
     probs = rng.random((D, G), dtype=np.float32)
-    j, sel, _, _ = _run_both(tree, probs, pend0, scale)
+    j, sel, _, _ = _run_both(tree, probs, _empty_pending(D, A, G), scale)
 
-    # call 2: a pending update made of call 1's walk, with a random value
-    # on the grid and a random prior row; some lanes do not write, and
-    # some claim leaf == V (a full tree), which must write nothing
-    nodes, actions = j[2], j[3]
-    leaf = np.where(j[6], tree.next_idx, j[4]).astype(np.int32)
-    leaf[:4] = V
-    write = rng.random(G) < 0.9
-    newp = rng.random((A, G), dtype=np.float32)
-    newp /= newp.sum(0, keepdims=True)
-    value = np.asarray(PK.quantize_value(
-        jnp.asarray(rng.random(G, dtype=np.float32)), scale))
-    pend = (nodes, actions, (nodes >= 0).sum(0).astype(np.int32), value,
-            leaf, newp, write)
+    # call 2: a real pending update made of call 1's walk
+    pend = _real_pending(rng, tree, (j[2], j[3], j[4], j[6]), A, V, G, scale)
     probs2 = rng.random((D, G), dtype=np.float32)
     j2, sel2, prior_t, packed_t = _run_both(tree, probs2, pend, scale)
 
@@ -120,22 +157,157 @@ def test_select_apply_packed_matches_pallas(game_name, G, V, monkeypatch):
     # the apply phase is lane-independent of the walk: planes exactly equal
     np.testing.assert_array_equal(prior_t.numpy(), np.asarray(j2[0]))
     np.testing.assert_array_equal(packed_t.numpy(), np.asarray(j2[1]))
-
     for jj, ss in ((j, sel), (j2, sel2)):
-        ref = (jj[2], jj[3], jj[4], jj[5], jj[6])
-        got = tuple(x.numpy() for x in (ss.nodes, ss.actions, ss.leaf,
-                                         ss.leaf_action, ss.needs_alloc))
-        bad = _diverged_lanes(ref, got)
-        if len(bad):
-            print(f"{game_name}: CDF-tie lanes diverged: {bad.tolist()}")
-        assert len(bad) <= G // 128, bad
-        ok = np.setdiff1d(np.arange(G), bad)
-        for x, y in zip(ref, got):
-            np.testing.assert_array_equal(np.asarray(x)[..., ok], y[..., ok])
-        np.testing.assert_allclose(ss.root_pi.numpy(), np.asarray(jj[7]),
-                                   rtol=1e-5, atol=1e-6)
+        _assert_walks_match(game_name, G, jj[2:], ss)
     # the walk reached past the root on most lanes
     assert (sel2.nodes.numpy()[1] >= 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("game_name,G,V", [
+    ("connect4", 128, 16),
+    ("hex5", 128, 16),
+])
+def test_select_apply_packed1_matches_pallas(game_name, G, V, monkeypatch):
+    """The 1-plane word: the pending row overwrites whole words with the
+    quantized prior, the backup adds land at the layout's wsum offset."""
+    game, tree = _grown_tree(game_name, G, V, monkeypatch, seed=1)
+    A = game.max_actions
+    D = min(game.max_game_length, V)
+    layout = PK.packed1_layout(V)
+    # the grown tree's prior and wsum rounded onto the 1-plane grids
+    packed = np.asarray(PK.pack1_stats(
+        jnp.asarray(tree.prior), jnp.asarray(tree.wsum),
+        jnp.asarray(tree.visits), layout))
+    rng = np.random.default_rng(12)
+    before = K.select_apply_packed1.launches
+
+    def run_both(probs, pend):
+        j = jax.device_get(PK.select_apply_packed1(
+            jnp.asarray(packed), jnp.asarray(tree.parent),
+            jnp.asarray(tree.action_from), jnp.asarray(tree.expanded),
+            jnp.asarray(probs), *(jnp.asarray(x) for x in pend), CPUCT,
+            layout=layout, interpret=True))
+        packed_t = _t(packed)
+        sel = K.select_apply_packed1(
+            packed_t, _t(tree.parent), _t(tree.action_from),
+            _t(tree.expanded), _t(probs),
+            K.PendingUpdate(*(_t(x) for x in pend)), CPUCT,
+            K.packed1_layout(V))
+        return j, sel, packed_t
+
+    j, sel, _ = run_both(rng.random((D, G), dtype=np.float32),
+                         _empty_pending(D, A, G))
+    pend = _real_pending(rng, tree, (j[1], j[2], j[3], j[5]), A, V, G,
+                         layout[2])
+    # a few rows put all mass on one action: the u11 field clamps 1.0 to
+    # 2047/2048 and sets bit 31 of the word
+    newp = pend[5].copy()
+    newp[:, 4:12] = np.eye(A, dtype=np.float32)[:, :1]
+    pend = pend[:5] + (newp,) + pend[6:]
+    j2, sel2, packed_t = run_both(rng.random((D, G), dtype=np.float32), pend)
+
+    assert K.select_apply_packed1.launches == before
+    np.testing.assert_array_equal(packed_t.numpy(), np.asarray(j2[0]))
+    assert (packed_t.numpy() < 0).any()  # bit 31 was exercised
+    for jj, ss in ((j, sel), (j2, sel2)):
+        _assert_walks_match(game_name, G, jj[1:], ss)
+    assert (sel2.nodes.numpy()[1] >= 0).mean() > 0.5
+
+
+def _f32_planes(tree):
+    return tuple(_t(x) for x in (tree.prior, tree.wsum, tree.visits))
+
+
+@pytest.mark.parametrize("game_name,G,V", [
+    ("connect4", 128, 16),
+    ("hex5", 128, 16),
+])
+def test_select_apply_matches_pallas(game_name, G, V, monkeypatch):
+    """Three f32 planes, unquantized values: one f32 add per edge, so the
+    planes are exactly equal, and with an empty pending update the read-only
+    select returns the same walk bit for bit."""
+    game, tree = _grown_tree(game_name, G, V, monkeypatch, seed=2)
+    A = game.max_actions
+    D = min(game.max_game_length, V)
+    rng = np.random.default_rng(13)
+    before = K.select_apply.launches
+
+    def run_both(probs, pend):
+        j = jax.device_get(PK.select_apply_pallas(
+            jnp.asarray(tree.prior), jnp.asarray(tree.wsum),
+            jnp.asarray(tree.visits), jnp.asarray(tree.parent),
+            jnp.asarray(tree.action_from), jnp.asarray(tree.expanded),
+            jnp.asarray(probs), *(jnp.asarray(x) for x in pend), CPUCT,
+            interpret=True))
+        planes = _f32_planes(tree)
+        sel = K.select_apply(
+            *planes, _t(tree.parent), _t(tree.action_from),
+            _t(tree.expanded), _t(probs),
+            K.PendingUpdate(*(_t(x) for x in pend)), CPUCT)
+        return j, sel, planes
+
+    probs = rng.random((D, G), dtype=np.float32)
+    j, sel, _ = run_both(probs, _empty_pending(D, A, G))
+    pend = _real_pending(rng, tree, (j[3], j[4], j[5], j[7]), A, V, G)
+    j2, sel2, planes = run_both(rng.random((D, G), dtype=np.float32), pend)
+
+    assert K.select_apply.launches == before
+    for got, ref in zip(planes, j2[:3]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # the unquantized values left wsum off every coarse grid
+    assert ((planes[1].numpy() * 512) % 1.0 != 0).any()
+    for jj, ss in ((j, sel), (j2, sel2)):
+        _assert_walks_match(game_name, G, jj[3:], ss)
+    walk = K.select(*_f32_planes(tree), _t(tree.parent),
+                    _t(tree.action_from), _t(tree.expanded), _t(probs), CPUCT)
+    for x, y in zip(walk, sel):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("game_name,G,V", [
+    ("connect4", 128, 16),
+    ("hex5", 128, 16),
+])
+def test_select_matches_pallas(game_name, G, V, monkeypatch):
+    """The read-only walk, on a grown tree and on the same tree after one
+    f32 backup of a walk's path, through the per-phase API
+    (search.select) and the kernel wrapper."""
+    game, tree = _grown_tree(game_name, G, V, monkeypatch, seed=4)
+    D = min(game.max_game_length, V)
+    rng = np.random.default_rng(14)
+    before = K.select.launches
+    ptree = Tree(parent=_t(tree.parent), action_from=_t(tree.action_from),
+                 expanded=_t(tree.expanded), states=None,
+                 prior=_t(tree.prior), wsum=_t(tree.wsum),
+                 visits=_t(tree.visits), next_idx=_t(tree.next_idx))
+    for _ in range(2):
+        probs = rng.random((D, G), dtype=np.float32)
+        j = jax.device_get(PK.select_pallas(
+            jnp.asarray(tree.prior), jnp.asarray(tree.wsum),
+            jnp.asarray(tree.visits), jnp.asarray(tree.parent),
+            jnp.asarray(tree.action_from), jnp.asarray(tree.expanded),
+            jnp.asarray(probs), CPUCT, interpret=True))
+        path, node, laction, alloc, root_pi = port_select(
+            None, ptree, _t(probs), CPUCT)
+        assert torch.equal(path.length, (path.nodes >= 0).sum(0,
+                                                            dtype=torch.int32))
+        _assert_walks_match(game_name, G, j, K.Selection(
+            path.nodes, path.actions, node, laction, alloc, root_pi))
+        # descend is the plain version: the same walk on the CPU
+        for x, y in zip(port_descend(None, ptree, _t(probs), CPUCT),
+                        (path, node, laction, alloc, root_pi)):
+            for xx, yy in zip(x if isinstance(x, tuple) else (x,),
+                              y if isinstance(y, tuple) else (y,)):
+                assert torch.equal(xx, yy)
+        # next: the tree after backing up this walk's path
+        value = rng.random(G, dtype=np.float32)
+        w, v = jax.device_get(PK.backup_pallas(
+            jnp.asarray(tree.wsum), jnp.asarray(tree.visits), j[0], j[1],
+            (j[0] >= 0).sum(0).astype(np.int32), jnp.asarray(value),
+            interpret=True))
+        tree = tree._replace(wsum=np.asarray(w), visits=np.asarray(v))
+        ptree.wsum, ptree.visits = _t(tree.wsum), _t(tree.visits)
+    assert K.select.launches == before
 
 
 @pytest.mark.parametrize("game_name,G,V", [
@@ -162,6 +334,41 @@ def test_backup_matches_pallas(game_name, G, V, monkeypatch):
     np.testing.assert_allclose(wsum.numpy(), np.asarray(jw), rtol=1e-6,
                                atol=1e-7)
     assert (visits.numpy() != np.asarray(tree.visits)).sum() > G
+
+
+@pytest.mark.parametrize("value_scale", [None, 128])
+def test_search_backup_matches_reference(value_scale, monkeypatch):
+    """search.backup (leaf value from the net or the terminal result,
+    optionally on the 1/value_scale grid, then the backup kernel's plain
+    version) against the reference's search.backup."""
+    game, tree = _grown_tree("connect4", 128, 16, monkeypatch, seed=6)
+    G = 128
+    D = min(game.max_game_length, 16)
+    rng = np.random.default_rng(9)
+    path, *_ = jax.device_get(descend(game, tree, jnp.asarray(
+        rng.random((D, G), dtype=np.float32)), CPUCT))
+    player = rng.choice(np.array([-1, 1], np.int8), G)
+    value = rng.random(G, dtype=np.float32)
+    done = rng.random(G) < 0.3
+    result = rng.choice(np.array([-1, 0, 1], np.int8), G)
+    jt = jax.device_get(jax_backup(
+        tree._replace(wsum=jnp.asarray(tree.wsum),
+                      visits=jnp.asarray(tree.visits)),
+        type(path)(*(jnp.asarray(x) for x in path)), jnp.asarray(player),
+        jnp.asarray(value),
+        jnp.asarray(done), jnp.asarray(result), value_scale=value_scale))
+    ptree = Tree(parent=None, action_from=None, expanded=None, states=None,
+                 prior=None, wsum=_t(tree.wsum), visits=_t(tree.visits),
+                 next_idx=None)
+    out = port_backup(ptree, PortPath(*(_t(x) for x in path)), _t(player),
+                      _t(value), _t(done), _t(result), value_scale)
+    assert out is ptree
+    np.testing.assert_array_equal(ptree.visits.numpy(), np.asarray(jt.visits))
+    np.testing.assert_array_equal(ptree.wsum.numpy(), np.asarray(jt.wsum))
+    added = ptree.wsum.numpy().astype(np.float64) - tree.wsum
+    assert (added != 0).sum() > G
+    if value_scale:  # every add lies on the grid
+        np.testing.assert_array_equal((added * value_scale) % 1.0, 0.0)
 
 
 def test_pack_helpers_match_reference():
@@ -193,6 +400,45 @@ def test_pack_helpers_match_reference():
     np.testing.assert_array_equal(
         K.quantize_value(_t(v), S).numpy(),
         np.asarray(PK.quantize_value(jnp.asarray(v), S)))
+
+
+@pytest.mark.parametrize("R", [16, 64, 4096])
+def test_packed1_helpers_match_reference(R):
+    """The 1-plane layout, pack, unpack and prior quantization against the
+    reference, exactly - including words with bit 31 set (a prior of at
+    least 1024/2048, and 1.0, which clamps to 2047/2048)."""
+    rng = np.random.default_rng(R)
+    layout = K.packed1_layout(R)
+    assert tuple(layout) == PK.packed1_layout(R)
+    bits_v, bits_w, s = layout
+    shape = (7, 32, 64)
+    visits = rng.integers(0, min(R, (1 << bits_v) - 1) + 1,
+                          shape).astype(np.float32)
+    wfix = rng.integers(0, 1 << bits_w, shape)
+    wsum = (wfix / s).astype(np.float32)
+    prior = rng.random(shape, dtype=np.float32)
+    prior[0, 0, :8] = 1.0
+    prior[1, 0, :8] = (np.arange(8) + 1023.5) / 2048  # half-grid ties
+    ref = np.asarray(PK.pack1_stats(jnp.asarray(prior), jnp.asarray(wsum),
+                                    jnp.asarray(visits), PK.packed1_layout(R)))
+    got = K.pack1_stats(_t(prior), _t(wsum), _t(visits), layout)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref < 0).any()  # bit 31 was exercised
+    for mine, theirs in ((K.unpack1_prior, PK.unpack1_prior),
+                         (K.unpack1_wsum, PK.unpack1_wsum),
+                         (K.unpack1_visits, PK.unpack1_visits)):
+        np.testing.assert_array_equal(
+            mine(got, layout).numpy(),
+            np.asarray(theirs(jnp.asarray(ref), PK.packed1_layout(R))))
+    np.testing.assert_array_equal(K.unpack1_wsum(got, layout).numpy(), wsum)
+    np.testing.assert_array_equal(K.unpack1_visits(got, layout).numpy(),
+                                  visits)
+    np.testing.assert_array_equal(
+        K.quantize_prior(_t(prior)).numpy(),
+        np.asarray(PK.quantize_prior(jnp.asarray(prior))))
+    np.testing.assert_array_equal(K.unpack1_prior(got, layout).numpy(),
+                                  K.quantize_prior(_t(prior)).numpy())
 
 
 def _policy_rows(rng, A, G):

@@ -48,7 +48,9 @@ def test_build_paths_are_inside_the_package():
 
     assert _build.BUILD_DIR.parent == _build.PACKAGE_DIR
     names = {p.name for p in _build.sources()}
-    assert names == {"select_apply_packed.cu", "backup.cu"}
+    assert names == {"select_apply_packed.cu", "select_apply_packed1.cu",
+                     "select_apply.cu", "select.cu", "backup.cu"}
+    assert {p.name for p in _build.hashed_sources()} == names | {"walk.cuh"}
     lib = _build.library_path()
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     for flag in ("arch=compute_90a,code=sm_90a", "-fmad=false"):
@@ -56,6 +58,28 @@ def test_build_paths_are_inside_the_package():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     # .gitignore keeps built libraries out of the repository
     assert "alphatpu_torch/_build/" in (REPO / ".gitignore").read_text()
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    """An edit to a header the kernels include changes the library's name,
+    so the next use rebuilds it."""
+    from alphatpu_torch import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.hashed_sources():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    before = _build.library_path()
+    assert before.parent == tmp_path / "_build"
+    assert _build.library_path() == before  # a pure function of the bytes
+    header = csrc / "walk.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = _build.library_path()
+    assert after != before and after.parent == before.parent
+    assert [p.name for p in _build.sources()] == sorted(
+        p.name for p in csrc.glob("*.cu"))  # headers are not compiled
 
 
 @pytest.fixture
@@ -124,3 +148,96 @@ def test_backup_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a[1], b[1])
     torch.testing.assert_close(a[0], b[0], rtol=1e-6, atol=0.0)
+
+
+def _pending(sel, next_idx, A, scale=None):
+    """A real pending update from a walk: random value (on the 1/scale grid
+    when given), random normalized prior row, leaf == V on a few lanes."""
+    from alphatpu_torch.mcts import kernels as K
+
+    G = sel.leaf.shape[0]
+    dev = sel.leaf.device
+    newp = torch.rand((A, G), device=dev)
+    value = torch.rand((G,), device=dev)
+    leaf = torch.where(sel.needs_alloc, next_idx, sel.leaf)
+    leaf[:8] = 10_000
+    return K.PendingUpdate(
+        sel.nodes, sel.actions, (sel.nodes >= 0).sum(0, dtype=torch.int32),
+        value if scale is None else K.quantize_value(value, scale), leaf,
+        newp / newp.sum(0, keepdim=True), torch.rand((G,), device=dev) < 0.9)
+
+
+@pytest.mark.cuda
+def test_select_apply_packed1_kernel_matches_plain(cuda):
+    from alphatpu_torch.mcts import kernels as K
+
+    game, tree = _grown(cuda, 1024, 32, 2)
+    D = min(game.max_game_length, 32)
+    layout = K.packed1_layout(32)
+    packed = K.pack1_stats(tree.prior, tree.wsum, tree.visits, layout)
+    walk = (tree.parent, tree.action_from, tree.expanded)
+    first = K.select_apply_packed1_plain(
+        packed.clone(), *walk, torch.rand((D, 1024), device=cuda),
+        K.empty_pending(D, game.max_actions, 1024, cuda), 1.5, layout)
+    pend = _pending(first, tree.next_idx, game.max_actions, layout.scale)
+    probs = torch.rand((D, 1024), device=cuda)
+    a, b = packed.clone(), packed.clone()
+    before = K.select_apply_packed1.launches
+    sk = K.select_apply_packed1(a, *walk, probs, pend, 1.5, layout)
+    sp = K.select_apply_packed1_plain(b, *walk, probs, pend, 1.5, layout)
+    torch.cuda.synchronize()
+    assert K.select_apply_packed1.launches == before + 1
+    for x, y in zip((a,) + tuple(sk), (b,) + tuple(sp)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_select_apply_and_select_kernels_match_plain(cuda):
+    """The f32 engine's kernel against its plain version with a real
+    pending update, and the read-only select kernel against select_apply's
+    walk with an empty one, bit for bit."""
+    from alphatpu_torch.mcts import kernels as K
+
+    game, tree = _grown(cuda, 1024, 32, 3)
+    A = game.max_actions
+    D = min(game.max_game_length, 32)
+    walk = (tree.parent, tree.action_from, tree.expanded)
+    planes = (tree.prior, tree.wsum, tree.visits)
+    probs = torch.rand((D, 1024), device=cuda)
+    before = (K.select_apply.launches, K.select.launches)
+    copy = [p.clone() for p in planes]
+    s4 = K.select_apply(*copy, *walk, probs, K.empty_pending(D, A, 1024, cuda),
+                        1.5)
+    s5 = K.select(*planes, *walk, probs, 1.5)
+    sp = K.select_plain(*planes, *walk, probs, 1.5)
+    torch.cuda.synchronize()
+    for x, y, z in zip(s4, s5, sp):
+        assert torch.equal(x, y) and torch.equal(y, z)
+    pend = _pending(s5, tree.next_idx, A)
+    a = [p.clone() for p in planes]
+    b = [p.clone() for p in planes]
+    sk = K.select_apply(*a, *walk, probs, pend, 1.5)
+    sq = K.select_apply_plain(*b, *walk, probs, pend, 1.5)
+    torch.cuda.synchronize()
+    assert (K.select_apply.launches, K.select.launches) == (before[0] + 2,
+                                                            before[1] + 1)
+    for x, y in zip(tuple(a) + tuple(sk), tuple(b) + tuple(sq)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,kernel", [
+    ({}, "select_apply_packed"),
+    ({"ALPHATPU_PACK": "2"}, "select_apply_packed1"),
+    ({"ALPHATPU_NO_PACK": "1"}, "select_apply"),
+])
+def test_switches_launch_engines(env, kernel, cuda, monkeypatch):
+    from alphatpu_torch.mcts import kernels as K
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    K.reset_launch_counts()
+    _grown(cuda, 256, 16, 4)
+    assert {k.__name__: k.launches for k in K.KERNELS} == {
+        "select_apply_packed": 0, "select_apply_packed1": 0,
+        "select_apply": 0, "select": 0, "backup": 1, kernel: 14}

@@ -1,10 +1,11 @@
-"""The port's search (``run_mcts``) against the reference's packed engine.
+"""The port's search (``run_mcts``) against the reference's engines.
 
-The reference runs its production path - ``fused_body_packed`` with the
-``select_apply_packed`` Pallas kernel in the interpreter
-(``ALPHATPU_FORCE_INTERPRET=1``) and the ``backup_pallas`` flush - and the
-port its rollout loop with the plain kernel versions, from a reset connect4
-tree with the same injected uniforms ``probs[R, D, G]``.
+The reference runs its kernel path - ``fused_body_packed`` (level 1),
+``fused_body_packed1`` (level 2) or ``fused_body`` (f32), each with its
+Pallas kernel in the interpreter (``ALPHATPU_FORCE_INTERPRET=1``), and the
+``backup_pallas`` flush - and the port its rollout loop with the plain
+kernel versions, from a reset connect4 tree with the same injected uniforms
+``probs[R, D, G]``.
 
 Both nets get the same weights, drawn from {-1/8, 0, 1/8}: at width 32 and
 depth 2 every product and partial sum of the forward is then a multiple of
@@ -27,7 +28,7 @@ from alphatpu.nets import apply_inference
 from alphatpu.selfplay import broadcast_initial
 from alphatpu_torch.games import make_game
 from alphatpu_torch.mcts import kernels as K
-from alphatpu_torch.mcts.search import run_mcts
+from alphatpu_torch.mcts.search import engine_level, run_mcts
 from alphatpu_torch.mcts.tree import child_lookup, init_tree, reset_tree
 from alphatpu_torch.nets import config_for_game, params_from_jax
 
@@ -49,7 +50,8 @@ def dyadic_params(cfg, seed):
             for k, s in shapes.items()}
 
 
-def _searches(G, V, R, seed, final_root_policy, monkeypatch):
+def _searches(G, V, R, seed, final_root_policy, monkeypatch,
+              packed_stats=None):
     jgame, game = jax_make_game("connect4"), make_game("connect4")
     cfg = config_for_game(game, width=32, depth=2)
     flat = dyadic_params(cfg, seed)
@@ -62,22 +64,23 @@ def _searches(G, V, R, seed, final_root_policy, monkeypatch):
         jgame, apply_inference, {k: jnp.asarray(v) for k, v in flat.items()},
         jax_init_tree(jgame, broadcast_initial(jgame, G), V), None,
         rollouts=R, cpuct=CPUCT, training=True, probs=jnp.asarray(probs),
-        final_root_policy=final_root_policy)
+        final_root_policy=final_root_policy, packed_stats=packed_stats)
     monkeypatch.delenv("ALPHATPU_FORCE_INTERPRET")
 
     tree = init_tree(game, game.initial(G), V)
     _, pi = run_mcts(game, params_from_jax(flat, cfg), tree, rollouts=R,
                      cpuct=CPUCT, training=True,
                      probs=torch.from_numpy(probs),
-                     final_root_policy=final_root_policy)
+                     final_root_policy=final_root_policy,
+                     packed_stats=packed_stats)
     return jax.device_get((jtree, jpi)), (tree, pi)
 
 
-@pytest.mark.parametrize("final_root_policy", [False, True])
-def test_run_mcts_matches_reference(final_root_policy, monkeypatch):
-    G, V = 128, 16
-    (jtree, jpi), (tree, pi) = _searches(G, V, V, 0, final_root_policy,
-                                         monkeypatch)
+def _assert_trees_match(tree, jtree, pi, jpi, exact_prior=False):
+    """Every tree field equal outside the CDF-tie lanes (at most 1 in 128,
+    printed); prior rows and the root policy to rtol 1e-5 unless
+    ``exact_prior``."""
+    G = tree.num_games
     exact = {
         "parent": (tree.parent, jtree.parent),
         "action_from": (tree.action_from, jtree.action_from),
@@ -86,6 +89,8 @@ def test_run_mcts_matches_reference(final_root_policy, monkeypatch):
         "wsum": (tree.wsum, jtree.wsum),
         "visits": (tree.visits, jtree.visits),
     }
+    if exact_prior:
+        exact["prior"] = (tree.prior, jtree.prior)
     for i, (p, j) in enumerate(zip(tree.states, jtree.states)):
         exact[f"states[{i}]"] = (p, j)
     bad = {}
@@ -107,26 +112,186 @@ def test_run_mcts_matches_reference(final_root_policy, monkeypatch):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(pi.numpy()[:, ok], np.asarray(jpi)[:, ok],
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("final_root_policy", [False, True])
+def test_run_mcts_matches_reference(final_root_policy, monkeypatch):
+    G, V = 128, 16
+    (jtree, jpi), (tree, pi) = _searches(G, V, V, 0, final_root_policy,
+                                         monkeypatch)
+    _assert_trees_match(tree, jtree, pi, jpi)
     # a real search happened: the tree filled up, and every rollout after
     # the first (which expands the root) crossed one root edge
     assert (tree.next_idx.numpy() > V // 2).mean() > 0.9
     np.testing.assert_array_equal(tree.visits[:, 0, :].sum(0).numpy(), V - 1)
 
 
-def test_run_mcts_refuses_unported_engines():
+@pytest.mark.parametrize("packed_stats,final_root_policy", [
+    (2, False), (2, True), (False, False), (False, True),
+])
+def test_run_mcts_engines_match_reference(packed_stats, final_root_policy,
+                                          monkeypatch):
+    """Level 2 (the 1-plane word) and the f32 engine, each against the
+    reference's kernel path.  At level 2 the prior rows are on the 1/2048
+    grid and compared exactly; visits are integers, wsum lies on the
+    1/S1 grid; the f32 engine's wsum lies on no grid."""
+    G, V = 128, 16
+    (jtree, jpi), (tree, pi) = _searches(G, V, V, 1, final_root_policy,
+                                         monkeypatch, packed_stats)
+    _assert_trees_match(tree, jtree, pi, jpi, exact_prior=packed_stats == 2)
+    np.testing.assert_array_equal(tree.visits[:, 0, :].sum(0).numpy(), V - 1)
+    visits = tree.visits.numpy().astype(np.float64)
+    np.testing.assert_array_equal(visits % 1.0, 0.0)
+    wsum = tree.wsum.numpy().astype(np.float64)
+    if packed_stats == 2:
+        _, _, s = K.packed1_layout(V)
+        np.testing.assert_array_equal((wsum * s) % 1.0, 0.0)
+        np.testing.assert_array_equal(
+            (tree.prior.numpy().astype(np.float64) * 2048) % 1.0, 0.0)
+    else:
+        assert ((wsum * K.value_scale(V)) % 1.0 != 0.0).any()
+
+
+def test_pregrown_search_matches_reference(monkeypatch):
+    """A fresh level-1 search, then a second search of the same tree with
+    ``segment_rollouts=False``: the auto level takes the f32 engine in
+    both packages, and the tree fills up (leaf == V lanes)."""
+    G, V, R1, R2 = 128, 24, 12, 16
+    jgame, game = jax_make_game("connect4"), make_game("connect4")
+    cfg = config_for_game(game, width=32, depth=2)
+    flat = dyadic_params(cfg, 5)
+    net = params_from_jax(flat, cfg)
+    jparams = {k: jnp.asarray(v) for k, v in flat.items()}
+    D = min(game.max_game_length, V)
+    rng = np.random.default_rng(6)
+    p1 = rng.random((R1, D, G), dtype=np.float32)
+    p2 = rng.random((R2, D, G), dtype=np.float32)
+    kw = dict(cpuct=CPUCT, training=True)
+
+    monkeypatch.setenv("ALPHATPU_FORCE_INTERPRET", "1")
+    jtree, _ = jax_run_mcts(
+        jgame, apply_inference, jparams,
+        jax_init_tree(jgame, broadcast_initial(jgame, G), V), None,
+        rollouts=R1, probs=jnp.asarray(p1), **kw)
+    jtree, jpi = jax_run_mcts(jgame, apply_inference, jparams, jtree, None,
+                              rollouts=R2, probs=jnp.asarray(p2),
+                              segment_rollouts=False, **kw)
+    monkeypatch.delenv("ALPHATPU_FORCE_INTERPRET")
+    jtree, jpi = jax.device_get((jtree, jpi))
+
+    tree = init_tree(game, game.initial(G), V)
+    run_mcts(game, net, tree, rollouts=R1, probs=torch.from_numpy(p1), **kw)
+    with pytest.raises(ValueError, match="freshly reset"):
+        run_mcts(game, net, tree, rollouts=R2, probs=torch.from_numpy(p2),
+                 segment_rollouts=False, packed_stats=True, **kw)
+    calls = _spy(monkeypatch, "select_apply_plain")
+    _, pi = run_mcts(game, net, tree, rollouts=R2, probs=torch.from_numpy(p2),
+                     segment_rollouts=False, **kw)
+    assert calls == {"select_apply_plain": R2}
+    _assert_trees_match(tree, jtree, pi, jpi)
+    assert (tree.next_idx.numpy() > V).any()  # full trees were reached
+    np.testing.assert_array_equal(tree.visits[:, 0, :].sum(0).numpy(),
+                                  R1 + R2 - 1)
+
+
+def test_level1_and_level2_agree_on_visit_totals():
+    """The same search at level 1 and level 2: the coarser grids may flip
+    samples, but every rollout after the first crosses one root edge."""
+    game = make_game("connect4")
+    cfg = config_for_game(game, width=32, depth=2)
+    net = params_from_jax(dyadic_params(cfg, 7), cfg)
+    G, V = 64, 16
+    D = min(game.max_game_length, V)
+    probs = torch.from_numpy(np.random.default_rng(8).random(
+        (V, D, G), dtype=np.float32))
+    totals = []
+    for level in (1, 2):
+        tree = init_tree(game, game.initial(G), V)
+        run_mcts(game, net, tree, rollouts=V, cpuct=CPUCT, training=True,
+                 probs=probs, packed_stats=level)
+        totals.append(tree.visits[:, 0, :].sum(0))
+    assert torch.equal(totals[0], totals[1])
+    assert bool((totals[0] == V - 1).all())
+
+
+PLAIN = ("select_apply_packed_plain", "select_apply_packed1_plain",
+         "select_apply_plain")
+
+
+def _spy(monkeypatch, *names):
+    """Count the calls of the named plain kernel versions."""
+    calls = {}
+    for name in names:
+        fn = getattr(K, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(K, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("env,kwargs,engine", [
+    ({}, {}, "select_apply_packed_plain"),
+    ({"ALPHATPU_PACK": "2"}, {}, "select_apply_packed1_plain"),
+    ({"ALPHATPU_NO_PACK": "1"}, {}, "select_apply_plain"),
+    ({"ALPHATPU_PACK": "2", "ALPHATPU_NO_PACK": "1"}, {},
+     "select_apply_plain"),
+    ({}, {"packed_stats": False}, "select_apply_plain"),
+    ({"ALPHATPU_PACK": "2"}, {"packed_stats": 1},
+     "select_apply_packed_plain"),
+])
+def test_switches_pick_engines(env, kwargs, engine, monkeypatch):
+    """``ALPHATPU_PACK`` and ``ALPHATPU_NO_PACK``, read at each call, and
+    an explicit ``packed_stats`` pick the engine as in the reference
+    (search.py:474-505); on the CPU the engine's plain version runs."""
+    game = make_game("connect4")
+    cfg = config_for_game(game, width=32, depth=2)
+    net = params_from_jax(dyadic_params(cfg, 0), cfg)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    calls = _spy(monkeypatch, *PLAIN)
+    tree = init_tree(game, game.initial(8), 8)
+    run_mcts(game, net, tree, rollouts=8, cpuct=CPUCT, training=True,
+             generator=torch.Generator().manual_seed(0), **kwargs)
+    assert calls == {engine: 8}
+    assert all(k.launches == 0 for k in K.KERNELS)
+
+
+def test_run_mcts_engine_contract(monkeypatch):
+    """The reference's contract: an explicit level >= 1 on a pre-grown
+    tree raises; the auto level takes the f32 engine there; non-f32 stats
+    and unknown levels raise; level 2 is refused where one search's sums
+    would not fit the word."""
+    for ps in (True, 1, 2):
+        with pytest.raises(ValueError, match="freshly reset"):
+            engine_level(ps, segment_rollouts=False)
+    assert engine_level(None, segment_rollouts=False) == 0
+    assert engine_level(False, segment_rollouts=False) == 0
+    assert engine_level(None, segment_rollouts=True) == 1
+    assert engine_level(True, segment_rollouts=True) == 1
+    monkeypatch.setenv("ALPHATPU_PACK", "2")
+    assert engine_level(None, segment_rollouts=True) == 2
+    assert engine_level(None, segment_rollouts=False) == 0
+    monkeypatch.setenv("ALPHATPU_PACK", "3")
+    with pytest.raises(ValueError, match="level 3"):
+        engine_level(None, segment_rollouts=True)
+    monkeypatch.delenv("ALPHATPU_PACK")
+
     game = make_game("connect4")
     cfg = config_for_game(game, width=32, depth=2)
     net = params_from_jax(dyadic_params(cfg, 0), cfg)
     tree = init_tree(game, game.initial(8), 8)
     kw = dict(rollouts=8, cpuct=CPUCT, training=True,
               generator=torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="packed level-1"):
-        run_mcts(game, net, tree, packed_stats=2, **kw)
-    with pytest.raises(ValueError, match="fresh tree"):
-        run_mcts(game, net, tree, segment_rollouts=False, **kw)
-    tree.prior = tree.prior.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="f32"):
-        run_mcts(game, net, tree, **kw)
+    with pytest.raises(ValueError, match="fit the 1-plane word"):
+        run_mcts(game, net, tree, packed_stats=2,
+                 **dict(kw, rollouts=1024))
+    tree.wsum = tree.wsum.to(torch.bfloat16)
+    for ps in (None, False, 2):
+        with pytest.raises(ValueError, match="f32"):
+            run_mcts(game, net, tree, packed_stats=ps, **kw)
 
 
 def test_tree_reset_in_place_and_child_lookup():

@@ -1,8 +1,10 @@
 """The port's continuous selfplay and replay buffer against the reference.
 
-``alphatpu.selfplay.selfplay_continuous`` runs its production path (the
-packed Pallas kernels in the interpreter, ``ALPHATPU_FORCE_INTERPRET=1`` -
-without it the CPU takes the unquantized f32 engine, a different result).
+``alphatpu.selfplay.selfplay_continuous`` runs its kernel path (the
+Pallas kernels in the interpreter, ``ALPHATPU_FORCE_INTERPRET=1`` - without
+it the CPU takes the unquantized f32 engine whatever the switches ask),
+under the same engine switches (``ALPHATPU_PACK``, ``ALPHATPU_NO_PACK``)
+as the port.
 The test recreates the reference's key stream with ``jax.random`` (per
 round: split the carry key, split into search and move keys, one key per
 rollout) and feeds the same uniforms to the port through
@@ -77,12 +79,17 @@ def _rows(buf, n):
     return ints, np.asarray(buf.policy[:n])
 
 
-def test_selfplay_continuous_matches_reference(monkeypatch):
-    G, R, T = 128, 16, 12
+def _selfplay_matches_reference(monkeypatch, T, env=None):
+    """Both packages' selfplay_continuous on the same uniforms, under the
+    same engine switches ``env``, then every stat, buffer row and carry
+    field compared."""
+    G, R = 128, 16
     jgame, game = jax_make_game("connect4"), make_game("connect4")
     cfg_net = config_for_game(game, width=32, depth=2)
     flat = dyadic_params(cfg_net, seed=0)
     key = jax.random.key(7)
+    for k, v in (env or {}).items():
+        monkeypatch.setenv(k, v)
 
     monkeypatch.setenv("ALPHATPU_FORCE_INTERPRET", "1")
     jbuf, jstats, jcarry = jax.device_get(
@@ -138,6 +145,18 @@ def test_selfplay_continuous_matches_reference(monkeypatch):
         diff = Counter(map(tuple, ints)) - Counter(map(tuple, jints))
         assert sum(diff.values()) <= rows_cap
     assert pstats["illegal_moves"] == 0 and pstats["games_finished"] > 0
+
+
+def test_selfplay_continuous_matches_reference(monkeypatch):
+    _selfplay_matches_reference(monkeypatch, T=12)
+
+
+@pytest.mark.parametrize("env", [{"ALPHATPU_PACK": "2"},
+                                 {"ALPHATPU_NO_PACK": "1"}])
+def test_selfplay_engines_match_reference(env, monkeypatch):
+    """The same switch picks the same engine in both packages: level 2
+    (the 1-plane word) and the f32 engine."""
+    _selfplay_matches_reference(monkeypatch, T=8, env=env)
 
 
 def test_selfplay_invariants():
