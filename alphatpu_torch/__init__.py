@@ -6,9 +6,11 @@ named after its counterpart there and is held to it by the tests under
 ``jax``; importing it builds nothing (the CUDA kernels under ``csrc/`` are
 compiled on first use, see :mod:`alphatpu_torch._build`).
 
-Ported so far: the connect4 continuous-selfplay slice - bitboards, the
-connect4 rules, the residual MLP, the packed-stat MCTS with its two
-hand-written Hopper kernels, the replay buffer and continuous selfplay.
+Ported so far: the training loop for all five game families - bitboards
+and the rules, the residual MLP, the MCTS with its five hand-written Hopper
+kernels, the replay buffer, selfplay in both modes, the learner, the
+gating duel, checkpoints, the pipeline and the CLI (``python -m
+alphatpu_torch.cli``).
 """
 
 __version__ = "0.1.0"

@@ -168,6 +168,12 @@ def set_bit(spec: BoardSpec, b: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return b | onehot
 
 
+def cell_onehot(spec: BoardSpec, i: torch.Tensor) -> torch.Tensor:
+    """Boards with only cell ``i`` set, one per element of ``i``."""
+    i = torch.as_tensor(i, dtype=torch.int64)
+    return set_bit(spec, empty(spec, i.shape, i.device), i)
+
+
 def to_planes(spec: BoardSpec, b: torch.Tensor,
               dtype=torch.float32) -> torch.Tensor:
     """Unpack to a dense 0/1 vector over cells (the net's one-hot input)."""

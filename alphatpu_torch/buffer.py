@@ -47,6 +47,12 @@ def buffer_size(buffer: ReplayBuffer) -> torch.Tensor:
     return torch.clamp_max(buffer.total[0], buffer.capacity)
 
 
+def global_buffer_size(buffer: ReplayBuffer) -> int:
+    """Host-side: the valid samples of the buffer (one shard here; the
+    reference sums its per-device shards)."""
+    return int(buffer_size(buffer))
+
+
 def write_samples(buffer: ReplayBuffer, state, policy, player, value, fstate,
                   mask) -> ReplayBuffer:
     """Append the ``mask``-selected rows (flat leading axis N) to the ring
@@ -66,3 +72,18 @@ def write_samples(buffer: ReplayBuffer, state, policy, player, value, fstate,
     buffer.cursor[0] = ((cursor + n) % cap).to(torch.int32)
     buffer.total[0] += n.to(torch.int32)
     return buffer
+
+
+def sample_batch(buffer: ReplayBuffer, generator: torch.Generator | None,
+                 batch_size: int, idx: torch.Tensor | None = None):
+    """A batch drawn uniformly with replacement from the valid rows
+    ``[0, size)`` (row 0 of an empty buffer), as ``(state, policy, value,
+    fstate)`` with the states and features as float32.  ``idx`` (i64[B])
+    replaces the draw: the injection point of the tests."""
+    if idx is None:
+        size = max(global_buffer_size(buffer), 1)
+        idx = torch.randint(0, size, (batch_size,), generator=generator,
+                            device=buffer.state.device)
+    idx = idx.to(buffer.state.device).long()
+    return (buffer.state[idx].to(torch.float32), buffer.policy[idx],
+            buffer.value[idx], buffer.fstate[idx].to(torch.float32))

@@ -18,6 +18,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import bitboard as bb
+
 
 def where_games(mask: torch.Tensor, a, b):
     """Per game: the leaves of state ``a`` where ``mask`` [G], else those
@@ -63,15 +65,45 @@ class Game:
         """(bool[G] done, int8[G] result)."""
         raise NotImplementedError
 
+    @property
+    def encoded_size(self) -> int:
+        return 2 * self.vectorized_state
+
+    def _const(self, name: str, device) -> torch.Tensor:
+        """The numpy attribute ``name`` as a tensor on ``device``, built
+        once per device."""
+        consts = self.__dict__.setdefault("_consts", {})
+        key = (name, device)
+        if key not in consts:
+            consts[key] = torch.as_tensor(getattr(self, name), device=device)
+        return consts[key]
+
     def encode(self, pos) -> torch.Tensor:
         """f32[G, 2 * vectorized_state]: [bplayer planes; bopponent planes]."""
-        raise NotImplementedError
+        return torch.cat([bb.to_planes(self.spec, pos.bplayer),
+                          bb.to_planes(self.spec, pos.bopponent)], dim=-1)
 
     def final_feature(self, pos) -> torch.Tensor:
         """int8[G, feature_size]: +player where bplayer has a stone, -player
         elsewhere."""
-        raise NotImplementedError
+        p = bb.to_planes(self.spec, pos.bplayer, dtype=torch.int8)
+        player = pos.player.to(torch.int8).unsqueeze(-1)
+        return torch.where(p != 0, player, -player)
 
-    @property
-    def encoded_size(self) -> int:
-        return 2 * self.vectorized_state
+    def _line_win(self, board: torch.Tensor, nvict: int) -> torch.Tensor:
+        """bool[G]: ``nvict`` stones in a row on ``board`` along any of the
+        four directions (``nvict - 1`` shift-ANDs per direction)."""
+        spec = self.spec
+        win = torch.zeros(board.shape[:-1], dtype=torch.bool,
+                          device=board.device)
+        for step in (
+            lambda x: bb.right(spec, x),
+            lambda x: bb.down(spec, x),
+            lambda x: bb.down(spec, bb.right(spec, x)),
+            lambda x: bb.left(spec, bb.down(spec, x)),
+        ):
+            b = board
+            for _ in range(nvict - 1):
+                b = b & step(b)
+            win = win | (bb.popcount(spec, b) != 0)
+        return win

@@ -41,14 +41,6 @@ class Connect4(Game):
             self.spec.mask_from_bits(lambda i, c=c: i // HEIGHT == c)
             for c in range(WIDTH)])  # [WIDTH, nwords]
         self._top_cells = np.arange(WIDTH) * HEIGHT  # row 0 of each column
-        self._consts = {}  # (name, device) -> tensor copy of the arrays above
-
-    def _const(self, name: str, device) -> torch.Tensor:
-        key = (name, device)
-        if key not in self._consts:
-            self._consts[key] = torch.as_tensor(getattr(self, name),
-                                                device=device)
-        return self._consts[key]
 
     def initial(self, num_games: int, device=None) -> Connect4State:
         return Connect4State(
@@ -78,31 +70,9 @@ class Connect4(Game):
         )
 
     def is_over(self, pos: Connect4State):
-        spec = self.spec
-        board = pos.bopponent
-        win = torch.zeros(board.shape[:-1], dtype=torch.bool,
-                          device=board.device)
-        for step in (
-            lambda x: bb.right(spec, x),
-            lambda x: bb.down(spec, x),
-            lambda x: bb.down(spec, bb.right(spec, x)),
-            lambda x: bb.left(spec, bb.down(spec, x)),
-        ):
-            b = board
-            for _ in range(NVICT - 1):
-                b = b & step(b)
-            win = win | (bb.popcount(spec, b) != 0)
-        full = (bb.popcount(spec, pos.bplayer) + bb.popcount(spec, pos.bopponent)
-                == HEIGHT * WIDTH)
+        win = self._line_win(pos.bopponent, NVICT)
+        full = (bb.popcount(self.spec, pos.bplayer)
+                + bb.popcount(self.spec, pos.bopponent) == HEIGHT * WIDTH)
         done = win | full
         result = torch.where(win, -pos.player, 0).to(torch.int8)
         return done, result
-
-    def encode(self, pos: Connect4State) -> torch.Tensor:
-        return torch.cat([bb.to_planes(self.spec, pos.bplayer),
-                          bb.to_planes(self.spec, pos.bopponent)], dim=-1)
-
-    def final_feature(self, pos: Connect4State) -> torch.Tensor:
-        p = bb.to_planes(self.spec, pos.bplayer, dtype=torch.int8)
-        player = pos.player.to(torch.int8).unsqueeze(-1)
-        return torch.where(p != 0, player, -player)

@@ -7,14 +7,22 @@ same parameter names and layouts:
 * tower: ``depth`` residual blocks ``b = relu(b + relu(b @ res[i]))``,
 * policy head ``b @ policy_w + policy_b`` (raw logits), value head
   ``sigmoid(b @ value_w + value_b)``, and the training-only feature head
-  ``feature_w``/``feature_b``, kept so that the weight sets line up.
+  ``tanh(b @ feature_w + feature_b)``.
 
 Weights are stored ``[in, out]`` as the reference stores them, so
-:func:`params_from_jax` copies arrays without transposes and the forward is
-``x @ W``.  The forward runs in float32; TF32 matmuls are switched off at
-import (``torch.backends.cuda.matmul.allow_tf32 = False``) because the
-reference it is held to computes full float32 products.
+:func:`params_from_jax` and :func:`params_to_numpy` copy arrays without
+transposes and the forward is ``x @ W``.  The forward runs in float32 by
+default; TF32 matmuls are switched off at import
+(``torch.backends.cuda.matmul.allow_tf32 = False``) because the reference it
+is held to computes full float32 products.  ``compute_dtype=bfloat16``
+keeps the tower's activations in bfloat16, as the reference's
+``apply_inference`` does.
+
+An in-search net holds parameters that need no gradient; the learner's
+net is built with ``trainable=True`` (:meth:`MLP.copy`), and the search
+calls every net under ``torch.no_grad()``.
 """
+
 from __future__ import annotations
 
 from typing import Dict, NamedTuple
@@ -85,41 +93,85 @@ def init_numpy(cfg: NetConfig, seed: int) -> Dict[str, np.ndarray]:
     return out
 
 
-class MLP(nn.Module):
-    """Inference forward of the residual MLP: ``(logits [G, A], value [G])``."""
+PARAM_NAMES = tuple(_shapes(NetConfig(1, 1, 1)))
 
-    def __init__(self, cfg: NetConfig, device=None):
+
+class MLP(nn.Module):
+    """The residual MLP.  ``forward`` is the inference forward
+    ``(logits [G, A], value [G])``; :meth:`forward_training` adds the
+    feature head."""
+
+    def __init__(self, cfg: NetConfig, device=None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         for name, shape in _shapes(cfg).items():
             self.register_parameter(name, nn.Parameter(
                 torch.zeros(shape, dtype=torch.float32, device=device),
-                requires_grad=False))
+                requires_grad=trainable))
 
     @classmethod
-    def from_seed(cls, cfg: NetConfig, seed: int, device=None) -> "MLP":
-        return params_from_jax(init_numpy(cfg, seed), cfg, device=device)
+    def from_seed(cls, cfg: NetConfig, seed: int, device=None,
+                  trainable: bool = False) -> "MLP":
+        return params_from_jax(init_numpy(cfg, seed), cfg, device=device,
+                               trainable=trainable)
 
-    def forward(self, x: torch.Tensor):
-        b = torch.relu(x @ self.base)
-        for w in self.res:
+    def copy(self, trainable: bool | None = None) -> "MLP":
+        """A new net holding a copy of these parameters, trainable as given
+        (default: as this one)."""
+        if trainable is None:
+            trainable = self.base.requires_grad
+        out = MLP(self.cfg, device=self.base.device, trainable=trainable)
+        with torch.no_grad():
+            for name in PARAM_NAMES:
+                getattr(out, name).copy_(getattr(self, name))
+        return out
+
+    def _trunk(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The base layer and the tower, activations kept in ``dtype``."""
+        b = torch.relu(x.to(dtype) @ self.base.to(dtype))
+        for w in self.res.to(dtype):
             b = torch.relu(b + torch.relu(b @ w))
+        return b
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32):
+        b = self._trunk(x, compute_dtype)
+        # the heads take the tower's output as it is and sum in float32 (the
+        # products of two bfloat16 values are exact in float32), as the
+        # reference's float32-accumulating dots do
+        b = b.float()
+        logits = b @ self.policy_w.to(compute_dtype).float() + self.policy_b
+        value = torch.sigmoid(b @ self.value_w.to(compute_dtype).float()
+                              + self.value_b)
+        return logits, value[..., 0]
+
+    def forward_training(self, x: torch.Tensor):
+        """``(logits, value, feature)``, all float32: the SGD path."""
+        b = self._trunk(x, torch.float32)
         logits = b @ self.policy_w + self.policy_b
         value = torch.sigmoid(b @ self.value_w + self.value_b)
-        return logits, value[..., 0]
+        feature = torch.tanh(b @ self.feature_w + self.feature_b)
+        return logits, value[..., 0], feature
+
+
+def apply_inference(net: MLP, x: torch.Tensor, compute_dtype=torch.float32):
+    """``(logits, value)`` of ``net`` with the tower in ``compute_dtype``:
+    the in-search evaluation, as the reference's ``apply_inference``."""
+    return net(x, compute_dtype)
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], cfg: NetConfig,
-                    device=None) -> MLP:
+                    device=None, prefix: str | None = None,
+                    trainable: bool = False) -> MLP:
     """An :class:`MLP` holding the reference's parameters.
 
     ``flat`` is the JAX param dict as numpy arrays (``base``, ``res``,
-    ``policy_w``, ...), either bare or under the ``best/`` prefix that
-    :func:`alphatpu.checkpoint.save_checkpoint` writes; other checkpoint
-    keys (``train/``, ``opt/``, ``rng``) are ignored.  Shapes are checked
+    ``policy_w``, ...), bare or under a checkpoint prefix (``best/``,
+    ``train/``).  ``prefix=None`` takes ``best/`` where the dict has it,
+    else the bare names; other keys are ignored.  Shapes are checked
     against ``cfg``."""
-    prefix = "best/" if any(k.startswith("best/") for k in flat) else ""
-    net = MLP(cfg, device=device)
+    if prefix is None:
+        prefix = "best/" if any(k.startswith("best/") for k in flat) else ""
+    net = MLP(cfg, device=device, trainable=trainable)
     with torch.no_grad():
         for name, shape in _shapes(cfg).items():
             arr = np.array(flat[prefix + name], dtype=np.float32)
@@ -128,3 +180,10 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg: NetConfig,
                     f"{prefix + name}: shape {arr.shape}, expected {shape}")
             getattr(net, name).copy_(torch.from_numpy(arr))
     return net
+
+
+def params_to_numpy(net: MLP, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: ``{prefix + name: float32
+    array}`` under the reference's names and layouts."""
+    return {prefix + name: getattr(net, name).detach().cpu().numpy()
+            for name in PARAM_NAMES}

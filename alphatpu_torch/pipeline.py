@@ -1,0 +1,236 @@
+"""Generation orchestrator: selfplay -> SGD -> gating duel -> Elo ->
+checkpoint.
+
+Counterpart of :mod:`alphatpu.pipeline`, with its protocol:
+
+* the *best* net plays selfplay (either mode),
+* the *train* net keeps training from itself across generations, and
+  replaces the best one only when the duel raises the Elo (from -1000),
+* the duel plays the train net against the best one, half the games with
+  each starter,
+* a checkpoint per generation, the same log lines and the same stats dict.
+
+One device only: ``devices != 1`` raises (multi-GPU is ROADMAP.md, queue 1,
+item 11).  Every random draw of a run comes from one ``torch.Generator`` on
+the run's device, seeded from ``seed`` (the continuous-selfplay carry gets
+a generator of its own, seeded from that stream), so a run with a given
+seed is deterministic on a given device.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from functools import partial
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from . import checkpoint as ckpt
+from .buffer import ReplayBuffer, create_buffer, global_buffer_size
+from .duel import DuelConfig, duel_network, elo_update
+from .nets.mlp import MLP, apply_inference, config_for_game
+from .selfplay import (
+    EpisodeCarry, SelfplayConfig, make_carry, selfplay_continuous,
+    selfplay_generation,
+)
+from .train import TrainConfig, adam_init, train_epoch
+
+MULTI_GPU = ("devices != 1: multi-GPU training is not ported yet "
+             "(ROADMAP.md, queue 1, item 11); run with --devices 1")
+
+
+@dataclass
+class PipelineConfig:
+    selfplay: SelfplayConfig = field(default_factory=SelfplayConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    duel: DuelConfig = field(default_factory=DuelConfig)
+    buffer_capacity: int = 2_000_000
+    generations: int = 100
+    seed: int = 0
+    width: int = 512
+    depth: Optional[int] = None  # per-game default (nets.config_for_game)
+    ckpt_dir: Optional[str] = None
+    save_buffer: bool = False
+    # (net, x) -> (logits, value): the in-search evaluation
+    net_apply: Callable = apply_inference
+    devices: int = 1
+    device: str = "cuda"  # the device every tensor of the run lives on
+    log: Callable[[str], None] = print
+
+    def num_devices(self) -> int:
+        if self.devices != 1:
+            raise NotImplementedError(MULTI_GPU)
+        return 1
+
+
+@dataclass
+class PipelineState:
+    best_net: MLP
+    train_net: MLP  # trainable
+    opt_state: Dict
+    buffer: ReplayBuffer
+    rng: torch.Generator
+    elo: float = -1000.0
+    generation: int = 0
+    best_generation: int = 0
+    # continuous mode: each lane's in-flight episode, None = start fresh;
+    # checkpointed with the buffer (save_buffer), so a resume continues it
+    sp_carry: Optional[EpisodeCarry] = None
+
+
+def init_pipeline(game, cfg: PipelineConfig) -> PipelineState:
+    """Fresh nets (Glorot weights from numpy seed ``cfg.seed``), optimizer
+    state, buffer and generator on ``cfg.device``."""
+    cfg.num_devices()
+    dev = torch.device(cfg.device)
+    net_cfg = config_for_game(game, width=cfg.width, depth=cfg.depth)
+    best = MLP.from_seed(net_cfg, cfg.seed, device=dev)
+    train = best.copy(trainable=True)
+    return PipelineState(
+        best_net=best,
+        train_net=train,
+        opt_state=adam_init(train),
+        buffer=create_buffer(game, cfg.buffer_capacity, device=dev),
+        rng=torch.Generator(device=dev).manual_seed(cfg.seed),
+    )
+
+
+def child_generator(gen: torch.Generator) -> torch.Generator:
+    """A new generator on ``gen``'s device, seeded from one draw of it."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+    return torch.Generator(device=gen.device).manual_seed(seed)
+
+
+def run_generation(game, state: PipelineState, cfg: PipelineConfig):
+    """One generation.  Mutates and returns ``state`` plus a stats dict."""
+    cfg.num_devices()
+    log = cfg.log
+    gen = state.generation + 1
+    dev = state.buffer.state.device
+    best_apply = partial(cfg.net_apply, state.best_net)
+
+    t0 = time.time()
+    if cfg.selfplay.continuous:
+        if state.sp_carry is None:
+            state.sp_carry = make_carry(game, cfg.selfplay.num_games,
+                                        child_generator(state.rng), dev)
+        state.buffer, sp_stats, state.sp_carry = selfplay_continuous(
+            game, best_apply, state.buffer, None, cfg.selfplay,
+            state.sp_carry)
+    else:
+        state.buffer, sp_stats = selfplay_generation(
+            game, best_apply, state.buffer, state.rng, cfg.selfplay)
+    sp_stats = {k: v.item() for k, v in sp_stats.items()}
+    t_sp = time.time() - t0
+    log(f"[gen {gen}] selfplay: {t_sp:.1f}s  "
+        f"w/d/l={int(sp_stats['wins'])}/{int(sp_stats['draws'])}/"
+        f"{int(sp_stats['losses'])}  "
+        f"mean_len={float(sp_stats['mean_length']):.1f}  "
+        f"buffer={global_buffer_size(state.buffer)}")
+    if int(sp_stats["illegal_moves"]):
+        log(f"[gen {gen}] WARNING illegal moves: "
+            f"{int(sp_stats['illegal_moves'])}")
+    if not cfg.selfplay.continuous and int(sp_stats["unfinished"]):
+        log(f"[gen {gen}] note: {int(sp_stats['unfinished'])} unfinished "
+            "games")
+
+    t0 = time.time()
+    loss = None
+    for _ in range(cfg.train.epochs):
+        state.opt_state, loss = train_epoch(
+            state.train_net, state.opt_state, state.buffer, state.rng,
+            cfg.train)
+    loss = float(loss)
+    t_tr = time.time() - t0
+    log(f"[gen {gen}] train: {t_tr:.1f}s  loss={loss:.4f}")
+
+    t0 = time.time()
+    w, d, l, du_unfinished = duel_network(
+        game, partial(cfg.net_apply, state.train_net), best_apply,
+        state.rng, cfg.duel, dev)
+    t_du = time.time() - t0
+    new_elo = elo_update(w, d, l, state.elo)
+    passed = new_elo > state.elo
+    log(f"[gen {gen}] duel: {t_du:.1f}s  candidate w/d/l={w}/{d}/{l}  "
+        f"elo {state.elo:.1f} -> {new_elo:.1f}  "
+        f"{'PROMOTED' if passed else 'kept'}")
+    if du_unfinished:
+        log(f"[gen {gen}] note: {du_unfinished} duel games unfinished at the "
+            f"move bound (excluded from the tally)")
+    if passed:
+        state.elo = new_elo
+        state.best_net = state.train_net.copy(trainable=False)
+        state.best_generation = gen
+
+    state.generation = gen
+    if cfg.ckpt_dir:
+        ckpt.save_checkpoint(
+            cfg.ckpt_dir, gen,
+            best_net=state.best_net,
+            train_net=state.train_net,
+            opt_state=state.opt_state,
+            elo=state.elo,
+            best_generation=state.best_generation,
+            rng=state.rng,
+            buffer=state.buffer if cfg.save_buffer else None,
+            sp_carry=state.sp_carry if cfg.save_buffer else None,
+        )
+    stats = {
+        "generation": gen,
+        "selfplay_s": t_sp,
+        "train_s": t_tr,
+        "duel_s": t_du,
+        "loss": loss,
+        "duel": (w, d, l),
+        "duel_unfinished": du_unfinished,
+        "elo": state.elo,
+        "promoted": passed,
+        **sp_stats,
+    }
+    return state, stats
+
+
+def run_training(game, cfg: PipelineConfig,
+                 state: PipelineState | None = None):
+    if state is None:
+        state = init_pipeline(game, cfg)
+    history = []
+    for _ in range(cfg.generations - state.generation):
+        state, stats = run_generation(game, state, cfg)
+        history.append(stats)
+        cfg.log(f"[gen {stats['generation']}] best so far: generation "
+                f"{state.best_generation}, elo {state.elo:.1f}")
+    return state, history
+
+
+def resume(game, state: PipelineState, cfg: PipelineConfig) -> Dict[str, Any]:
+    """Load the latest checkpoint of ``cfg.ckpt_dir`` into ``state`` (in
+    place; with ``cfg.save_buffer`` the buffer and, in continuous mode, the
+    carry too).  Returns the manifest.  A checkpoint of the reference
+    package has a JAX key where this package keeps a generator state; the
+    run then keeps the stream ``state`` was seeded with."""
+    carry_tmpl = None
+    if cfg.selfplay.continuous and cfg.save_buffer:
+        carry_tmpl = make_carry(game, cfg.selfplay.num_games, None,
+                                state.buffer.state.device)
+    manifest, loaded = ckpt.load_checkpoint(
+        cfg.ckpt_dir, best_net=state.best_net, train_net=state.train_net,
+        opt_state=state.opt_state,
+        buffer=state.buffer if cfg.save_buffer else None,
+        sp_carry=carry_tmpl)
+    state.best_net = loaded["best"]
+    state.train_net = loaded["train"]
+    state.opt_state = loaded["opt"]
+    if loaded["rng"] is not None:
+        state.rng = loaded["rng"]
+    if "buffer" in loaded:
+        state.buffer = loaded["buffer"]
+    if "sp_carry" in loaded:
+        state.sp_carry = loaded["sp_carry"]
+        if state.sp_carry.rng is None:
+            state.sp_carry.rng = child_generator(state.rng)
+    state.elo = manifest["elo"]
+    state.generation = manifest["generation"]
+    state.best_generation = manifest["best_generation"]
+    return manifest

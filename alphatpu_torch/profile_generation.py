@@ -1,0 +1,170 @@
+"""Where the time of one generation goes, by stage, under ``torch.profiler``.
+
+    python -m alphatpu_torch.profile_generation --out profile.json
+
+Builds the best net and the learner's copy from seed 0, runs the whole
+generation-mode selfplay stage unprofiled (its wall time, and the buffer
+the train window reads), then profiles one window of each stage:
+
+* selfplay: the first ``--rounds`` rounds of ``selfplay_generation``,
+* train: one ``train_epoch`` over that buffer,
+* duel: the first ``--rounds`` rounds of one ``duel_half``,
+* checkpoint: ``save_checkpoint`` with the buffer.
+
+Per window it prints (and writes to ``--out``) one JSON object: wall time,
+device busy time (the sum of the device kernels' time), the idle share
+``1 - busy / wall``, device kernel launches (and per rollout for the
+search windows), host copy and sync calls, and the top device kernels.
+On the CPU (``--device cpu``) it gives the wall times only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import tempfile
+import time
+
+import torch
+
+from . import checkpoint as ckpt
+from .buffer import create_buffer
+from .duel import DuelConfig, duel_half
+from .games import make_game
+from .nets import MLP, config_for_game
+from .selfplay import SelfplayConfig, selfplay_generation
+from .train import TrainConfig, adam_init, train_epoch
+
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpyAsync")
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return "no nvidia-smi"
+
+
+def window(name: str, fn, device: torch.device, rollouts: int | None = None):
+    """Profile one call of ``fn``; ``rollouts`` is the number of searched
+    rollouts in it (for launches per rollout)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    sync()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy_ms = sum(by_name.values())
+    rec = {"window": name, "wall_ms": wall_ms}
+    if cuda:  # no device metric exists on a CPU run
+        rec.update({
+            "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": len(kernels),
+            "launches_per_rollout": (len(kernels) / rollouts if rollouts
+                                     else None),
+            "host_copy_or_sync_calls": sum(1 for e in events
+                                           if e.name in HOST_SYNCS),
+            "top_kernels_ms": [(k[:80], v) for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]],
+        })
+    print(json.dumps(rec))
+    return rec
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--game", default="connect4")
+    p.add_argument("--games", type=int, default=8192,
+                   help="selfplay games (the duel half plays a sixteenth)")
+    p.add_argument("--rollouts", type=int, default=64,
+                   help="selfplay rollouts (the duel searches half as many)")
+    p.add_argument("--rounds", type=int, default=4,
+                   help="rounds in the selfplay and duel windows")
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--depth", type=int, default=None)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--out", default=None, help="write the windows as JSON")
+    args = p.parse_args(argv)
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("profile_generation: no CUDA device (use --device "
+                         "cpu for a CPU run)")
+    game = make_game(args.game)
+    kw = {k: v for k, v in (("width", args.width), ("depth", args.depth))
+          if v is not None}
+    best = MLP.from_seed(config_for_game(game, **kw), 0, device=dev)
+    learner = best.copy(trainable=True)
+    opt = adam_init(learner)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    G, R, T = args.games, args.rollouts, game.max_game_length
+    duel = DuelConfig(num_games=max(G // 16, 1), rollouts=max(R // 2, 1))
+    sp_cfg = SelfplayConfig(num_games=G, rollouts=R)
+    card = card_line()
+    print(card)
+
+    # warm-up (allocator, cuBLAS handles), unprofiled
+    selfplay_generation(game, best, create_buffer(game, G, device=dev), gen,
+                        sp_cfg._replace(max_moves=1))
+    duel_half(game, learner, best, gen, duel._replace(max_moves=1), dev)
+    # the whole selfplay stage, unprofiled: its wall, and the buffer the
+    # train window reads
+    buf = create_buffer(game, G * T, device=dev)
+    t0 = time.perf_counter()
+    _, stats = selfplay_generation(game, best, buf, gen, sp_cfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    full = {"full_selfplay_s": time.perf_counter() - t0,
+            "samples_written": int(stats["samples_written"])}
+    print(json.dumps(full))
+
+    k = args.rounds
+    windows = [
+        window(f"selfplay, rounds 1-{k} of {T}, {G} games",
+               lambda: selfplay_generation(
+                   game, best, create_buffer(game, G * k, device=dev), gen,
+                   sp_cfg._replace(max_moves=k)), dev, k * R),
+        window("train, one epoch",
+               lambda: train_epoch(learner, opt, buf, gen, TrainConfig()),
+               dev),
+        window(f"duel, one half, rounds 1-{k} of {T}, {duel.num_games} "
+               "games", lambda: duel_half(game, learner, best, gen,
+                                          duel._replace(max_moves=k), dev),
+               dev, k * duel.rollouts),
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        windows.append(window(
+            "checkpoint with the buffer",
+            lambda: ckpt.save_checkpoint(
+                tmp, 1, best_net=best, train_net=learner, opt_state=opt,
+                elo=0.0, best_generation=0, rng=gen, buffer=buf), dev))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "args": vars(args), **full,
+                       "windows": windows}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,10 +1,18 @@
-"""Continuous selfplay: every game decides a move per round with a full
-MCTS search, and a finished game's lane restarts at once.
+"""Selfplay: every game decides a move per round with a full MCTS search.
 
-Counterpart of the continuous mode of :mod:`alphatpu.selfplay`
-(``selfplay_continuous`` with its :class:`EpisodeCarry`).  The reference
-runs the rounds as one jitted ``scan``; here they are a Python loop over
-tensors on the games' device, with the same per-round semantics:
+Counterpart of :mod:`alphatpu.selfplay`, with its two modes:
+
+* :func:`selfplay_generation` plays one game per lane for at most
+  ``max_moves`` rounds (default the game's ``max_game_length``), masking
+  the lanes whose game has ended; only the moves of finished games are
+  written, and a game still running at the bound is counted ``unfinished``,
+* :func:`selfplay_continuous` restarts a finished game's lane at once and
+  hands each lane's running episode to the next call through an
+  :class:`EpisodeCarry`.
+
+The reference runs the rounds as one jitted ``scan``; here they are a
+Python loop over tensors on the games' device, with the same per-round
+semantics:
 
 * move selection samples from the root policy while the lane's in-episode
   move index is below ``temp_moves`` and takes the argmax after,
@@ -36,7 +44,11 @@ class SelfplayConfig(NamedTuple):
     rollouts: int = 64
     cpuct: float = 1.5
     temp_moves: int = 25  # sample below this in-episode move index
-    rounds: int | None = None  # defaults to 2 * game.max_game_length
+    max_moves: int | None = None  # generation mode; game.max_game_length
+    # continuous mode (the pipeline's switch): num_games lanes recycle
+    # finished games for ``rounds`` rounds (default 2 * max_game_length)
+    continuous: bool = False
+    rounds: int | None = None
     # recompute the root policy after the final backup (see run_mcts)
     fresh_root_policy: bool = False
 
@@ -109,6 +121,77 @@ def _decide_moves(game, net, positions, tree, ep_move, cfg: SelfplayConfig,
     newpos = game.play(positions, action)
     finished, result = game.is_over(newpos)
     return root_enc, positions.player, pol, ok, newpos, finished, result
+
+
+def selfplay_generation(game, net, buffer: ReplayBuffer,
+                        generator: torch.Generator | None,
+                        cfg: SelfplayConfig,
+                        uniforms: SelfplayUniforms | None = None):
+    """Play ``cfg.num_games`` games from the start for ``T = cfg.max_moves
+    or game.max_game_length`` rounds and write every move of each finished
+    game to ``buffer`` (in place).  A lane whose game has ended keeps its
+    final position; its searches and moves are masked out.
+
+    Returns ``(buffer, stats)``: ``stats`` is a dict of 0-d tensors (wins /
+    draws / losses from the first mover's view, mean_length (0-based ply of
+    the last move), illegal_moves, unfinished, samples_written)."""
+    G = cfg.num_games
+    T = cfg.max_moves or game.max_game_length
+    A = game.max_actions
+    dev = buffer.state.device
+    positions = broadcast_initial(game, G, dev)
+    tree = init_tree(game, positions, cfg.rollouts)
+    done = torch.zeros((G,), dtype=torch.bool, device=dev)
+    result = torch.zeros((G,), dtype=torch.int8, device=dev)
+    fin_t = torch.zeros((G,), dtype=torch.int32, device=dev)
+    illegal = torch.zeros((), dtype=torch.int64, device=dev)
+    enc_s = torch.empty((T, G, 2 * game.vectorized_state), dtype=torch.int8,
+                        device=dev)
+    pol_s = torch.empty((T, G, A), dtype=torch.float32, device=dev)
+    player_s = torch.empty((T, G), dtype=torch.int8, device=dev)
+    alive_s = torch.empty((T, G), dtype=torch.bool, device=dev)
+
+    for t in range(T):
+        alive = ~done
+        root_enc, player_t, pol, ok, newpos, f, r = _decide_moves(
+            game, net, positions, tree,
+            torch.full((G,), t, dtype=torch.int32, device=dev), cfg,
+            generator=generator,
+            probs=None if uniforms is None else uniforms.probs[t],
+            u=None if uniforms is None else uniforms.move[t],
+        )
+        illegal = illegal + (alive & ~ok).sum()
+        positions = where_games(alive, newpos, positions)
+        newly = alive & f
+        result = torch.where(newly, r, result)
+        fin_t = torch.where(newly, t, fin_t)
+        done = done | f
+        enc_s[t] = root_enc
+        pol_s[t] = pol.T
+        player_s[t] = player_t
+        alive_s[t] = alive
+
+    final_feat = game.final_feature(positions)  # [G, fsize]
+    value_s = (1.0 + result.to(torch.float32)[None, :]
+               * player_s.to(torch.float32)) / 2.0
+    fstate_s = final_feat[None, :, :] * player_s[:, :, None]
+    mask = alive_s & done[None, :]  # only the moves of finished games
+    write_samples(buffer, enc_s.reshape(T * G, -1), pol_s.reshape(T * G, A),
+                  player_s.reshape(T * G), value_s.reshape(T * G),
+                  fstate_s.reshape(T * G, -1), mask.reshape(T * G))
+    n_done = done.sum()
+    stats = {
+        "wins": ((result == 1) & done).sum(),
+        "draws": ((result == 0) & done).sum(),
+        "losses": ((result == -1) & done).sum(),
+        "mean_length": torch.where(
+            n_done > 0, fin_t.sum().to(torch.float32)
+            / torch.clamp_min(n_done, 1).to(torch.float32), 0.0),
+        "illegal_moves": illegal,
+        "unfinished": (~done).sum(),
+        "samples_written": mask.sum(),
+    }
+    return buffer, stats
 
 
 def selfplay_continuous(game, net, buffer: ReplayBuffer,

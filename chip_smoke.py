@@ -21,16 +21,40 @@ Phases, each fatal on failure:
    one with ``segment_rollouts=False`` (the f32 engine),
 6. the per-phase search (``search.select`` / ``expand`` / ``backup``) at
    8192 lanes, against the f32 engine's ``run_mcts`` on the same uniforms,
-7. the main paths: continuous selfplay on connect4 with the 4x512 net from
-   a fixed seed, 8192 lanes, 64 rollouts per move - 48 rounds at level 1
-   (two chained calls), 24 under ``ALPHATPU_PACK=2``, 24 under
-   ``ALPHATPU_NO_PACK=1`` - each with its launch counts checked,
-8. a JSON line of the kernels, then the result line
+7. continuous selfplay on connect4 with the 4x512 net from a fixed seed,
+   8192 lanes, 64 rollouts per move - 16 rounds at level 1 (two chained
+   calls), 8 under ``ALPHATPU_PACK=2``, 8 under ``ALPHATPU_NO_PACK=1`` -
+   each with its launch counts checked,
+8. every other game family at level 1 with its reference net (random
+   weights from a numpy seed), 64 rollouts per move: tictactoe (6x128) at
+   1024 lanes for 12 rounds, gobang9 (6x512), hex7 (8x512), reversi6x6 (4x512) and
+   reversi8x8 (8x512) at 8192 lanes for 4 rounds each, gobang13 and hex13
+   at 2048 lanes for 2 rounds; env-steps/s per family,
+9. the shapes the CLI and the families give the kernels (PATH_SHAPES):
+   the CLI's tictactoe selfplay (16 rollouts, 1024 lanes) and duel halves
+   (8 rollouts, 64 lanes, no root noise), reversi6x6 (the pass column)
+   and hex7 at 512 lanes, gobang9 and reversi8x8 at 200 lanes (a partial
+   block of 128 threads); each the level-1 search on the card against
+   the CPU path, and all five kernels against their plain versions on a
+   tree grown there,
+10. one generation of the training pipeline at full width
+   (``pipeline.run_generation``): connect4, 4x512, generation-mode
+   selfplay of 8192 games at 64 rollouts, one epoch at batch 8192, a
+   1024-game duel at 32 rollouts, Elo, and a checkpoint with the buffer,
+   reloaded and compared with the live state bit for bit; seconds per
+   stage,
+11. the CLI end to end, in process (``alphatpu_torch.cli.main``): two
+   tictactoe generations at 1024 games, then a third resumed from the
+   checkpoint,
+12. a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts: before each path every count is set to 0, and after it the
 counts must be exactly what the path owes (launches made for the parity
-checks are not counted).
+checks are not counted).  The kernels line reports, for
+``select_apply_packed`` and ``backup``, the launches of the CLI run (the
+main path, phase 11); for the other three kernels those of the path that
+runs each (phases 6 and 7).
 
 Kernel parity: the stat planes after the apply phase must be exactly equal;
 paths, leaves and needs_alloc exactly equal outside the CDF-tie class (a
@@ -48,10 +72,33 @@ SEED = 0
 CPUCT = 1.5
 LANES = 8192
 ROLLOUTS = 64
-CHUNK_ROUNDS = 24
-CHUNKS = 2  # 48 rounds at level 1
+CHUNK_ROUNDS = 8
+CHUNKS = 2  # 16 rounds at level 1
 WIDE = (169, 64, 2048)  # A, V, G of the synthetic wide shape
 SMALL_G = 512  # lanes of the card-vs-CPU searches
+GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
+CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
+CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS = 16, 8
+DUEL_CPUCT = 2.0  # DuelConfig's
+# (game, rollouts = tree nodes, lanes, cpuct, training) of phase 9
+PATH_SHAPES = (
+    ("tictactoe", CLI_ROLLOUTS, CLI_GAMES, CPUCT, True),
+    ("tictactoe", CLI_DUEL_ROLLOUTS, CLI_DUEL_GAMES // 2, DUEL_CPUCT, False),
+    ("reversi6x6", ROLLOUTS, SMALL_G, CPUCT, True),
+    ("hex7", ROLLOUTS, SMALL_G, CPUCT, True),
+    ("gobang9", ROLLOUTS, 200, CPUCT, True),
+    ("reversi8x8", ROLLOUTS, 200, CPUCT, True),
+)
+# game -> (lanes, rounds) of its continuous selfplay at full width
+FAMILIES = {
+    "tictactoe": (1024, 12),
+    "gobang9": (8192, 4),
+    "hex7": (8192, 4),
+    "reversi6x6": (8192, 4),
+    "reversi8x8": (8192, 4),
+    "gobang13": (2048, 2),
+    "hex13": (2048, 2),
+}
 CSRC = "alphatpu_torch/csrc/"
 PALLAS = "alphatpu/mcts/pallas_kernels.py:"
 # name -> (source, the TPU kernel it replaces)
@@ -343,7 +390,8 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed):
     return out
 
 
-def search_vs_cpu(game, net, net_cpu, dev, V, G, level):
+def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
+                  training=True):
     """``run_mcts`` at one engine level on the card and on the CPU, from
     the same uniforms.  Exact: the tree structure, visits and (packed
     levels) wsum; the level-2 prior to one step of its 1/2048 grid, other
@@ -361,8 +409,9 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level):
     searched = []
     for d, n in ((dev, net), (cpu, net_cpu)):
         t = init_tree(game, game.initial(G, d), V)
-        _, pi = run_mcts(game, n, t, rollouts=V, cpuct=CPUCT, training=True,
-                         probs=probs.to(d), packed_stats=level)
+        _, pi = run_mcts(game, n, t, rollouts=V, cpuct=cpuct,
+                         training=training, probs=probs.to(d),
+                         packed_stats=level)
         searched.append((t, pi))
     (tg, pig), (tc, pic) = searched
     fields = ["parent", "action_from", "expanded", "next_idx", "visits"]
@@ -382,8 +431,9 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level):
                                rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(pig.cpu()[:, ok], pic[:, ok], rtol=1e-4,
                                atol=1e-6 + grid)
-    print(f"search on the card vs the CPU path, level {level} (G={G}, "
-          f"R={V}): diverged lanes {n_bad}/{G}")
+    print(f"search on the card vs the CPU path, {game.name}, level {level} "
+          f"(G={G}, R={V}, cpuct {cpuct}, training={training}): diverged "
+          f"lanes {n_bad}/{G}")
 
 
 def phase_search(game, net, tree, probs, cpuct):
@@ -409,10 +459,12 @@ def phase_search(game, net, tree, probs, cpuct):
     return root_pi
 
 
-def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card):
+def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card,
+                 lanes=LANES, chunk_rounds=CHUNK_ROUNDS):
     """Continuous selfplay at full width under the engine switches ``env``,
-    ``chunks`` chained calls of CHUNK_ROUNDS rounds; checks the result and
-    the launches the path owes.  Returns (launches, env-steps/s)."""
+    ``chunks`` chained calls of ``chunk_rounds`` rounds on ``lanes`` lanes;
+    checks the result and the launches the path owes.  Returns (launches,
+    env-steps/s)."""
     import torch
 
     from alphatpu_torch.buffer import buffer_size, create_buffer
@@ -426,15 +478,15 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card):
         os.environ.pop(k, None)
     os.environ.update(env)
     try:
-        G = LANES
+        G = lanes
         cfg = SelfplayConfig(num_games=G, rollouts=ROLLOUTS, cpuct=CPUCT,
-                             rounds=CHUNK_ROUNDS)
-        buf = create_buffer(game, capacity=1 << 20, device=dev)
-        # warm-up (allocator, cuBLAS handles): two rounds, not counted
-        selfplay_continuous(game, net, create_buffer(game, 1 << 14,
-                                                     device=dev),
+                             rounds=chunk_rounds)
+        buf = create_buffer(game, capacity=chunks * chunk_rounds * G,
+                            device=dev)
+        # warm-up (allocator, cuBLAS handles): one round, not counted
+        selfplay_continuous(game, net, create_buffer(game, G, device=dev),
                             torch.Generator(device=dev).manual_seed(SEED + 7),
-                            cfg._replace(rounds=2))
+                            cfg._replace(rounds=1))
         torch.cuda.synchronize()
         carry = make_carry(game, G,
                            torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -453,7 +505,7 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card):
             torch.cuda.synchronize()
             chunk_walls.append(time.perf_counter() - t1)
         wall = time.perf_counter() - t0
-        rounds = chunks * CHUNK_ROUNDS
+        rounds = chunks * chunk_rounds
         launches = expect_launches(
             K, f"selfplay {label}",
             {owed_kernel: rounds * ROLLOUTS, "backup": rounds})
@@ -467,19 +519,21 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card):
     env_steps = totals["samples_written"] + carried
     mean_len = totals["length_sum"] / max(totals["games_finished"], 1.0)
     rate = env_steps / wall
-    print(f"selfplay {label}: connect4 4x512, {G} lanes, {ROLLOUTS} "
-          f"rollouts, {rounds} rounds in {chunks} chained calls: "
+    c = net.cfg
+    print(f"selfplay {label}: {game.name} {c.depth}x{c.width}, {G} lanes, "
+          f"{ROLLOUTS} rollouts, {rounds} rounds in {chunks} chained calls: "
           f"{rate:.1f} env-steps/s, wall {wall:.3f} s, "
           f"env-steps {env_steps:.0f}, samples written "
           f"{totals['samples_written']:.0f}, games finished "
           f"{totals['games_finished']:.0f}, mean game length "
           f"{mean_len:.2f}, illegal moves {totals['illegal_moves']:.0f}; "
-          f"per call " + ", ".join(f"{CHUNK_ROUNDS * G / w:.1f}"
+          f"per call " + ", ".join(f"{chunk_rounds * G / w:.1f}"
                                    for w in chunk_walls)
           + f" env-steps/s  [{card}]")
     if totals["illegal_moves"] != 0:
         raise AssertionError(f"selfplay {label}: illegal moves")
-    if not totals["samples_written"] > 0 or not totals["games_finished"] > 0:
+    if rounds >= 2 * game.min_game_length and not (
+            totals["samples_written"] > 0 and totals["games_finished"] > 0):
         raise AssertionError(f"selfplay {label}: no samples / no game")
     if env_steps != rounds * G:
         raise AssertionError(f"selfplay {label}: written + carried != "
@@ -496,6 +550,223 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card):
     if not set(values) <= {0.0, 0.5, 1.0}:
         raise AssertionError(f"selfplay {label}: back-filled values {values}")
     return launches, rate
+
+
+def family_runs(K, dev, card: str) -> dict:
+    """Phase 8: continuous selfplay at level 1 for every family of
+    FAMILIES, with its reference net.  Returns {game: env-steps/s}."""
+    import torch
+
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.nets import MLP, config_for_game
+
+    rates = {}
+    for name, (lanes, rounds) in FAMILIES.items():
+        game = make_game(name)
+        net = MLP.from_seed(config_for_game(game), SEED, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, rates[name] = selfplay_run(K, game, net, dev, f"family {name}", {},
+                                      1, "select_apply_packed", card,
+                                      lanes=lanes, chunk_rounds=rounds)
+        print(f"  {name}: A={game.max_actions}, peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+        del net
+        torch.cuda.empty_cache()
+    print("env-steps/s per family in this run: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()) + f"  [{card}]")
+    return rates
+
+
+def pipeline_generation(K, dev, card: str) -> None:
+    """Phase 10: one generation of ``pipeline.run_generation`` at full
+    width on connect4 - selfplay_generation on LANES games, one epoch, a
+    1024-game duel, Elo and a checkpoint with the buffer - with each
+    stage's launches checked, then the checkpoint reloaded into a fresh
+    state and compared with the live one bit for bit."""
+    import math
+    import tempfile
+
+    import torch
+
+    from alphatpu_torch.duel import DuelConfig
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.nets import PARAM_NAMES
+    from alphatpu_torch.pipeline import (
+        PipelineConfig, init_pipeline, resume, run_generation,
+    )
+    from alphatpu_torch.selfplay import SelfplayConfig
+    from alphatpu_torch.train import TrainConfig
+
+    game = make_game("connect4")
+    T = game.max_game_length
+    duel = DuelConfig(num_games=GEN_DUEL[0], rollouts=GEN_DUEL[1])
+    marks = {}  # stage -> (time, launch counts) when its log line came
+
+    def log(line):
+        print(f"  {line}")
+        for stage in ("selfplay", "train", "duel"):
+            if line.startswith(f"[gen 1] {stage}:"):
+                marks[stage] = (time.perf_counter(), launch_counts(K))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PipelineConfig(
+            selfplay=SelfplayConfig(num_games=LANES, rollouts=ROLLOUTS,
+                                    cpuct=CPUCT),
+            train=TrainConfig(batch_size=8192), duel=duel,
+            buffer_capacity=LANES * T, generations=1, seed=SEED,
+            ckpt_dir=tmp, save_buffer=True, device=str(dev), log=log)
+        state = init_pipeline(game, cfg)
+        w0 = state.train_net.base.detach().clone()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, stats = run_generation(game, state, cfg)
+        t_end = time.perf_counter()
+        end_counts = launch_counts(K)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, f))
+                         for f in os.listdir(tmp))
+
+        def delta(a, b):
+            return {k: b[k] - a[k] for k in b}
+
+        zero = {k: 0 for k in KERNELS}
+        owed = {
+            "selfplay": (zero, marks["selfplay"][1],
+                         {"select_apply_packed": T * ROLLOUTS, "backup": T}),
+            "train": (marks["selfplay"][1], marks["train"][1], {}),
+            "duel": (marks["train"][1], marks["duel"][1],
+                     {"select_apply_packed": 2 * T * duel.rollouts,
+                      "backup": 2 * T}),
+            "checkpoint": (marks["duel"][1], end_counts, {}),
+        }
+        for stage, (a, b, want) in owed.items():
+            got = delta(a, b)
+            want = {k: want.get(k, 0) for k in KERNELS}
+            print(f"launches in the generation's {stage}: {got}")
+            if got != want:
+                raise AssertionError(f"generation {stage}: launches {got}, "
+                                     f"owed {want}")
+        if stats["illegal_moves"] != 0:
+            raise AssertionError("generation: illegal moves")
+        if (stats["wins"] + stats["draws"] + stats["losses"]
+                + stats["unfinished"]) != LANES:
+            raise AssertionError("generation: w+d+l+unfinished != games")
+        if not math.isfinite(stats["loss"]):
+            raise AssertionError("generation: the loss is not finite")
+        if torch.equal(w0, state.train_net.base):
+            raise AssertionError("generation: training changed no weight")
+        if sum(stats["duel"]) + stats["duel_unfinished"] != duel.num_games:
+            raise AssertionError("generation: duel tally + unfinished != "
+                                 "games")
+
+        # the checkpoint, reloaded into a fresh state
+        t1 = time.perf_counter()
+        fresh = init_pipeline(game, cfg)
+        resume(game, fresh, cfg)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t1
+        pairs = [(f"best/{n}", getattr(fresh.best_net, n),
+                  getattr(state.best_net, n)) for n in PARAM_NAMES]
+        pairs += [(f"train/{n}", getattr(fresh.train_net, n),
+                   getattr(state.train_net, n)) for n in PARAM_NAMES]
+        pairs += [(f"opt/{f}/{n}", fresh.opt_state[f][n],
+                   state.opt_state[f][n]) for f in ("mu", "nu")
+                  for n in PARAM_NAMES]
+        pairs += [("opt/count", fresh.opt_state["count"],
+                   state.opt_state["count"]),
+                  ("rng", fresh.rng.get_state(), state.rng.get_state())]
+        pairs += [(f"buffer/{f}", getattr(fresh.buffer, f),
+                   getattr(state.buffer, f))
+                  for f in ("state", "policy", "player", "value", "fstate",
+                            "cursor", "total")]
+        bad = [k for k, a, b in pairs
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        scalars = [(fresh.elo, state.elo), (fresh.generation, 1),
+                   (fresh.best_generation, state.best_generation)]
+        if bad or any(a != b for a, b in scalars):
+            raise AssertionError(f"checkpoint reload differs: {bad} "
+                                 f"{scalars}")
+    t_sp, t_tr, t_du = stats["selfplay_s"], stats["train_s"], stats["duel_s"]
+    n_upd = int(state.opt_state["count"])
+    print(f"pipeline generation: connect4 4x512, selfplay {LANES} games x "
+          f"{ROLLOUTS} rollouts ({stats['samples_written']} samples, "
+          f"w/d/l/unfinished {stats['wins']}/{stats['draws']}/"
+          f"{stats['losses']}/{stats['unfinished']}, illegal moves "
+          f"{stats['illegal_moves']}): {t_sp:.3f} s; train {n_upd} updates "
+          f"at batch 8192: {t_tr:.3f} s, loss {stats['loss']:.4f}; duel "
+          f"{duel.num_games} games x {duel.rollouts} rollouts "
+          f"(w/d/l {stats['duel']}, unfinished {stats['duel_unfinished']}): "
+          f"{t_du:.3f} s; checkpoint {t_end - marks['duel'][0]:.3f} s "
+          f"({ckpt_bytes / 2**20:.1f} MiB); generation {t_end - t0:.3f} s; "
+          f"reload {t_load:.3f} s, equal to the live state bit for bit  "
+          f"[{card}]")
+
+
+class Tee:
+    """A text stream that writes to several."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def cli_run(K, dev, card: str) -> dict:
+    """Phase 11: ``alphatpu_torch.cli.main`` in process on ``dev`` - two
+    tictactoe generations at CLI_GAMES games, then a third resumed from the
+    checkpoint.  Returns the launches of the three runs."""
+    import contextlib
+    import io
+    import tempfile
+
+    from alphatpu_torch.cli import main as cli_main
+
+    T, R, duel_r = 9, CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS  # T: the move bound
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        stats_file = os.path.join(tmp, "stats.jsonl")
+        common = ["--game", "tictactoe", "--samples", str(CLI_GAMES),
+                  "--rollout", str(R), "--batchsize", "256", "--duel-games",
+                  str(CLI_DUEL_GAMES), "--duel-rollouts", str(duel_r),
+                  "--ckpt-dir", ck, "--stats-file", stats_file,
+                  "--device", str(dev)]
+        out = io.StringIO()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(Tee(sys.stdout, out)):
+            rcs = (cli_main(common + ["--generation", "2"]),
+                   cli_main(common + ["--generation", "3", "--resume"]))
+        wall = time.perf_counter() - t0
+        gens = 3
+        launches = expect_launches(
+            K, "the CLI (3 generations)",
+            {"select_apply_packed": gens * (T * R + 2 * T * duel_r),
+             "backup": gens * 3 * T})
+        files = sorted(os.listdir(ck))
+        with open(stats_file) as f:
+            lines = [json.loads(x) for x in f]
+    if rcs != (0, 0):
+        raise AssertionError(f"CLI exit codes {rcs}")
+    if "resumed at generation 2" not in out.getvalue():
+        raise AssertionError("CLI: the second run did not resume")
+    if files != ["latest.json", "net1.npz", "net2.npz", "net3.npz"]:
+        raise AssertionError(f"CLI: checkpoint files {files}")
+    if [x["generation"] for x in lines] != [1, 2, 3]:
+        raise AssertionError("CLI: stats lines")
+    for x in lines:
+        if x["illegal_moves"] != 0 or (x["wins"] + x["draws"] + x["losses"]
+                                       + x["unfinished"]) != CLI_GAMES:
+            raise AssertionError(f"CLI: generation {x['generation']}: {x}")
+    print(f"CLI: tictactoe 6x128, 2 generations + 1 resumed, {wall:.3f} s; "
+          f"illegal moves 0 in every generation; files {files}  [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -535,7 +806,7 @@ def main() -> int:
 
 
 def smoke(dev, card: str, kind: str) -> int:
-    """Phases 3-8 on the device ``dev``; ``card`` is the nvidia-smi line
+    """Phases 3-12 on the device ``dev``; ``card`` is the nvidia-smi line
     printed beside every time, ``kind`` the device name."""
     import torch
 
@@ -638,13 +909,43 @@ def smoke(dev, card: str, kind: str) -> int:
         got, rates[label] = selfplay_run(K, game, net, dev, label, env,
                                          chunks, kernel, card)
         launches[kernel] = got[kernel]
-        if kernel == "select_apply_packed":
-            launches["backup"] = got["backup"]
     launches["select"] = phase_launches["select"]
     print("env-steps/s in this run: " + ", ".join(
         f"{k} {v:.1f}" for k, v in rates.items()) + f"  [{card}]")
+    del net, net_cpu
+    torch.cuda.empty_cache()
 
-    # ---- 8. result ----
+    # ---- 8. every other family at full width ----
+    family_runs(K, dev, card)
+
+    # ---- 9. the path's shapes: card against CPU, kernels against plain ----
+    for name, V, G, cpuct, training in PATH_SHAPES:
+        g = make_game(name)
+        cfg = config_for_game(g)
+        net_g = MLP.from_seed(cfg, SEED, device=dev)
+        search_vs_cpu(g, net_g,
+                      MLP.from_seed(cfg, SEED, device=torch.device("cpu")),
+                      dev, V, G, 1, cpuct=cpuct, training=training)
+        tree = init_tree(g, g.initial(G, dev), V)
+        run_mcts(g, net_g, tree, rollouts=V - 2, cpuct=cpuct,
+                 training=training, generator=gen)
+        D = min(g.max_game_length, V)
+        shape = parity(K, tree, D, gen, cpuct, K.value_scale(V),
+                       f"{name} A={g.max_actions} V={V} G={G} D={D}", False)
+        for k, (err, _, _) in shape.items():
+            results[k] = (max(err, results[k][0]),) + results[k][1:]
+        del net_g, tree
+
+    # ---- 10. one generation of the training pipeline ----
+    pipeline_generation(K, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 11. the CLI: the main path ----
+    cli = cli_run(K, dev, card)
+    launches["select_apply_packed"] = cli["select_apply_packed"]
+    launches["backup"] = cli["backup"]
+
+    # ---- 12. result ----
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": CSRC + src,
          "replaces": PALLAS + line, "launches": launches[name],

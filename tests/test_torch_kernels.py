@@ -40,6 +40,10 @@ from alphatpu_torch.mcts.search import descend as port_descend
 from alphatpu_torch.mcts.search import select as port_select
 from alphatpu_torch.mcts.tree import Tree
 
+# the tests run tiny tensors, where torch's CPU thread pool costs more
+# than it saves
+torch.set_num_threads(1)
+
 CPUCT = 1.5
 
 

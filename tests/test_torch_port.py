@@ -4,6 +4,7 @@ The CPU tests check that ``alphatpu_torch`` never imports JAX and builds
 nothing at import.  The tests marked ``cuda`` hold each CUDA kernel to its
 plain torch version on the card; they skip where torch finds no CUDA device.
 """
+import math
 import os
 import subprocess
 import sys
@@ -16,12 +17,19 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 MODULES = (
     "alphatpu_torch", "alphatpu_torch.bitboard", "alphatpu_torch.games",
-    "alphatpu_torch.games.connect4", "alphatpu_torch.nets",
-    "alphatpu_torch.mcts.tree", "alphatpu_torch.mcts.newton",
-    "alphatpu_torch.mcts.kernels", "alphatpu_torch.mcts.search",
-    "alphatpu_torch.buffer", "alphatpu_torch.selfplay",
-    "alphatpu_torch._build",
+    "alphatpu_torch.games.connect4", "alphatpu_torch.games.gobang",
+    "alphatpu_torch.games.hex", "alphatpu_torch.games.reversi",
+    "alphatpu_torch.nets", "alphatpu_torch.mcts.tree",
+    "alphatpu_torch.mcts.newton", "alphatpu_torch.mcts.kernels",
+    "alphatpu_torch.mcts.search", "alphatpu_torch.buffer",
+    "alphatpu_torch.selfplay", "alphatpu_torch.train", "alphatpu_torch.duel",
+    "alphatpu_torch.checkpoint", "alphatpu_torch.pipeline",
+    "alphatpu_torch.cli", "alphatpu_torch._build",
 )
+
+# the tests run tiny tensors, where torch's CPU thread pool costs more
+# than it saves
+torch.set_num_threads(1)
 
 
 def test_port_never_imports_jax():
@@ -241,3 +249,42 @@ def test_switches_launch_engines(env, kernel, cuda, monkeypatch):
     assert {k.__name__: k.launches for k in K.KERNELS} == {
         "select_apply_packed": 0, "select_apply_packed1": 0,
         "select_apply": 0, "select": 0, "backup": 1, kernel: 14}
+
+
+@pytest.mark.cuda
+def test_one_generation_on_the_card(cuda, tmp_path):
+    """A tictactoe generation on the card goes through the two main-path
+    kernels and reloads bit for bit."""
+    from alphatpu_torch.duel import DuelConfig
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.nets import PARAM_NAMES
+    from alphatpu_torch.pipeline import (
+        PipelineConfig, init_pipeline, resume, run_generation,
+    )
+    from alphatpu_torch.selfplay import SelfplayConfig
+    from alphatpu_torch.train import TrainConfig
+
+    game = make_game("tictactoe")
+    cfg = PipelineConfig(
+        selfplay=SelfplayConfig(num_games=256, rollouts=16),
+        train=TrainConfig(batch_size=32), duel=DuelConfig(num_games=64,
+                                                          rollouts=8),
+        buffer_capacity=4096, generations=1, width=32, depth=2,
+        ckpt_dir=str(tmp_path), device="cuda", log=lambda s: None)
+    state = init_pipeline(game, cfg)
+    K.reset_launch_counts()
+    state, stats = run_generation(game, state, cfg)
+    T = game.max_game_length
+    assert K.select_apply_packed.launches == T * 16 + 2 * T * 8
+    assert K.backup.launches == T + 2 * T
+    assert stats["illegal_moves"] == 0
+    assert (stats["wins"] + stats["draws"] + stats["losses"]
+            + stats["unfinished"]) == 256
+    assert math.isfinite(stats["loss"])
+    fresh = init_pipeline(game, cfg)
+    resume(game, fresh, cfg)
+    for name in PARAM_NAMES:
+        assert torch.equal(getattr(fresh.train_net, name),
+                           getattr(state.train_net, name))
+    assert torch.equal(fresh.rng.get_state(), state.rng.get_state())

@@ -32,6 +32,10 @@ from alphatpu_torch.mcts.search import engine_level, run_mcts
 from alphatpu_torch.mcts.tree import child_lookup, init_tree, reset_tree
 from alphatpu_torch.nets import config_for_game, params_from_jax
 
+# the tests run tiny tensors, where torch's CPU thread pool costs more
+# than it saves
+torch.set_num_threads(1)
+
 CPUCT = 1.5
 
 
@@ -51,8 +55,8 @@ def dyadic_params(cfg, seed):
 
 
 def _searches(G, V, R, seed, final_root_policy, monkeypatch,
-              packed_stats=None):
-    jgame, game = jax_make_game("connect4"), make_game("connect4")
+              packed_stats=None, name="connect4"):
+    jgame, game = jax_make_game(name), make_game(name)
     cfg = config_for_game(game, width=32, depth=2)
     flat = dyadic_params(cfg, seed)
     D = min(game.max_game_length, V)
@@ -325,3 +329,95 @@ def test_tree_reset_in_place_and_child_lookup():
     root = type(positions)(*(leaf[0].movedim(-1, 0) for leaf in tree.states))
     for a, b in zip(root, positions):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["tictactoe", "reversi6x6", "hex5"])
+def test_run_mcts_new_games_match_reference(name, monkeypatch):
+    """Level 1 (the packed engine, the reference's kernel path) on the
+    other families' action counts: 9, 37 with the pass column, 25 on an
+    embedded 6x6 board."""
+    G, V = 128, 16
+    (jtree, jpi), (tree, pi) = _searches(G, V, V, 2, False, monkeypatch,
+                                         name=name)
+    _assert_trees_match(tree, jtree, pi, jpi)
+    np.testing.assert_array_equal(tree.visits[:, 0, :].sum(0).numpy(), V - 1)
+
+
+def _port_state(game, ost):
+    """The port's batched state (G = 1) of a numpy-oracle state."""
+    from alphatpu_torch import bitboard as bb
+
+    spec = game.spec
+    bp, bo = (bb.from_planes(spec, torch.from_numpy(
+        ost[k].T.reshape(-1).astype(np.int64)))[None] for k in ("mover",
+                                                                 "other"))
+    player = torch.tensor([ost["player"]], dtype=torch.int8)
+    zero = torch.zeros((1,), dtype=torch.int32)
+    return type(game.initial(1))(bp, bo, player, zero)
+
+
+@pytest.mark.parametrize("name", ["connect4", "tictactoe"])
+def test_search_matches_scalar_twin(name):
+    """Node for node against ``alphatpu.cpu_mcts.ScalarMCTS`` (numpy, the
+    reference GPU algorithm one game at a time) on the same injected
+    uniforms, from random openings, with a uniform-prior, value-0.5 net:
+    tree structure, visits and child ids exactly, q and the root policy to
+    the scalar twin's tolerances (rtol 2e-3 and 5e-3: float32 sums in
+    another order and the Newton stop)."""
+    from alphatpu import cpu_mcts, oracles
+
+    from alphatpu_torch.mcts.tree import child_lookup
+
+    game = make_game(name)
+    oracle = (oracles.OracleConnect4() if name == "connect4" else
+              oracles.OracleGobang(3, 3))
+    G, R, cpuct = 6, 24, 1.5
+    D = min(game.max_game_length, R)
+    A = game.max_actions
+    rng = np.random.default_rng(3)
+    roots = []
+    for _ in range(G):
+        ost = oracle.initial()
+        for _ in range(int(rng.integers(0, 6))):
+            acts = oracle.legal_actions(ost)
+            nxt = oracle.play(ost, int(acts[rng.integers(len(acts))]))
+            if oracle.is_over(nxt)[0]:
+                break
+            ost = nxt
+        roots.append(ost)
+    states = [_port_state(game, o) for o in roots]
+    positions = type(states[0])(*(torch.cat(x) for x in zip(*states)))
+    probs = rng.random((R, D, G), dtype=np.float32)
+
+    def uniform_net(x):
+        return (torch.zeros((x.shape[0], A)),
+                torch.full((x.shape[0],), 0.5))
+
+    tree = init_tree(game, positions, R)
+    _, pi = run_mcts(game, uniform_net, tree, rollouts=R, cpuct=cpuct,
+                     training=True, probs=torch.from_numpy(probs))
+    q = torch.where(tree.visits > 0,
+                    tree.wsum / torch.clamp_min(tree.visits, 1.0), 0.0)
+    uni = np.full(A, np.float32(1.0) / np.float32(A))
+    twin = cpu_mcts.ScalarMCTS(oracle, A, cpuct, True,
+                               prior_fn=lambda s: uni,
+                               value_fn=lambda s: np.float32(0.5))
+    for g in range(G):
+        nodes, pol = twin.search(roots[g], probs[:, :, g])
+        assert int(tree.next_idx[g]) == len(nodes), f"game {g} node count"
+        for i, node in enumerate(nodes):
+            assert int(tree.parent[i, g]) == node.parent, (g, i)
+            if i > 0:
+                assert int(tree.action_from[i, g]) == node.action_from, (g, i)
+            assert bool(tree.expanded[i, g]) == node.expanded, (g, i)
+            np.testing.assert_array_equal(tree.visits[:, i, g].numpy(),
+                                          node.visits, err_msg=f"{g} {i}")
+            np.testing.assert_allclose(q[:, i, g].numpy(), node.q, rtol=2e-3,
+                                       atol=1e-5, err_msg=f"q {g} {i}")
+            for a, c in node.child.items():
+                cid = child_lookup(tree.parent, tree.action_from,
+                                   torch.full((G,), i, dtype=torch.int32),
+                                   torch.full((G,), a, dtype=torch.int32))
+                assert int(cid[g]) == c, (g, i, a)
+        np.testing.assert_allclose(pi[:, g].numpy(), pol, rtol=5e-3,
+                                   atol=1e-5, err_msg=f"policy {g}")

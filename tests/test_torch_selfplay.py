@@ -37,6 +37,10 @@ from alphatpu_torch.selfplay import (
     SelfplayConfig, SelfplayUniforms, make_carry, selfplay_continuous,
 )
 
+# the tests run tiny tensors, where torch's CPU thread pool costs more
+# than it saves
+torch.set_num_threads(1)
+
 CPUCT = 1.5
 
 
@@ -282,3 +286,86 @@ def test_selfplay_small_lane_counts(G, fresh_root_policy):
         cfg)
     assert int(stats["illegal_moves"]) == 0
     assert int(stats["samples_written"]) + int(stats["carried"]) == 10 * G
+
+
+@pytest.mark.parametrize("name,G,R", [("tictactoe", 16, 12),
+                                      ("reversi6x6", 16, 8)])
+def test_selfplay_generation_matches_reference(name, G, R, monkeypatch):
+    """One generation in both packages on the same uniforms (the
+    reference's key stream is the continuous mode's): every stat and every
+    buffer row equal (policies to rtol 1e-5).  reversi6x6 carries the pass
+    column.  At 16 lanes (not a multiple of its 128-lane block) the
+    reference searches with its f32 engine, so the port is switched to its
+    own (``ALPHATPU_NO_PACK=1``)."""
+    from alphatpu.selfplay import selfplay_generation as jax_generation
+    from alphatpu_torch.selfplay import selfplay_generation
+
+    jgame, game = jax_make_game(name), make_game(name)
+    cfg_net = config_for_game(game, width=32, depth=2)
+    flat = dyadic_params(cfg_net, seed=4)
+    key = jax.random.key(9)
+    cap = G * game.max_game_length
+    monkeypatch.setenv("ALPHATPU_NO_PACK", "1")
+
+    monkeypatch.setenv("ALPHATPU_FORCE_INTERPRET", "1")
+    jbuf, jstats = jax.device_get(
+        jax.jit(jax_generation, static_argnums=(0, 1, 5))(
+            jgame, apply_inference,
+            {k: jnp.asarray(v) for k, v in flat.items()},
+            jax_create_buffer(jgame, capacity=cap), key,
+            JaxSelfplayConfig(num_games=G, rollouts=R, cpuct=CPUCT)))
+    monkeypatch.delenv("ALPHATPU_FORCE_INTERPRET")
+
+    T = game.max_game_length
+    D = min(T, R)
+    buf, stats = selfplay_generation(
+        game, params_from_jax(flat, cfg_net), create_buffer(game, cap), None,
+        SelfplayConfig(num_games=G, rollouts=R, cpuct=CPUCT),
+        uniforms=reference_uniforms(key, T, R, D, G))
+
+    jstats = {k: float(np.asarray(v)) for k, v in jstats.items()}
+    pstats = {k: float(v) for k, v in stats.items()}
+    assert pstats == jstats
+    n = int(buffer_size(buf))
+    assert n == int(jbuf.total[0]) == pstats["samples_written"] > 0
+    ints, pol = _rows(buf, n)
+    jints, jpol = _rows(jbuf, n)
+    np.testing.assert_array_equal(ints, jints)
+    np.testing.assert_allclose(pol, jpol, rtol=1e-5, atol=1e-6)
+    assert pstats["illegal_moves"] == 0
+    assert (pstats["wins"] + pstats["draws"] + pstats["losses"]
+            + pstats["unfinished"]) == G
+
+
+def test_selfplay_generation_invariants():
+    """The port alone: games from the start, moves of finished games only,
+    the back-fill, and a move bound that leaves games unfinished."""
+    from alphatpu_torch.selfplay import selfplay_generation
+
+    game = make_game("tictactoe")
+    cfg_net = config_for_game(game, width=32, depth=2)
+    net = params_from_jax(dyadic_params(cfg_net, 5), cfg_net)
+    G = 16
+    cfg = SelfplayConfig(num_games=G, rollouts=8, cpuct=CPUCT)
+    buf, stats = selfplay_generation(game, net, create_buffer(game, 512),
+                                     torch.Generator().manual_seed(2), cfg)
+    st = {k: float(v) for k, v in stats.items()}
+    assert st["illegal_moves"] == 0 and st["unfinished"] == 0
+    assert st["wins"] + st["draws"] + st["losses"] == G
+    n = int(buffer_size(buf))
+    assert n == st["samples_written"]
+    # mean_length is the 0-based ply of the last move: samples = ply + 1
+    assert n == pytest.approx(G * (st["mean_length"] + 1))
+    state = buf.state[:n].numpy().astype(np.int64)
+    stones = state.sum(-1)
+    assert (stones == 0).sum() == G  # each game once from the empty board
+    np.testing.assert_array_equal(buf.player[:n].numpy(),
+                                  np.where(stones % 2 == 0, 1, -1))
+    assert set(np.unique(buf.value[:n].numpy())) <= {0.0, 0.5, 1.0}
+
+    buf, stats = selfplay_generation(
+        game, net, create_buffer(game, 512), torch.Generator().manual_seed(2),
+        cfg._replace(max_moves=3))
+    assert int(stats["unfinished"]) == G
+    assert int(stats["samples_written"]) == 0 == int(buffer_size(buf))
+    assert float(stats["mean_length"]) == 0.0
