@@ -39,8 +39,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # pointers x 19, A, V, G, D, cpuct, scale, stream
-    "launch_select_apply_packed": [_P] * 19 + [_I] * 4 + [_F, _I, _P],
+    # pointers x 19, A, V, G, D, cpuct, scale, lanes, slots, threads,
+    # blocks, smem, stream
+    "launch_select_apply_packed": [_P] * 19 + [_I] * 4 + [_F] + [_I] * 6
+                                  + [_P],
     # pointers x 18, A, V, G, D, cpuct, bits_v, bits_w, scale, stream
     "launch_select_apply_packed1": [_P] * 18 + [_I] * 4 + [_F] + [_I] * 3
                                    + [_P],
@@ -48,8 +50,8 @@ _SIGNATURES = {
     "launch_select_apply": [_P] * 20 + [_I] * 4 + [_F, _P],
     # pointers x 13, A, V, G, D, cpuct, stream
     "launch_select": [_P] * 13 + [_I] * 4 + [_F, _P],
-    # pointers x 6, A, V, G, D, stream
-    "launch_backup": [_P] * 6 + [_I] * 4 + [_P],
+    # pointers x 6, A, V, G, D, threads, blocks, stream
+    "launch_backup": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 # what the last build in this process printed (ptxas's register, stack

@@ -8,59 +8,153 @@
 //      the leaf is V, i.e. the tree was full),
 //   2. applies the previous rollout's backup to the packed plane: one
 //      integer add of ((contrib * S) << 16) | 1 per recorded path edge,
-//   3. walks from the root to a leaf (walk.cuh).
+//   3. walks from the root to a leaf (walk.cuh, walk_group).
 //
-// What bounds it on Hopper: scattered loads.  A walk visits about 5 nodes;
-// at each it reads 2 planes x A words of [A, V, G] stats plus V words each
-// of parent and action_from, and the Newton solve works on those rows.  The
-// TPU kernel streamed whole [A, V, Gb] blocks through VMEM and selected rows
-// with one-hot reduces over V because it has no fast gather.  Here each game
-// is one thread with its own early exit: it loads only the rows of the nodes
-// it visits, and because the layout keeps games minor, the 32 threads of a
-// warp read 32 neighbouring words of each row.  Games share nothing, so
-// there is no synchronisation.
+// What bounds it on Hopper: bytes.  Per game the walk must read the
+// parent and action_from columns (V x 8 B) to find each child, A x 8 B of
+// prior and packed stats per node it visits (about 3 at connect4's
+// shape), and write the path (D x 8 B) and the root policy (A x 4 B); the
+// apply phase reads the pending path (D x 4 B) and adds to a few words.
+// At A=7, V=64, G=8192, D=42 that is about 11 MB, 3.3 us at 3.35 TB/s
+// (alphatpu_torch/mcts/bounds.py counts it per call); the Newton arithmetic
+// is far below the f32 peak.  What the card actually waits on is latency:
+// each step of a walk depends on the last (a node's row, its policy, the
+// sampled child), and the kernel ends with its slowest game.
+//
+// The design, for that: K lanes of a warp per game (K the next power of
+// two of A, at most 32; the wrapper's walk_geometry picks it and the block
+// size so that every SM gets blocks): 8 lanes at connect4, 32 at A >= 17,
+// 65,536 threads at both 8192 x A=7 and 2048 x A=169.  Each lane keeps its
+// ceil(A / K) actions of the row in registers (S is a template parameter:
+// no row array lives in local memory) and does their divisions; the order-
+// sensitive sums fold in action order across the lanes, so the kernel
+// stays bit for bit equal to its plain version.  The game's parent and
+// action_from columns are copied into shared memory (cp.async) at the
+// start, behind the apply phase, which the lanes split: prior-row entries
+// and path depths.  Tensor cores and TMA have no role: there is no matrix
+// product, and each game's rows are scattered words chosen by the walk.
 #include "walk.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(walk::kThreads) select_apply_packed_kernel(
-    float* __restrict__ prior, uint32_t* __restrict__ packed,
-    const int32_t* __restrict__ parent, const int32_t* __restrict__ action_from,
-    const bool* __restrict__ expanded, const float* __restrict__ probs,
-    const int32_t* __restrict__ pu_nodes, const int32_t* __restrict__ pu_actions,
-    const int32_t* __restrict__ pu_length, const float* __restrict__ pu_value,
-    const int32_t* __restrict__ pu_leaf, const float* __restrict__ pu_newp,
-    const bool* __restrict__ pu_write, int32_t* __restrict__ nodes_out,
-    int32_t* __restrict__ actions_out, int32_t* __restrict__ leaf_out,
-    int32_t* __restrict__ laction_out, bool* __restrict__ alloc_out,
-    float* __restrict__ rootpi_out, int A, int V, int G, int D, float cpuct,
-    int scale) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without
+                                         // the opt-in attribute
+constexpr int kMaxSmem = 232448;         // what a block can use on sm_90
+
+struct Args {
+  float* prior;
+  uint32_t* packed;
+  const int32_t* parent;
+  const int32_t* action_from;
+  const bool* expanded;
+  const float* probs;
+  const int32_t* pu_nodes;
+  const int32_t* pu_actions;
+  const int32_t* pu_length;
+  const float* pu_value;
+  const int32_t* pu_leaf;
+  const float* pu_newp;
+  const bool* pu_write;
+  int32_t* nodes_out;
+  int32_t* actions_out;
+  int32_t* leaf_out;
+  int32_t* laction_out;
+  bool* alloc_out;
+  float* rootpi_out;
+  int A, V, G, D;
+  float cpuct;
+  int scale;
+};
+
+// The pending backup adds at the wsum half's offset 16, lane j taking
+// depths j, j + K, ... (walk::add_path_packed's arithmetic; unrolled so
+// that the path loads issue together).
+template <int K>
+__device__ __forceinline__ void add_path_lanes(
+    uint32_t* __restrict__ packed, const int32_t* __restrict__ nodes,
+    const int32_t* __restrict__ actions, int len, float value, float fscale,
+    int V, int G, int D, int g, int j) {
   const size_t gs = static_cast<size_t>(G);
   const size_t vg = static_cast<size_t>(V) * gs;
+#pragma unroll 4
+  for (int d = j; d < D; d += K) {
+    const int node = nodes[d * gs + g];
+    if (node < 0) continue;
+    const int k = len - 1 - d;
+    const float contrib = (k % 2 == 0) ? 1.0f - value : value;
+    const uint32_t cfix =
+        static_cast<uint32_t>(static_cast<int32_t>(contrib * fscale));
+    const size_t a = static_cast<size_t>(actions[d * gs + g]);
+    packed[a * vg + static_cast<size_t>(node) * gs + g] += (cfix << 16) + 1u;
+  }
+}
 
-  // 1. pending prior-row write
-  const int pleaf = walk::pending_row_node(pu_write, pu_leaf, V, g);
+template <int K, int S>
+__global__ void __launch_bounds__(walk::kGroupThreads)
+    select_apply_packed_kernel(const Args x) {
+  extern __shared__ int32_t columns[];
+  const walk::Group<K> grp;
+  const int g = grp.game();
+  if (g >= x.G) return;  // the whole group: its lanes share g
+  const int j = grp.j;
+  const size_t gs = static_cast<size_t>(x.G);
+  const size_t vg = static_cast<size_t>(x.V) * gs;
+  int32_t* cols = columns + grp.slot() * walk::column_words(x.V, K);
+  walk::stage_columns(grp, cols, x.parent, x.action_from, x.V, x.G, g);
+
+  // 1. pending prior-row write: lane j takes actions j, j + K, ...
+  const int pleaf = walk::pending_row_node(x.pu_write, x.pu_leaf, x.V, g);
   if (pleaf >= 0) {
     const size_t row = static_cast<size_t>(pleaf) * gs + g;
-    for (int a = 0; a < A; ++a) prior[a * vg + row] = pu_newp[a * gs + g];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int a = s * K + j;
+      if (a < x.A) x.prior[a * vg + row] = x.pu_newp[a * gs + g];
+    }
   }
-
-  // 2. pending backup adds at the wsum half's offset 16
-  const float fscale = static_cast<float>(scale);
-  walk::add_path_packed(packed, pu_nodes, pu_actions, pu_length[g],
-                        pu_value[g], fscale, 16, V, G, D, g);
+  // 2. pending backup adds
+  add_path_lanes<K>(x.packed, x.pu_nodes, x.pu_actions, x.pu_length[g],
+                    x.pu_value[g], static_cast<float>(x.scale), x.V, x.G,
+                    x.D, g, j);
+  // every word a game touches is its own: the group's barrier orders the
+  // writes above before the walk's reads
+  __syncwarp(grp.mask);
 
   // 3. the walk
-  const walk::PackedRows rows{prior, packed, 1.0f / fscale};
-  walk::walk_game(rows, parent, action_from, expanded, probs, nodes_out,
-                  actions_out, leaf_out, laction_out, alloc_out, rootpi_out, A,
-                  V, G, D, cpuct, g);
+  const walk::PackedRows rows{x.prior, x.packed,
+                              1.0f / static_cast<float>(x.scale)};
+  walk::walk_group<K, S>(grp, rows, cols, x.expanded, x.probs, x.nodes_out,
+                         x.actions_out, x.leaf_out, x.laction_out,
+                         x.alloc_out, x.rootpi_out, x.A, x.V, x.G, x.D,
+                         x.cpuct, g);
+}
+
+// Launch the <K, S> instantiation if it is the one asked for; sets *err.
+template <int K, int S>
+bool try_launch(int lanes, int slots, const Args& x, int threads, int blocks,
+                int smem, cudaStream_t stream, cudaError_t* err) {
+  if (lanes != K || slots != S) return false;
+  const int need = threads / K * walk::column_words(x.V, K) * 4;
+  if (smem < need || smem > kMaxSmem) {
+    *err = cudaErrorInvalidValue;
+    return true;
+  }
+  if (smem > kDefaultSmem) {
+    *err = cudaFuncSetAttribute(select_apply_packed_kernel<K, S>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+    if (*err != cudaSuccess) return true;
+  }
+  select_apply_packed_kernel<K, S><<<blocks, threads, smem, stream>>>(x);
+  *err = cudaGetLastError();
+  return true;
 }
 
 }  // namespace
 
+// lanes, slots, threads, blocks, smem: the launch geometry
+// (alphatpu_torch.mcts.kernels.walk_geometry).  Instantiated for
+// lanes 1, 2, ..., 32 with one slot, and 32 lanes with 2 to 6 slots.
 extern "C" int launch_select_apply_packed(
     void* prior, void* packed, const void* parent, const void* action_from,
     const void* expanded, const void* probs, const void* pu_nodes,
@@ -68,11 +162,14 @@ extern "C" int launch_select_apply_packed(
     const void* pu_leaf, const void* pu_newp, const void* pu_write,
     void* nodes_out, void* actions_out, void* leaf_out, void* laction_out,
     void* alloc_out, void* rootpi_out, int A, int V, int G, int D, float cpuct,
-    int scale, void* stream) {
-  if (A < 1 || A > walk::kMaxActions || V < 1 || G < 1 || D < 1 || scale < 1)
+    int scale, int lanes, int slots, int threads, int blocks, int smem,
+    void* stream) {
+  if (A < 1 || A > walk::kMaxActions || V < 1 || G < 1 || D < 1 ||
+      scale < 1 || lanes < 1 || slots < 1 || lanes * slots < A ||
+      threads < 32 || threads > walk::kGroupThreads || threads % 32 != 0 ||
+      static_cast<long long>(blocks) * (threads / lanes) < G)
     return static_cast<int>(cudaErrorInvalidValue);
-  select_apply_packed_kernel<<<walk::blocks_for(G), walk::kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  const Args x{
       static_cast<float*>(prior), static_cast<uint32_t*>(packed),
       static_cast<const int32_t*>(parent),
       static_cast<const int32_t*>(action_from),
@@ -85,6 +182,21 @@ extern "C" int launch_select_apply_packed(
       static_cast<int32_t*>(nodes_out), static_cast<int32_t*>(actions_out),
       static_cast<int32_t*>(leaf_out), static_cast<int32_t*>(laction_out),
       static_cast<bool*>(alloc_out), static_cast<float*>(rootpi_out), A, V, G,
-      D, cpuct, scale);
-  return static_cast<int>(cudaGetLastError());
+      D, cpuct, scale};
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  const int t = threads, b = blocks;
+  const bool instantiated =
+      try_launch<1, 1>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<2, 1>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<4, 1>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<8, 1>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<16, 1>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<32, 1>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<32, 2>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<32, 3>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<32, 4>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<32, 5>(lanes, slots, x, t, b, smem, st, &err) ||
+      try_launch<32, 6>(lanes, slots, x, t, b, smem, st, &err);
+  return static_cast<int>(instantiated ? err : cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 // The root-to-leaf selection walk of one game, shared by the port's four
 // walk kernels (select_apply_packed.cu, select_apply_packed1.cu,
 // select_apply.cu, select.cu), and the per-game pieces of their apply
-// phase and of backup.cu.  Counterpart of the reference's _walk,
+// phase.  Counterpart of the reference's _walk,
 // _walk_packed and _walk_packed1 (alphatpu/mcts/pallas_kernels.py), with
 // _node_policy_2d and _cdf_sample_2d, and of _backup_edges and
 // _backup_edges_packed.
@@ -18,6 +18,10 @@
 // and records the path, the leaf, the leaf action, needs_alloc and the
 // depth-0 policy.
 //
+// Two walks: walk_game, one thread per game (select_apply_packed1.cu,
+// select_apply.cu, select.cu), and walk_group, K lanes of a warp per game
+// (select_apply_packed.cu).
+//
 // Arithmetic is that of the plain torch version in
 // alphatpu_torch/mcts/kernels.py (_walk_plain), and sums over actions run
 // in action order.  Built with -fmad=false and IEEE division and square
@@ -27,6 +31,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace walk {
@@ -207,7 +212,7 @@ __device__ __forceinline__ int pending_row_node(const bool* __restrict__ write,
 // path's edges are distinct tree edges, so no two threads - and no two
 // steps of one thread - write the same word: no atomics.
 
-// f32 planes: wsum += contrib, visits += 1 (backup.cu, select_apply.cu).
+// f32 planes: wsum += contrib, visits += 1 (select_apply.cu).
 __device__ __forceinline__ void add_path_f32(
     float* __restrict__ wsum, float* __restrict__ visits,
     const int32_t* __restrict__ nodes, const int32_t* __restrict__ actions,
@@ -250,5 +255,234 @@ __device__ __forceinline__ void add_path_packed(
 }
 
 inline int blocks_for(int G) { return (G + kThreads - 1) / kThreads; }
+
+
+// ---------------------------------------------------------------------------
+// The cooperative walk: K lanes of one warp per game (K a power of two up
+// to 32), each holding S actions of the current node's row in registers.
+//
+// A warp serves 32 / K games.  Warp lane l works for game l % (32 / K) of
+// the warp as group lane j = l / (32 / K): the K lanes of a game are
+// strided across the warp, so lanes of equal j are neighbouring games and
+// their loads of one [*, G] word (parent, action_from, the pending path,
+// the path out) fall on neighbouring addresses.  Group lane j holds
+// actions j, j + K, ..., j + (S - 1) K; slots past A hold zeros.
+//
+// A walk is a chain of dependent steps (a node's row, its policy, the
+// sampled child), so what the design cuts is the latency of each step:
+// the node's flag, uniform and row are loaded together; the game's parent
+// and action_from columns are copied into shared memory once, while the
+// apply phase runs (stage_columns), so the child lookup reads no device
+// memory; the divisions (1 / (alpha - Q), pi) run across lanes; exact
+// reductions (visit and action counts, the child id, the max that seeds
+// alpha) use warp reductions in any order.  The order-sensitive f32 sums
+// (the Newton sums, the CDF prefix) broadcast each action's term from the
+// lane that holds it and fold in action order on every lane - unrolled,
+// so the broadcasts issue together - and every lane holds the same bits,
+// the same as walk_game and _walk_plain.  A zero from a padding slot
+// leaves a running sum as it is: the sum starts at +0 and is never -0.
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupThreads = 128;  // most threads a block of walk_group
+
+__host__ __device__ constexpr unsigned group_bits(int k) {
+  unsigned bits = 0;
+  for (int m = 0; m < k; ++m) bits |= 1u << (m * (32 / k));
+  return bits;
+}
+
+// Words of shared memory per game for its parent and action_from columns:
+// 2V rounded up to whole banks, plus K, so that the K x (32 / K) lanes of a
+// warp reading slot m of their games hit 32 distinct banks.
+__host__ __device__ constexpr int column_words(int V, int K) {
+  return (2 * V + 31) / 32 * 32 + K;
+}
+
+template <int K>
+struct Group {
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K: 1, 2, ..., 32");
+  static constexpr int kGames = 32 / K;  // games per warp
+  unsigned mask;  // the group's lanes in the warp
+  int first;      // warp lane of group lane 0
+  int j;          // this thread's group lane
+
+  __device__ __forceinline__ Group() {
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    first = lane % kGames;
+    j = lane / kGames;
+    mask = group_bits(K) << first;
+  }
+  // warp lane of group lane m
+  __device__ __forceinline__ int lane(int m) const {
+    return first + m * kGames;
+  }
+  // this thread's game in its block, and in the launch
+  __device__ __forceinline__ int slot() const {
+    return static_cast<int>(threadIdx.x >> 5) * kGames + first;
+  }
+  __device__ __forceinline__ int game() const {
+    return static_cast<int>(blockIdx.x * (blockDim.x / K)) + slot();
+  }
+};
+
+// Start copying game g's parent and action_from columns into ``cols``
+// (column_words(V, K) words: parent at [0, V), action_from at [V, 2V));
+// lane j copies slots j, j + K, ...  walk_group waits for them.
+template <int K>
+__device__ __forceinline__ void stage_columns(
+    const Group<K>& grp, int32_t* cols, const int32_t* __restrict__ parent,
+    const int32_t* __restrict__ action_from, int V, int G, int g) {
+  const size_t gs = static_cast<size_t>(G);
+  for (int v = grp.j; v < V; v += K) {
+    const size_t i = static_cast<size_t>(v) * gs + g;
+    __pipeline_memcpy_async(cols + v, parent + i, sizeof(int32_t));
+    __pipeline_memcpy_async(cols + V + v, action_from + i, sizeof(int32_t));
+  }
+  __pipeline_commit();
+}
+
+template <int K, int S, class Rows>
+__device__ __forceinline__ void walk_group(
+    const Group<K>& grp, const Rows& rows, const int32_t* cols,
+    const bool* __restrict__ expanded, const float* __restrict__ probs,
+    int32_t* __restrict__ nodes_out, int32_t* __restrict__ actions_out,
+    int32_t* __restrict__ leaf_out, int32_t* __restrict__ laction_out,
+    bool* __restrict__ alloc_out, float* __restrict__ rootpi_out, int A,
+    int V, int G, int D, float cpuct, int g) {
+  const size_t gs = static_cast<size_t>(G);
+  const size_t vg = static_cast<size_t>(V) * gs;
+  const int j = grp.j;
+  float P[S], Q[S], T1[S], T2[S];
+  int node = 0;
+  int leaf_action = 0;
+  bool needs_alloc = false;
+  int recorded = 0;  // depths 0 .. recorded - 1 hold the path
+  for (int d = 0; d < D; ++d) {
+    const size_t row = static_cast<size_t>(node) * gs + g;
+    const bool exp = expanded[row];
+    const float prob = probs[d * gs + g];
+    int nv_part = 0;
+    int acts_part = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int a = s * K + j;
+      float p = 0.0f, w = 0.0f, nv = 0.0f;
+      if (a < A) rows.load(a * vg + row, &p, &w, &nv);
+      P[s] = p;
+      Q[s] = nv > 0.0f ? w / fmaxf(nv, 1.0f) : 0.0f;
+      nv_part += static_cast<int>(nv);
+      acts_part += p > 0.0f ? 1 : 0;
+    }
+    // integer-valued sums below 2^24: exact in any order
+    const float nvis =
+        static_cast<float>(__reduce_add_sync(grp.mask, nv_part));
+    const float acts =
+        static_cast<float>(__reduce_add_sync(grp.mask, acts_part));
+    if (!exp && d > 0) break;  // a leaf below the root: its row is unused
+    const float n = 1.0f + nvis;
+    const float lam = cpuct * sqrtf(n) / (acts + n);
+    const bool fresh = nvis == 0.0f;
+    float alpha = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (s * K + j < A)
+        alpha = fmaxf(alpha, Q[s] + fmaxf(lam * P[s], kAlphaFloor));
+#pragma unroll
+    for (int off = 1; off < K; off <<= 1)
+      alpha = fmaxf(alpha, __shfl_xor_sync(grp.mask, alpha,
+                                           off * Group<K>::kGames));
+    if (!fresh) {
+      float prev_err = INFINITY;
+      for (int it = 0; it < kNewtonSteps; ++it) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float r = 1.0f / (alpha - Q[s]);
+          const float frac = (lam * P[s]) * r;
+          const bool real = s * K + j < A;
+          T1[s] = real ? frac : 0.0f;
+          T2[s] = real ? frac * r : 0.0f;
+        }
+        float sum = 0.0f;
+        float gsum = 0.0f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+#pragma unroll
+          for (int m = 0; m < K; ++m) {
+            sum += __shfl_sync(grp.mask, T1[s], grp.lane(m));
+            gsum += __shfl_sync(grp.mask, T2[s], grp.lane(m));
+          }
+        }
+        const float grad = -gsum;
+        const float err = sum - 1.0f;
+        if (err < kNewtonTol || err == prev_err) break;  // latched
+        alpha = alpha - err / (grad == 0.0f ? 1.0f : grad);
+        prev_err = err;
+      }
+    }
+    // this lane's entries of the policy row
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float pi = fresh ? P[s] : (lam * P[s]) / (alpha - Q[s]);
+      T1[s] = s * K + j < A ? pi : 0.0f;
+    }
+    if (d == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (s * K + j < A) rootpi_out[(s * K + j) * gs + g] = T1[s];
+    }
+    if (!exp) break;
+
+    // CDF sample: first action whose inclusive prefix sum reaches the
+    // uniform and has mass, else the last action with mass, else 0
+    float c = 0.0f;
+    int first = A;
+    int last = -1;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const float p = __shfl_sync(grp.mask, T1[s], grp.lane(m));
+        c += p;
+        if (p > 0.0f) {
+          if (first == A && c >= prob) first = s * K + m;
+          last = s * K + m;
+        }
+      }
+    }
+    const int action = first < A ? first : (last > 0 ? last : 0);
+
+    if (j == d % K) {
+      nodes_out[d * gs + g] = node;
+      actions_out[d * gs + g] = action;
+    }
+    recorded = d + 1;
+    if (d == 0) {  // the columns staged at kernel start
+      __pipeline_wait_prior(0);
+      __syncwarp(grp.mask);
+    }
+    int cid_part = 0;  // the child under (node, action); 0 = none
+#pragma unroll 8
+    for (int v = j; v < V; v += K)
+      if (cols[v] == node && cols[V + v] == action) cid_part += v;
+    const int cid = __reduce_add_sync(grp.mask, cid_part);
+    if (cid == 0) {
+      leaf_action = action;
+      needs_alloc = true;
+      break;
+    }
+    node = cid;
+  }
+  __pipeline_wait_prior(0);  // no copy left in flight at exit
+  // the depths the walk did not record: lane j takes d = j (mod K)
+  for (int d = recorded + ((j - recorded) & (K - 1)); d < D; d += K) {
+    nodes_out[d * gs + g] = -1;
+    actions_out[d * gs + g] = 0;
+  }
+  if (j == 0) {
+    leaf_out[g] = node;
+    laction_out[g] = leaf_action;
+    alloc_out[g] = needs_alloc;
+  }
+}
 
 }  // namespace walk

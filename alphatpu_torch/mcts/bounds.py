@@ -1,0 +1,112 @@
+"""The least time one H100 could take for one call of each search kernel.
+
+``chip_smoke.py`` reports it beside each kernel's measured time.  A call's
+bound is the larger of two times: the bytes it must move - each input
+byte it needs read once, each output byte written once - over the card's
+memory rate, and the operations it must do over the f32 rate.  Both are
+counted from the call's own inputs: their shapes, and the paths and
+pending edges they hold.  How deep each game's walk went is read off the
+walk's result (a :class:`~alphatpu_torch.mcts.kernels.Selection`, the same
+from the kernel and from its plain version).
+
+What a walk must move, per game: the parent and action_from columns (V x
+8 B) if it looks up a child; one ``expanded`` flag per node it reaches;
+the stats row (A words of each stat plane) of each node whose policy it
+needs - the nodes it records, or the root when it records none; one
+uniform per recorded depth; and its outputs (the [D, G] path, leaf, leaf
+action, needs_alloc, the [A, G] root policy).  The apply phase of a
+select_apply kernel reads the pending flags and leaves, the [D, G] pending
+path, the length and value of each game with a pending edge, and for each
+pending edge its action and its stat words (read and written); each
+writing lane reads its new prior row and writes one word per action.  A
+word the apply phase writes and the walk then reads counts twice: a few
+words per game.
+
+Operations are a lower bound: 9 f32 operations per action of each row a
+walk reads (one Newton evaluation - subtract, divide, two multiplies, two
+adds - the policy's multiply and divide, the prefix add) and 3 per backed
+up edge.  The Newton solve takes several evaluations on most nodes; the
+operations stay far below the bytes' time all the same.
+
+Peaks: NVIDIA's H100 SXM data sheet, at a 700 W power limit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # HBM3
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+
+# kernel -> (bytes of one edge's stats in a row read, bytes read and
+# written per pending edge, bytes of one prior-row word written)
+_STORAGE = {
+    "select_apply_packed": (8, 8, 4),  # f32 prior + the packed word
+    "select_apply_packed1": (4, 8, 4),  # the 1-plane word
+    "select_apply": (12, 16, 4),  # three f32 planes
+    "select": (12, 0, 0),
+}
+OPS_PER_ACTION = 9
+OPS_PER_EDGE = 3
+
+
+class Cost(NamedTuple):
+    """Bytes and operations of one call, and the bound they set."""
+
+    nbytes: int
+    ops: int
+
+    @property
+    def bytes_ms(self) -> float:
+        return self.nbytes / HBM_BYTES_PER_S * 1e3
+
+    @property
+    def ops_ms(self) -> float:
+        return self.ops / F32_OPS_PER_S * 1e3
+
+    @property
+    def bound_ms(self) -> float:
+        return max(self.bytes_ms, self.ops_ms)
+
+    @property
+    def bound_by(self) -> str:
+        return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+
+def walk_cost(kernel: str, V: int, sel, pend=None) -> Cost:
+    """One call of the walk kernel ``kernel`` (a name of ``_STORAGE``) on a
+    tree of V nodes that returned ``sel``, with the pending update
+    ``pend`` (select_apply kernels) applied first."""
+    row_bytes, edge_bytes, word_bytes = _STORAGE[kernel]
+    A, G = sel.root_pi.shape
+    D = sel.nodes.shape[0]
+    recorded = (sel.nodes >= 0).sum(0)
+    # a walk that stopped at an unexpanded node read that node's flag too
+    flags = recorded + (~sel.needs_alloc & (recorded < D)).long()
+    rows = int(torch.clamp_min(recorded, 1).sum())
+    nbytes = (int((recorded > 0).sum()) * V * 8 + int(flags.sum())
+              + rows * A * row_bytes + int(recorded.sum()) * 4
+              + D * G * 8 + G * 9 + A * G * 4)
+    ops = rows * A * OPS_PER_ACTION
+    if pend is not None:
+        if not edge_bytes:
+            raise ValueError(f"{kernel} has no apply phase")
+        valid = pend.nodes >= 0
+        edges = int(valid.sum())
+        writes = int((pend.write & (pend.leaf >= 0) & (pend.leaf < V)).sum())
+        nbytes += (G * 5 + writes * A * (4 + word_bytes) + D * G * 4
+                   + int(valid.any(0).sum()) * 8 + edges * (4 + edge_bytes))
+        ops += edges * OPS_PER_EDGE
+    return Cost(nbytes, ops)
+
+
+def backup_cost(nodes) -> Cost:
+    """One backup call on the path ``nodes`` [D, G]: the whole path read,
+    each game with an edge reads its length and value, each edge its
+    action and two f32 read-modify-writes."""
+    D, G = nodes.shape
+    valid = nodes >= 0
+    edges = int(valid.sum())
+    return Cost(D * G * 4 + int(valid.any(0).sum()) * 8 + edges * (4 + 16),
+                edges * OPS_PER_EDGE)

@@ -18,8 +18,12 @@ written by hand in CUDA C++ for Hopper (``alphatpu_torch/csrc/``):
 * :func:`backup` - the f32 backup adds of a recorded path: the flush after
   every engine's rollout loop (replaces ``pallas_kernels.backup_pallas``).
 
-The four walks share one CUDA walk (``csrc/walk.cuh``) and one plain walk
-(:func:`_walk_plain`); they differ in how a node's row is loaded.  Each
+The four walks share one CUDA header (``csrc/walk.cuh``) and one plain
+walk (:func:`_walk_plain`); they differ in how a node's row is loaded.
+:func:`select_apply_packed` walks each game with a group of lanes of a
+warp (:func:`walk_geometry`), the other three with one thread per game;
+:func:`backup` runs one thread per path depth and game
+(:func:`backup_geometry`).  Each
 wrapper runs its plain torch version (``*_plain``) when - and only when -
 its tensors lie on the CPU; on CUDA tensors it launches the kernel or
 raises.  ``launches`` on each wrapper counts the kernel launches.
@@ -350,7 +354,67 @@ def backup_plain(wsum, visits, nodes, actions, length, value) -> None:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-MAX_ACTIONS = 169  # the kernels' per-thread row buffers (13x13 boards)
+MAX_ACTIONS = 169  # 13x13 boards: the row buffers of the kernels
+NUM_SMS = 132  # an H100 SXM's streaming multiprocessors
+_GROUP_THREADS = 128  # walk.cuh: kGroupThreads
+_BACKUP_THREADS = 256  # backup.cu: kBackupThreads
+_DEFAULT_SMEM = 48 * 1024  # dynamic shared memory without an opt-in
+_MAX_SMEM = 232448  # what a block can use on sm_90
+
+
+class WalkGeometry(NamedTuple):
+    """Launch geometry of the cooperative walk (``select_apply_packed``)."""
+
+    lanes: int  # lanes per game: a power of two up to 32
+    slots: int  # actions each lane holds: ceil(A / lanes), at most 6
+    threads: int  # per block: 32, 64 or 128
+    blocks: int
+    smem: int  # bytes of shared memory per block: the games' columns
+
+
+def column_words(V: int, lanes: int) -> int:
+    """walk.cuh's column_words: one game's parent and action_from columns
+    in shared memory, padded so that a warp's reads hit distinct banks."""
+    return -(-2 * V // 32) * 32 + lanes
+
+
+def walk_geometry(A: int, G: int, V: int) -> WalkGeometry:
+    """Lanes per game: the next power of two of A, capped at 32, so each
+    lane holds ceil(A / lanes) actions.  Blocks of 128 threads, halved
+    down to one warp while that leaves SMs without a block or the games'
+    columns above 48 KB of shared memory."""
+    if not 1 <= A <= MAX_ACTIONS:
+        raise ValueError(f"walk_geometry: A={A} outside 1..{MAX_ACTIONS}")
+    if G < 1 or V < 1:
+        raise ValueError(f"walk_geometry: G={G}, V={V}")
+    lanes = min(32, 1 << (A - 1).bit_length())
+
+    def smem(threads):
+        return threads // lanes * column_words(V, lanes) * 4
+
+    threads = _GROUP_THREADS
+    while threads > 32 and (-(-G * lanes // threads) < NUM_SMS
+                            or smem(threads) > _DEFAULT_SMEM):
+        threads //= 2
+    if smem(threads) > _MAX_SMEM:
+        raise ValueError(f"walk_geometry: V={V} needs {smem(threads)} B of "
+                         f"shared memory per block, above {_MAX_SMEM}")
+    return WalkGeometry(lanes, -(-A // lanes), threads,
+                        -(-G // (threads // lanes)), smem(threads))
+
+
+class BackupGeometry(NamedTuple):
+    """Launch geometry of ``backup``: one thread per (depth, game)."""
+
+    threads: int  # per block, along the games
+    blocks: int  # along the games; the grid's second axis is the depth
+
+
+def backup_geometry(G: int) -> BackupGeometry:
+    if G < 1:
+        raise ValueError(f"backup_geometry: G={G} < 1")
+    threads = min(_BACKUP_THREADS, -(-G // 32) * 32)
+    return BackupGeometry(threads, -(-G // threads))
 
 
 def _check(name, t, dtype, shape, device):
@@ -455,10 +519,11 @@ def select_apply_packed(prior, packed, parent, action_from, expanded, probs,
         "select_apply_packed",
         (("prior", prior, torch.float32), ("packed", packed, torch.int32)),
         parent, action_from, expanded, probs, pend)
+    geometry = walk_geometry(A, G, V)
     out = _selection_out(A, G, D, prior.device)
     _launch("launch_select_apply_packed", prior.device, prior, packed,
             parent, action_from, expanded, probs, *pend, *out, A, V, G, D,
-            ctypes.c_float(cpuct), scale)
+            ctypes.c_float(cpuct), scale, *geometry)
     select_apply_packed.launches += 1
     return out
 
@@ -545,8 +610,10 @@ def backup(wsum, visits, nodes, actions, length, value) -> None:
         ("value", value, torch.float32, (G,)),
     ):
         _check(f"backup: {name}", t, dt, shape, dev)
+    if D > 65535:
+        raise ValueError(f"backup: D={D} exceeds the grid's 65535 depths")
     _launch("launch_backup", dev, wsum, visits, nodes, actions, length, value,
-            A, V, G, D)
+            A, V, G, D, *backup_geometry(G))
     backup.launches += 1
 
 

@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    torch version on the same inputs - at the production shape (connect4,
    A=7, V=64, G=8192, D=42, on a tree grown by the port's own search) and
    at a synthetic wide shape (A=169, V=64, G=2048) - with each kernel's
-   time against its plain version's at the production shape; and the
-   read-only ``select`` against ``select_apply``'s walk, bit for bit,
+   time at both shapes beside its bound and its plain version's; the
+   read-only ``select`` against ``select_apply``'s walk, bit for bit; and
+   where ``select_apply_packed``'s time goes (``walk_breakdown``),
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
@@ -33,8 +34,8 @@ Phases, each fatal on failure:
 9. the shapes the CLI and the families give the kernels (PATH_SHAPES):
    the CLI's tictactoe selfplay (16 rollouts, 1024 lanes) and duel halves
    (8 rollouts, 64 lanes, no root noise), reversi6x6 (the pass column)
-   and hex7 at 512 lanes, gobang9 and reversi8x8 at 200 lanes (a partial
-   block of 128 threads); each the level-1 search on the card against
+   and hex7 at 512 lanes, gobang9 and reversi8x8 at 200 lanes (partial
+   blocks and warps); each the level-1 search on the card against
    the CPU path, and all five kernels against their plain versions on a
    tree grown there,
 10. one generation of the training pipeline at full width
@@ -56,11 +57,16 @@ checks are not counted).  The kernels line reports, for
 main path, phase 11); for the other three kernels those of the path that
 runs each (phases 6 and 7).
 
-Kernel parity: the stat planes after the apply phase must be exactly equal;
-paths, leaves and needs_alloc exactly equal outside the CDF-tie class (a
-lane whose sampled uniform lands on a prefix-sum tie may take another
-action), at most max(2, G // 500) lanes; the root policy to rtol 1e-5; the
-backup's visits exactly and its wsum to rtol 1e-6.
+Kernel parity: each walk kernel and its plain version sum in the same
+order and round each operation alike, so the stat planes after the apply
+phase, the paths, leaves, needs_alloc and the root policy must be equal
+bit for bit; the backup's visits exactly and its wsum to rtol 1e-6.
+Phase 3 times each kernel at both of its shapes (CUDA events, 20 launches
+back to back on fresh planes) beside its bound on the timed call's own
+inputs (``alphatpu_torch.mcts.bounds``: bytes over 3.35 TB/s, operations
+over 67 TFLOP/s, whichever is larger), its plain version's wall time and,
+for backup, the device time of two ``index_put_(accumulate=True)`` calls
+that compute the same adds (a yardstick the port never calls).
 """
 import json
 import os
@@ -150,8 +156,9 @@ def expect_launches(K, what: str, owed: dict) -> dict:
 
 def compare_walk(name, kernel, plain, planes):
     """One walk kernel call and one plain call, each on its own copy of
-    the mutable ``planes``.  The planes must come out equal; returns
-    (n diverged lanes, root_pi max abs error, kernel Selection)."""
+    the mutable ``planes``.  The planes and every output must come out
+    equal bit for bit; returns (n diverged lanes (0), root_pi max abs error
+    (0), kernel Selection)."""
     import torch
 
     ka = [t.clone() for t in planes]
@@ -166,10 +173,11 @@ def compare_walk(name, kernel, plain, planes):
         (sk.nodes, sk.actions, sk.leaf, sk.leaf_action, sk.needs_alloc),
         (sp.nodes, sp.actions, sp.leaf, sp.leaf_action, sp.needs_alloc))
     n = int(bad.sum())
-    if n > tie_limit(bad.numel()):
-        raise AssertionError(f"{name}: {n} diverged lanes")
-    torch.testing.assert_close(sk.root_pi, sp.root_pi, rtol=1e-5, atol=1e-6)
-    return n, float((sk.root_pi - sp.root_pi).abs().max()), sk
+    err = float((sk.root_pi - sp.root_pi).abs().max())
+    if n or not torch.equal(sk.root_pi, sp.root_pi):
+        raise AssertionError(f"{name}: {n} diverged lanes, root_pi max abs "
+                             f"err {err}")
+    return n, err, sk
 
 
 def pending_from(K, sel, next_idx, A, scale, gen):
@@ -261,15 +269,49 @@ def synthetic_tree(A, V, G, scale, seed):
             np.full((G,), n, np.int32))
 
 
+def backup_yardstick(wsum, visits, nodes, actions, length, value):
+    """The backup as two ``index_put_(accumulate=True)`` calls on flat
+    indices: returns ``fn(wsum, visits)`` that adds in place, with the
+    indices and contributions built here, outside any timed region.  A
+    yardstick only: the port never calls it."""
+    import torch
+
+    A, V, G = wsum.shape
+    d, g = (nodes >= 0).nonzero(as_tuple=True)
+    flat = (actions[d, g].long() * V + nodes[d, g].long()) * G + g
+    k = length[g] - 1 - d
+    contrib = torch.where(k % 2 == 0, 1.0 - value[g], value[g])
+    ones = torch.ones_like(contrib)
+
+    def fn(w, n):
+        w.view(-1).index_put_((flat,), contrib, accumulate=True)
+        n.view(-1).index_put_((flat,), ones, accumulate=True)
+    return fn
+
+
+def show_timing(r) -> str:
+    """The timing part of a parity line: kernel, bound, plain, library."""
+    c = r["cost"]
+    lib = r["library_ms"]
+    return (f"; kernel {r['ms']:.4f} ms, {c.bound_ms / r['ms']:.1%} of its "
+            f"bound {c.bound_ms:.6f} ms ({c.nbytes} B, {c.ops} ops, bound by "
+            f"{c.bound_by}); plain {r['plain_ms']:.2f} ms"
+            + (f"; library {lib:.4f} ms" if lib is not None else ""))
+
+
 def parity(K, tree, D, gen, cpuct, scale, label, timed):
     """Kernel parity of the four walk kernels and backup on one tree (and
     a level-1 ``scale``, ``D`` depths): each kernel against its plain
     version with an
     empty and with a real pending update, and select against
     select_apply's walk bit for bit.  With ``timed``, each kernel's device
-    time and its plain version's wall time.  Returns {name: (max abs err,
-    ms, plain ms)}."""
+    time, its bound on this call's inputs (``alphatpu_torch.mcts.bounds``),
+    its plain version's wall time and, for backup, the library yardstick's
+    device time.  Returns {name: {"err", "ms", "plain_ms", "cost",
+    "library_ms"}}."""
     import torch
+
+    from alphatpu_torch.mcts.bounds import backup_cost, walk_cost
 
     prior, wsum, visits = tree.prior, tree.wsum, tree.visits
     A, V, G = prior.shape
@@ -309,23 +351,25 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed):
             name, lambda *x: kern(*x, probs[0], empty),
             lambda *x: plain(*x, probs[0], empty), planes)
         pend = pending_from(K, sel, tree.next_idx, A, grid, gen)
-        n2, e2, _ = compare_walk(
+        n2, e2, sel2 = compare_walk(
             name, lambda *x: kern(*x, probs[1], pend),
             lambda *x: plain(*x, probs[1], pend), planes)
         depth = float((sel.nodes >= 0).sum(0).float().mean())
-        ms = plain_ms = float("nan")
+        r = out[name] = {"err": max(e1, e2), "ms": None, "plain_ms": None,
+                         "cost": walk_cost(name, V, sel2, pend),
+                         "library_ms": None}
         if timed:
             reps = 20
             copies = [[t.clone() for t in planes] for _ in range(reps + 1)]
-            ms = device_ms(lambda i: kern(*copies[i], probs[1], pend), reps)
+            r["ms"] = device_ms(lambda i: kern(*copies[i], probs[1], pend),
+                                reps)
             copies = [[t.clone() for t in planes] for _ in range(4)]
-            plain_ms = wall_ms(lambda i: plain(*copies[i], probs[1], pend), 3)
+            r["plain_ms"] = wall_ms(
+                lambda i: plain(*copies[i], probs[1], pend), 3)
             del copies
-        out[name] = (max(e1, e2), ms, plain_ms)
         print(f"{name} parity, {label}: diverged lanes {n1}/{G} and {n2}/{G},"
               f" root_pi max abs err {max(e1, e2):.3g}, mean path length "
-              f"{depth:.2f}" + (f"; kernel {ms:.4f} ms, plain "
-                                f"{plain_ms:.2f} ms" if timed else ""))
+              f"{depth:.2f}" + (show_timing(r) if timed else ""))
 
     # select: the read-only walk, against its plain version and against
     # select_apply's walk on the same planes with an empty pending update
@@ -342,52 +386,100 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed):
                             *walk, p, empty, cpuct)
         if not all(torch.equal(x, y) for x, y in zip(sk, s4)):
             raise AssertionError("select differs from select_apply's walk")
-    ms = plain_ms = float("nan")
+    r = out[name] = {"err": max(errs), "ms": None, "plain_ms": None,
+                     "cost": walk_cost(name, V, sk), "library_ms": None}
     if timed:
         # a copy of the planes per launch, as for the other kernels: the
         # three planes fit the 50 MB L2, and a search finds them cold
         reps = 20
         copies = [[t.clone() for t in (prior, wsum, visits)]
                   for _ in range(reps + 1)]
-        ms = device_ms(lambda i: K.select(*copies[i], *walk, probs[1],
-                                          cpuct), reps)
-        plain_ms = wall_ms(lambda i: K.select_plain(
+        r["ms"] = device_ms(lambda i: K.select(*copies[i], *walk, probs[1],
+                                               cpuct), reps)
+        r["plain_ms"] = wall_ms(lambda i: K.select_plain(
             *copies[i], *walk, probs[1], cpuct), 3)
         del copies
-    out[name] = (max(errs), ms, plain_ms)
     print(f"select parity, {label}: diverged lanes {ns[0]}/{G} and "
           f"{ns[1]}/{G}, root_pi max abs "
           f"err {max(errs):.3g}; equal to select_apply's walk bit for bit"
-          + (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms" if timed
-             else ""))
+          + (show_timing(r) if timed else ""))
 
     # backup: the flush of a pending update onto the f32 stats (the path
     # of the last engine's walk above)
     name = "backup"
     value = torch.rand((G,), generator=gen, device=dev)
+    path = (sel.nodes, sel.actions, pend.length, value)
     bk = (wsum.clone(), visits.clone())
     bp = (wsum.clone(), visits.clone())
-    K.backup(*bk, sel.nodes, sel.actions, pend.length, value)
-    K.backup_plain(*bp, sel.nodes, sel.actions, pend.length, value)
+    K.backup(*bk, *path)
+    K.backup_plain(*bp, *path)
     torch.cuda.synchronize()
     if not torch.equal(bk[1], bp[1]):
         raise AssertionError("backup: visits differ")
     torch.testing.assert_close(bk[0], bp[0], rtol=1e-6, atol=0.0)
     err = float(max((bk[0] - bp[0]).abs().max(), (bk[1] - bp[1]).abs().max()))
-    ms = plain_ms = float("nan")
+    r = out[name] = {"err": err, "ms": None, "plain_ms": None,
+                     "cost": backup_cost(sel.nodes), "library_ms": None}
     if timed:
         reps = 20
         copies = [(wsum.clone(), visits.clone()) for _ in range(reps + 1)]
-        ms = device_ms(lambda i: K.backup(
-            *copies[i], sel.nodes, sel.actions, pend.length, value), reps)
-        plain_ms = wall_ms(lambda i: K.backup_plain(
-            *copies[i], sel.nodes, sel.actions, pend.length, value), 3)
+        r["ms"] = device_ms(lambda i: K.backup(*copies[i], *path), reps)
+        library = backup_yardstick(wsum, visits, *path)
+        copies = [(wsum.clone(), visits.clone()) for _ in range(reps + 1)]
+        r["library_ms"] = device_ms(lambda i: library(*copies[i]), reps)
+        # copies[1] took one call (device_ms runs fn(0) twice)
+        if not (torch.equal(copies[1][0], bk[0])
+                and torch.equal(copies[1][1], bk[1])):
+            raise AssertionError("backup: the index_put_ yardstick differs")
+        copies = [(wsum.clone(), visits.clone()) for _ in range(4)]
+        r["plain_ms"] = wall_ms(lambda i: K.backup_plain(*copies[i], *path),
+                                3)
         del copies
-    out[name] = (err, ms, plain_ms)
     print(f"backup parity, {label}: max abs err {err:.3g}"
-          + (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms" if timed
-             else ""))
+          + (show_timing(r) if timed else ""))
     return out
+
+
+def walk_breakdown(K, tree, D, gen, scale, card):
+    """Where ``select_apply_packed``'s time goes on a grown tree, timed like
+    phase 3 (an empty pending update): the launch floor (a one-element
+    add), the kernel as it is, with every visit count zeroed (no Newton
+    solve; the walks change), with the root's flag cleared (the apply
+    phase and the root's row and policy only), and on the first 256
+    games alone (the same chains, 1/32 of the games).  Flat in the games
+    means a latency chain, not throughput, sets the time."""
+    import torch
+
+    dev = tree.prior.device
+    G = tree.prior.shape[2]
+    probs = torch.rand((D, G), generator=gen, device=dev)
+    packed = K.pack_stats(tree.wsum, tree.visits, scale)
+    walk = (tree.parent, tree.action_from, tree.expanded)
+    rootless = tree.expanded.clone()
+    rootless[0] = False
+
+    def timed(planes, walk, probs, reps=20):
+        A, _, g = planes[0].shape
+        empty = K.empty_pending(D, A, g, dev)
+        copies = [[t.clone() for t in planes] for _ in range(reps + 1)]
+        return device_ms(lambda i: K.select_apply_packed(
+            *copies[i], *walk, probs, empty, CPUCT, scale), reps)
+
+    one = torch.zeros(1, device=dev)
+    cut = 256
+    part = [x[..., :cut].contiguous() for x in (tree.prior, packed, *walk,
+                                                probs)]
+    times = {
+        "launch floor": device_ms(lambda i: one.add_(1.0), 20),
+        "as is": timed((tree.prior, packed), walk, probs),
+        "no visits": timed((tree.prior, torch.zeros_like(packed)), walk,
+                           probs),
+        "root only": timed((tree.prior, packed),
+                           (tree.parent, tree.action_from, rootless), probs),
+        f"first {cut} games": timed(part[:2], part[2:5], part[5]),
+    }
+    print("select_apply_packed breakdown, connect4: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()) + f"  [{card}]")
 
 
 def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
@@ -830,6 +922,7 @@ def smoke(dev, card: str, kind: str) -> int:
     results = parity(K, tree, D, gen, CPUCT, scale,
                      f"connect4 A={A} V={V} G={G} D={D}", True)
     print(f"  [{card}]")
+    walk_breakdown(K, tree, D, gen, scale, card)
 
     Aw, Vw, Gw = WIDE
     arrays = synthetic_tree(Aw, Vw, Gw, scale, SEED + 1)
@@ -839,10 +932,10 @@ def smoke(dev, card: str, kind: str) -> int:
                 states=None, prior=prior_w, wsum=wsum_w, visits=visits_w,
                 next_idx=next_w)
     wide_results = parity(K, wide, min(Aw, Vw), gen, CPUCT, scale,
-                          f"synthetic A={Aw} V={Vw} G={Gw}", False)
-    for name, (err, _, _) in wide_results.items():
-        ms, plain_ms = results[name][1:]
-        results[name] = (max(err, results[name][0]), ms, plain_ms)
+                          f"synthetic A={Aw} V={Vw} G={Gw}", True)
+    print(f"  [{card}]")
+    errs = {k: max(results[k]["err"], wide_results[k]["err"])
+            for k in KERNELS}
     del arrays, wide, prior_w, wsum_w, visits_w
 
     # ---- 4. the search on the card against the CPU path ----
@@ -932,8 +1025,8 @@ def smoke(dev, card: str, kind: str) -> int:
         D = min(g.max_game_length, V)
         shape = parity(K, tree, D, gen, cpuct, K.value_scale(V),
                        f"{name} A={g.max_actions} V={V} G={G} D={D}", False)
-        for k, (err, _, _) in shape.items():
-            results[k] = (max(err, results[k][0]),) + results[k][1:]
+        for k, r in shape.items():
+            errs[k] = max(errs[k], r["err"])
         del net_g, tree
 
     # ---- 10. one generation of the training pipeline ----
@@ -946,12 +1039,20 @@ def smoke(dev, card: str, kind: str) -> int:
     launches["backup"] = cli["backup"]
 
     # ---- 12. result ----
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": CSRC + src,
-         "replaces": PALLAS + line, "launches": launches[name],
-         "max_abs_err": results[name][0], "ms": results[name][1],
-         "plain_ms": results[name][2]}
-        for name, (src, line) in KERNELS.items()]}))
+    def row(name, src, line):
+        r, w = results[name], wide_results[name]
+        return {"name": name, "route": "cuda", "source": CSRC + src,
+                "replaces": PALLAS + line, "launches": launches[name],
+                "max_abs_err": errs[name], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["cost"].bound_ms,
+                "bound_by": r["cost"].bound_by,
+                "library_ms": r["library_ms"], "ms_wide": w["ms"],
+                "plain_ms_wide": w["plain_ms"],
+                "bound_ms_wide": w["cost"].bound_ms,
+                "library_ms_wide": w["library_ms"]}
+
+    print(json.dumps({"kernels": [row(name, src, line) for name, (src, line)
+                                  in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

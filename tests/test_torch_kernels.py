@@ -508,6 +508,138 @@ def test_plain_kernel_policy_matches_newton():
     np.testing.assert_array_equal(got[:, :32], prior[:, :32])
 
 
+@pytest.mark.parametrize("G", [1, 64, 200, 2048, 8192])
+def test_launch_geometry_covers_every_shape(G):
+    """For every A the kernels take, at the path's tree sizes: the
+    cooperative walk's lanes hold the whole row in one of the instantiated
+    (lanes, slots) pairs with no empty slot, its blocks cover the G games
+    and give every SM a block unless they are down to one warp, and the
+    games' columns fit the block's shared memory; backup's blocks cover
+    G."""
+    instantiated = {(k, 1) for k in (1, 2, 4, 8, 16, 32)} | {
+        (32, s) for s in range(2, 7)}
+    for V in (8, 16, 64):
+        for A in range(1, K.MAX_ACTIONS + 1):
+            lanes, slots, threads, blocks, smem = K.walk_geometry(A, G, V)
+            assert (lanes, slots) in instantiated, (A, lanes, slots)
+            assert lanes * (slots - 1) < A <= lanes * slots
+            assert lanes >= min(A, 32)
+            assert threads in (32, 64, 128) and threads <= 1024
+            games = threads // lanes
+            assert (blocks - 1) * games < G <= blocks * games
+            assert blocks >= K.NUM_SMS or threads == 32
+            assert smem == games * K.column_words(V, lanes) * 4 <= 48 * 1024
+            assert K.column_words(V, lanes) >= 2 * V
+    # a big tree: the blocks shrink to keep the columns in shared memory
+    lanes, _, threads, _, smem = K.walk_geometry(7, G, 1600)
+    assert threads == 32 and smem == 4 * K.column_words(1600, 8) * 4
+    threads, blocks = K.backup_geometry(G)
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    assert (blocks - 1) * threads < G <= blocks * threads
+    with pytest.raises(ValueError, match="A=170"):
+        K.walk_geometry(K.MAX_ACTIONS + 1, G, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.walk_geometry(1, G, 4096)
+
+
+def _hand_tree():
+    """Two games, A=3, V=4, D=3.  Game 0: the root (node 0) has one legal
+    action, 1, whose child is node 1; node 1 has one legal action, 0,
+    without a child: the walk records (0, 1), (1, 0) and asks for a new
+    node.  Game 1: the root is not expanded: nothing is recorded."""
+    A, V, G = 3, 4, 2
+    prior = torch.zeros((A, V, G))
+    prior[1, 0, 0] = 1.0
+    prior[0, 1, 0] = 1.0
+    prior[:, 0, 1] = 1.0 / 3
+    parent = torch.full((V, G), -1, dtype=torch.int32)
+    action_from = torch.zeros((V, G), dtype=torch.int32)
+    parent[1, 0], action_from[1, 0] = 0, 1
+    expanded = torch.zeros((V, G), dtype=torch.bool)
+    expanded[:2, 0] = True
+    # the previous rollout's path: the same two edges of game 0, with a
+    # prior row written at game 0's node 2; game 1 claims leaf V (full)
+    pend = K.PendingUpdate(
+        nodes=torch.tensor([[0, -1], [1, -1], [-1, -1]], dtype=torch.int32),
+        actions=torch.tensor([[1, 0], [0, 0], [0, 0]], dtype=torch.int32),
+        length=torch.tensor([2, 0], dtype=torch.int32),
+        value=torch.tensor([0.5, 0.0]),
+        leaf=torch.tensor([2, V], dtype=torch.int32),
+        newp=torch.full((A, G), 1.0 / 3),
+        write=torch.tensor([True, True]))
+    return prior, parent, action_from, expanded, pend
+
+
+# kernel -> (walk bytes without the apply phase, apply-phase bytes)
+# walk, per the bounds module's rules:
+#   parent + action_from of the one game that looks up a child: 4 x 8 = 32
+#   expanded flags: game 0 reads 2, game 1 reads 1 (its root) = 3
+#   rows: game 0 two, game 1 its root: 3 rows x A=3 x the row's bytes
+#   uniforms of the 2 recorded depths: 8
+#   out: path D x G x 8 = 48, leaf/leaf action/alloc G x 9 = 18, root
+#   policy A x G x 4 = 24
+# apply: flags and leaves G x 5 = 10; one writing lane (game 1's leaf is V):
+#   A x (4 read + 4 written) = 24; the pending path D x G x 4 = 24; length
+#   and value of the one game with edges = 8; 2 edges x (4 for the action
+#   + the stat words read and written)
+_HAND_BYTES = {
+    "select_apply_packed": (32 + 3 + 3 * 3 * 8 + 8 + 48 + 18 + 24,
+                            10 + 24 + 24 + 8 + 2 * (4 + 8)),
+    "select_apply_packed1": (32 + 3 + 3 * 3 * 4 + 8 + 48 + 18 + 24,
+                             10 + 24 + 24 + 8 + 2 * (4 + 8)),
+    "select_apply": (32 + 3 + 3 * 3 * 12 + 8 + 48 + 18 + 24,
+                     10 + 24 + 24 + 8 + 2 * (4 + 16)),
+    "select": (32 + 3 + 3 * 3 * 12 + 8 + 48 + 18 + 24, None),
+    # the whole path D x G x 4 = 24, one game's length and value = 8,
+    # 2 edges x (4 for the action + 16 for two f32 read-modify-writes)
+    "backup": (24 + 8 + 2 * (4 + 16), None),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_HAND_BYTES))
+def test_bound_counts_the_bytes_of_a_hand_built_tree(kernel):
+    """The bound of each kernel on a tree whose walk is known, against the
+    byte count written out above; the operations' lower bound (9 per
+    action of each row, 3 per edge) leaves every kernel bound by bytes."""
+    from alphatpu_torch.mcts import bounds as B
+
+    prior, parent, action_from, expanded, pend = _hand_tree()
+    A, V, G = prior.shape
+    D = pend.nodes.shape[0]
+    zeros = torch.zeros_like(prior)
+    walk = (parent, action_from, expanded, torch.full((D, G), 0.5))
+    layout = K.packed1_layout(V)
+    calls = {
+        "select_apply_packed": lambda: K.select_apply_packed(
+            prior.clone(), K.pack_stats(zeros, zeros, 64), *walk, pend,
+            CPUCT, 64),
+        "select_apply_packed1": lambda: K.select_apply_packed1(
+            K.pack1_stats(prior, zeros, zeros, layout), *walk, pend, CPUCT,
+            layout),
+        "select_apply": lambda: K.select_apply(
+            prior.clone(), zeros.clone(), zeros.clone(), *walk, pend, CPUCT),
+        "select": lambda: K.select(prior, zeros, zeros, *walk, CPUCT),
+    }
+    walk_bytes, apply_bytes = _HAND_BYTES[kernel]
+    if kernel == "backup":
+        cost = B.backup_cost(pend.nodes)
+        assert cost == (walk_bytes, 2 * 3)
+    else:
+        sel = calls[kernel]()
+        assert sel.nodes.tolist() == [[0, -1], [1, -1], [-1, -1]]
+        assert sel.needs_alloc.tolist() == [True, False]
+        assert B.walk_cost(kernel, V, sel) == (walk_bytes, 3 * A * 9)
+        if apply_bytes is not None:
+            assert B.walk_cost(kernel, V, sel, pend) == (
+                walk_bytes + apply_bytes, 3 * A * 9 + 2 * 3)
+        else:
+            with pytest.raises(ValueError, match="no apply phase"):
+                B.walk_cost(kernel, V, sel, pend)
+        cost = B.walk_cost(kernel, V, sel)
+    assert cost.bound_by == "bytes"
+    assert cost.bound_ms == pytest.approx(cost.nbytes / 3.35e12 * 1e3)
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for CPU tensors; any other
     device launches the kernel or raises."""

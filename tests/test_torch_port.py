@@ -21,6 +21,7 @@ MODULES = (
     "alphatpu_torch.games.hex", "alphatpu_torch.games.reversi",
     "alphatpu_torch.nets", "alphatpu_torch.mcts.tree",
     "alphatpu_torch.mcts.newton", "alphatpu_torch.mcts.kernels",
+    "alphatpu_torch.mcts.bounds",
     "alphatpu_torch.mcts.search", "alphatpu_torch.buffer",
     "alphatpu_torch.selfplay", "alphatpu_torch.train", "alphatpu_torch.duel",
     "alphatpu_torch.checkpoint", "alphatpu_torch.pipeline",
@@ -231,6 +232,89 @@ def test_select_apply_and_select_kernels_match_plain(cuda):
                                                             before[1] + 1)
     for x, y in zip(tuple(a) + tuple(sk), tuple(b) + tuple(sq)):
         assert torch.equal(x, y)
+
+
+def _synthetic_tree(A, V, G, scale, device, seed):
+    """A random tree of V - 2 allocated nodes per game (numpy, from a
+    seed): each node's children under distinct actions, normalized priors
+    over random legal moves, most of a node's mass and small integer
+    visits on its child edges (so walks go deep), value sums on the
+    1/scale grid; some leaves expanded, so walks also ask for new nodes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = V - 2
+    gi = np.arange(G)
+    parent = np.full((V, G), -1, np.int32)
+    action_from = np.zeros((V, G), np.int32)
+    children = np.zeros((V, G), np.int64)
+    offset = rng.integers(0, A, (V, G))
+    for v in range(1, n):
+        up = rng.integers(0, v, G)
+        up = np.where(children[up, gi] >= A, v - 1, up)  # v - 1: no child
+        parent[v] = up
+        action_from[v] = (offset[up, gi] + children[up, gi]) % A
+        children[up, gi] += 1
+    expanded = np.zeros((V, G), bool)
+    expanded[:n] = (children[:n] > 0) | (rng.random((n, G)) < 0.5)
+    expanded[0] = True
+    child = np.zeros((A, V, G), bool)
+    for v in range(1, n):
+        child[action_from[v], parent[v], gi] = True
+    legal = (rng.random((A, V, G)) < 0.7) | child
+    legal &= expanded[None]
+    prior = np.where(legal, rng.random((A, V, G)), 0.0)
+    prior = np.where(child, prior + 20.0, prior)
+    prior /= np.maximum(prior.sum(0, keepdims=True), 1e-30)
+    visits = np.where(child, rng.integers(1, 5, (A, V, G)), 0)
+    wsum = np.floor(rng.random((A, V, G)) * visits * scale) / scale
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return (t(prior.astype(np.float32)), t(wsum.astype(np.float32)),
+            t(visits.astype(np.float32)), t(parent), t(action_from),
+            t(expanded), t(np.full((G,), n, np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 200, 8192])
+@pytest.mark.parametrize("A", [1, 7, 9, 33, 169])
+def test_main_path_kernels_match_plain_at_every_geometry(A, G, cuda):
+    """select_apply_packed and backup against their plain versions, bit for
+    bit, at group widths from 1 to 32 lanes (A=1: 32 games per warp; A=9:
+    16 lanes for 9 actions; A=33 and 169: 32 lanes of 2 and 6 slots), on
+    one game, a partial block and warp (G=200), and 8192 games."""
+    from alphatpu_torch.mcts import kernels as K
+
+    V = 16
+    S = K.value_scale(V)
+    prior, wsum, visits, *walk, next_idx = _synthetic_tree(
+        A, V, G, S, cuda, seed=A * 7 + G)
+    packed = K.pack_stats(wsum, visits, S)
+    before = (K.select_apply_packed.launches, K.backup.launches)
+    pend = K.empty_pending(V, A, G, cuda)
+    for step in range(2):
+        probs = torch.rand((V, G), device=cuda)
+        a = (prior.clone(), packed.clone())
+        b = (prior.clone(), packed.clone())
+        sk = K.select_apply_packed(*a, *walk, probs, pend, 1.5, S)
+        sp = K.select_apply_packed_plain(*b, *walk, probs, pend, 1.5, S)
+        torch.cuda.synchronize()
+        for x, y in zip(a + tuple(sk), b + tuple(sp)):
+            assert torch.equal(x, y)
+        # the next call applies this walk's update (no prior row written on
+        # a few lanes)
+        pend = _pending(sk, next_idx, A, S)
+    if G > 1:  # walks went below the root, and some asked for a node
+        assert (sk.nodes >= 0).sum() > G and sk.needs_alloc.any()
+    value = torch.rand((G,), device=cuda)
+    path = (sk.nodes, sk.actions, pend.length, value)
+    a = (wsum.clone(), visits.clone())
+    b = (wsum.clone(), visits.clone())
+    K.backup(*a, *path)
+    K.backup_plain(*b, *path)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (K.select_apply_packed.launches, K.backup.launches) == (
+        before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda
