@@ -38,18 +38,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the cooperative walk's launch geometry (kernels.WalkGeometry): lanes,
+# slots, threads, blocks, smem, placement
+_GEOMETRY = [_I] * 6
 _SIGNATURES = {
-    # pointers x 19, A, V, G, D, cpuct, scale, lanes, slots, threads,
-    # blocks, smem, stream
-    "launch_select_apply_packed": [_P] * 19 + [_I] * 4 + [_F] + [_I] * 6
-                                  + [_P],
+    # pointers x 19, A, V, G, D, cpuct, scale, the geometry, stream
+    "launch_select_apply_packed": [_P] * 19 + [_I] * 4 + [_F, _I]
+                                  + _GEOMETRY + [_P],
     # pointers x 18, A, V, G, D, cpuct, bits_v, bits_w, scale, stream
     "launch_select_apply_packed1": [_P] * 18 + [_I] * 4 + [_F] + [_I] * 3
                                    + [_P],
-    # pointers x 20, A, V, G, D, cpuct, stream
-    "launch_select_apply": [_P] * 20 + [_I] * 4 + [_F, _P],
-    # pointers x 13, A, V, G, D, cpuct, stream
-    "launch_select": [_P] * 13 + [_I] * 4 + [_F, _P],
+    # pointers x 20, A, V, G, D, cpuct, the geometry, stream
+    "launch_select_apply": [_P] * 20 + [_I] * 4 + [_F] + _GEOMETRY + [_P],
+    # pointers x 13, A, V, G, D, cpuct, the geometry, stream
+    "launch_select": [_P] * 13 + [_I] * 4 + [_F] + _GEOMETRY + [_P],
     # pointers x 6, A, V, G, D, threads, blocks, stream
     "launch_backup": [_P] * 6 + [_I] * 6 + [_P],
 }

@@ -4,35 +4,69 @@
 //
 // Replaces the TPU kernel alphatpu/mcts/pallas_kernels.py:select_pallas
 // (_select_kernel -> _walk).  It is select_apply.cu without the apply
-// phase: the same walk (walk.cuh) on the same row loader, so on planes that
-// an empty pending update leaves as they are, the two return the same
-// outputs bit for bit.
+// phase: the same walk (walk.cuh, walk_group) on the same row loader and
+// the same launch geometry, so on planes that an empty pending update
+// leaves as they are, the two return the same outputs bit for bit.
 //
-// What bounds it on Hopper: scattered loads of the rows each walk visits
-// (three planes x A words per depth, plus V words each of parent and
-// action_from); one thread per game, games minor, no synchronisation.
+// What bounds it on Hopper: bytes - the rows each walk visits (three
+// planes x A words per depth), plus V words each of parent and
+// action_from - and in practice the latency of each walk's chain.  K lanes
+// of a warp per game: the game's columns are copied into shared memory
+// (cp.async) while the root's row loads and its policy is solved, or, for
+// a tree whose columns do not fit a block, read from device memory.
 #include "walk.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(walk::kThreads) select_kernel(
-    const float* __restrict__ prior, const float* __restrict__ wsum,
-    const float* __restrict__ visits, const int32_t* __restrict__ parent,
-    const int32_t* __restrict__ action_from, const bool* __restrict__ expanded,
-    const float* __restrict__ probs, int32_t* __restrict__ nodes_out,
-    int32_t* __restrict__ actions_out, int32_t* __restrict__ leaf_out,
-    int32_t* __restrict__ laction_out, bool* __restrict__ alloc_out,
-    float* __restrict__ rootpi_out, int A, int V, int G, int D, float cpuct) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const walk::F32Rows rows{prior, wsum, visits};
-  walk::walk_game(rows, parent, action_from, expanded, probs, nodes_out,
-                  actions_out, leaf_out, laction_out, alloc_out, rootpi_out, A,
-                  V, G, D, cpuct, g);
+struct Args {
+  const float* prior;
+  const float* wsum;
+  const float* visits;
+  const int32_t* parent;
+  const int32_t* action_from;
+  const bool* expanded;
+  const float* probs;
+  int32_t* nodes_out;
+  int32_t* actions_out;
+  int32_t* leaf_out;
+  int32_t* laction_out;
+  bool* alloc_out;
+  float* rootpi_out;
+  int A, V, G, D;
+  float cpuct;
+  int placement;
+};
+
+template <int K, int S>
+__global__ void __launch_bounds__(walk::kGroupThreads)
+    select_kernel(const Args x) {
+  extern __shared__ int32_t columns[];
+  const walk::Group<K> grp;
+  const int g = grp.game();
+  if (g >= x.G) return;  // the whole group: its lanes share g
+  const walk::Columns cols =
+      walk::group_columns(grp, columns, x.placement, x.parent, x.action_from,
+                          x.V, x.G, g);
+  const walk::F32Rows rows{x.prior, x.wsum, x.visits};
+  walk::walk_group<K, S>(grp, rows, cols, x.expanded, x.probs, x.nodes_out,
+                         x.actions_out, x.leaf_out, x.laction_out,
+                         x.alloc_out, x.rootpi_out, x.A, x.V, x.G, x.D,
+                         x.cpuct, g);
 }
+
+struct Select {
+  static constexpr bool kDevicePlacement = true;  // trees of any size
+  template <int K, int S>
+  static auto fn() {
+    return select_kernel<K, S>;
+  }
+};
 
 }  // namespace
 
+// lanes, slots, threads, blocks, smem, placement: the launch geometry
+// (alphatpu_torch.mcts.kernels.walk_geometry); walk::launch_group refuses
+// a geometry it has no instantiation for.
 extern "C" int launch_select(const void* prior, const void* wsum,
                              const void* visits, const void* parent,
                              const void* action_from, const void* expanded,
@@ -40,11 +74,10 @@ extern "C" int launch_select(const void* prior, const void* wsum,
                              void* actions_out, void* leaf_out,
                              void* laction_out, void* alloc_out,
                              void* rootpi_out, int A, int V, int G, int D,
-                             float cpuct, void* stream) {
-  if (A < 1 || A > walk::kMaxActions || V < 1 || G < 1 || D < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  select_kernel<<<walk::blocks_for(G), walk::kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+                             float cpuct, int lanes, int slots, int threads,
+                             int blocks, int smem, int placement,
+                             void* stream) {
+  const Args x{
       static_cast<const float*>(prior), static_cast<const float*>(wsum),
       static_cast<const float*>(visits), static_cast<const int32_t*>(parent),
       static_cast<const int32_t*>(action_from),
@@ -52,6 +85,7 @@ extern "C" int launch_select(const void* prior, const void* wsum,
       static_cast<int32_t*>(nodes_out), static_cast<int32_t*>(actions_out),
       static_cast<int32_t*>(leaf_out), static_cast<int32_t*>(laction_out),
       static_cast<bool*>(alloc_out), static_cast<float*>(rootpi_out), A, V, G,
-      D, cpuct);
-  return static_cast<int>(cudaGetLastError());
+      D, cpuct, placement};
+  return walk::launch_group<Select>(
+      {lanes, slots, threads, blocks, smem, placement}, x, stream);
 }

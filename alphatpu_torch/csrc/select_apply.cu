@@ -12,54 +12,125 @@
 //      quantized here, so wsum lies on no grid: each edge gets one f32 add
 //      per rollout, as in the plain version, and nothing is reordered or
 //      contracted (-fmad=false),
-//   3. walks from the root to a leaf (walk.cuh).
+//   3. walks from the root to a leaf (walk.cuh, walk_group).
 //
-// What bounds it on Hopper: scattered loads, as for select_apply_packed,
-// with three planes per row instead of two.  One thread per game loads only
-// the rows of the nodes it visits; the games-minor layout keeps a warp's 32
-// loads of a row contiguous.  The walk keeps two rows (prior, Q) of up to
-// 169 floats per thread in local memory.
+// What bounds it on Hopper: bytes, as for select_apply_packed, with three
+// planes per row (12 B per action) instead of two; what the card waits on
+// is each walk's chain of dependent steps.  The design is that of
+// select_apply_packed.cu: K lanes of a warp per game, each holding
+// ceil(A / K) actions of the row in registers, the order-sensitive sums
+// folded in action order across the lanes (bit for bit equal to the plain
+// version), the apply phase split across the lanes (prior-row entries and
+// path depths) while the game's parent and action_from columns are copied
+// into shared memory.  This engine searches trees of any size, so where
+// the columns do not fit a block the lookup reads them from device memory
+// (the device placement; walk::group_columns).
 #include "walk.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(walk::kThreads) select_apply_kernel(
-    float* __restrict__ prior, float* __restrict__ wsum,
-    float* __restrict__ visits, const int32_t* __restrict__ parent,
-    const int32_t* __restrict__ action_from, const bool* __restrict__ expanded,
-    const float* __restrict__ probs, const int32_t* __restrict__ pu_nodes,
-    const int32_t* __restrict__ pu_actions,
-    const int32_t* __restrict__ pu_length, const float* __restrict__ pu_value,
-    const int32_t* __restrict__ pu_leaf, const float* __restrict__ pu_newp,
-    const bool* __restrict__ pu_write, int32_t* __restrict__ nodes_out,
-    int32_t* __restrict__ actions_out, int32_t* __restrict__ leaf_out,
-    int32_t* __restrict__ laction_out, bool* __restrict__ alloc_out,
-    float* __restrict__ rootpi_out, int A, int V, int G, int D, float cpuct) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
+struct Args {
+  float* prior;
+  float* wsum;
+  float* visits;
+  const int32_t* parent;
+  const int32_t* action_from;
+  const bool* expanded;
+  const float* probs;
+  const int32_t* pu_nodes;
+  const int32_t* pu_actions;
+  const int32_t* pu_length;
+  const float* pu_value;
+  const int32_t* pu_leaf;
+  const float* pu_newp;
+  const bool* pu_write;
+  int32_t* nodes_out;
+  int32_t* actions_out;
+  int32_t* leaf_out;
+  int32_t* laction_out;
+  bool* alloc_out;
+  float* rootpi_out;
+  int A, V, G, D;
+  float cpuct;
+  int placement;
+};
+
+// The pending backup adds on the f32 planes, lane j taking depths j,
+// j + K, ...: per edge wsum += contrib, visits += 1 (unrolled, so that the
+// path loads issue together).
+template <int K>
+__device__ __forceinline__ void add_path_lanes(
+    float* __restrict__ wsum, float* __restrict__ visits,
+    const int32_t* __restrict__ nodes, const int32_t* __restrict__ actions,
+    int len, float value, int V, int G, int D, int g, int j) {
   const size_t gs = static_cast<size_t>(G);
   const size_t vg = static_cast<size_t>(V) * gs;
+#pragma unroll 4
+  for (int d = j; d < D; d += K) {
+    const int node = nodes[d * gs + g];
+    if (node < 0) continue;
+    const int k = len - 1 - d;
+    const float contrib = (k % 2 == 0) ? 1.0f - value : value;
+    const size_t i = static_cast<size_t>(actions[d * gs + g]) * vg +
+                     static_cast<size_t>(node) * gs + g;
+    wsum[i] = wsum[i] + contrib;
+    visits[i] = visits[i] + 1.0f;
+  }
+}
 
-  // 1. pending prior-row write
-  const int pleaf = walk::pending_row_node(pu_write, pu_leaf, V, g);
+template <int K, int S>
+__global__ void __launch_bounds__(walk::kGroupThreads)
+    select_apply_kernel(const Args x) {
+  extern __shared__ int32_t columns[];
+  const walk::Group<K> grp;
+  const int g = grp.game();
+  if (g >= x.G) return;  // the whole group: its lanes share g
+  const int j = grp.j;
+  const size_t gs = static_cast<size_t>(x.G);
+  const size_t vg = static_cast<size_t>(x.V) * gs;
+  const walk::Columns cols =
+      walk::group_columns(grp, columns, x.placement, x.parent, x.action_from,
+                          x.V, x.G, g);
+
+  // 1. pending prior-row write: lane j takes actions j, j + K, ...
+  const int pleaf = walk::pending_row_node(x.pu_write, x.pu_leaf, x.V, g);
   if (pleaf >= 0) {
     const size_t row = static_cast<size_t>(pleaf) * gs + g;
-    for (int a = 0; a < A; ++a) prior[a * vg + row] = pu_newp[a * gs + g];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int a = s * K + j;
+      if (a < x.A) x.prior[a * vg + row] = x.pu_newp[a * gs + g];
+    }
   }
-
   // 2. pending backup adds
-  walk::add_path_f32(wsum, visits, pu_nodes, pu_actions, pu_length[g],
-                     pu_value[g], V, G, D, g);
+  add_path_lanes<K>(x.wsum, x.visits, x.pu_nodes, x.pu_actions,
+                    x.pu_length[g], x.pu_value[g], x.V, x.G, x.D, g, j);
+  // every word a game touches is its own: the group's barrier orders the
+  // writes above (to the prior plane and to the two stat planes) before
+  // the walk's reads
+  __syncwarp(grp.mask);
 
   // 3. the walk
-  const walk::F32Rows rows{prior, wsum, visits};
-  walk::walk_game(rows, parent, action_from, expanded, probs, nodes_out,
-                  actions_out, leaf_out, laction_out, alloc_out, rootpi_out, A,
-                  V, G, D, cpuct, g);
+  const walk::F32Rows rows{x.prior, x.wsum, x.visits};
+  walk::walk_group<K, S>(grp, rows, cols, x.expanded, x.probs, x.nodes_out,
+                         x.actions_out, x.leaf_out, x.laction_out,
+                         x.alloc_out, x.rootpi_out, x.A, x.V, x.G, x.D,
+                         x.cpuct, g);
 }
+
+struct SelectApply {
+  static constexpr bool kDevicePlacement = true;  // trees of any size
+  template <int K, int S>
+  static auto fn() {
+    return select_apply_kernel<K, S>;
+  }
+};
 
 }  // namespace
 
+// lanes, slots, threads, blocks, smem, placement: the launch geometry
+// (alphatpu_torch.mcts.kernels.walk_geometry); walk::launch_group refuses
+// a geometry it has no instantiation for.
 extern "C" int launch_select_apply(
     void* prior, void* wsum, void* visits, const void* parent,
     const void* action_from, const void* expanded, const void* probs,
@@ -67,11 +138,9 @@ extern "C" int launch_select_apply(
     const void* pu_value, const void* pu_leaf, const void* pu_newp,
     const void* pu_write, void* nodes_out, void* actions_out, void* leaf_out,
     void* laction_out, void* alloc_out, void* rootpi_out, int A, int V, int G,
-    int D, float cpuct, void* stream) {
-  if (A < 1 || A > walk::kMaxActions || V < 1 || G < 1 || D < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  select_apply_kernel<<<walk::blocks_for(G), walk::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    int D, float cpuct, int lanes, int slots, int threads, int blocks,
+    int smem, int placement, void* stream) {
+  const Args x{
       static_cast<float*>(prior), static_cast<float*>(wsum),
       static_cast<float*>(visits), static_cast<const int32_t*>(parent),
       static_cast<const int32_t*>(action_from),
@@ -84,6 +153,7 @@ extern "C" int launch_select_apply(
       static_cast<int32_t*>(nodes_out), static_cast<int32_t*>(actions_out),
       static_cast<int32_t*>(leaf_out), static_cast<int32_t*>(laction_out),
       static_cast<bool*>(alloc_out), static_cast<float*>(rootpi_out), A, V, G,
-      D, cpuct);
-  return static_cast<int>(cudaGetLastError());
+      D, cpuct, placement};
+  return walk::launch_group<SelectApply>(
+      {lanes, slots, threads, blocks, smem, placement}, x, stream);
 }

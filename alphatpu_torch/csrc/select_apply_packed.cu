@@ -37,10 +37,6 @@
 
 namespace {
 
-constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without
-                                         // the opt-in attribute
-constexpr int kMaxSmem = 232448;         // what a block can use on sm_90
-
 struct Args {
   float* prior;
   uint32_t* packed;
@@ -99,8 +95,9 @@ __global__ void __launch_bounds__(walk::kGroupThreads)
   const int j = grp.j;
   const size_t gs = static_cast<size_t>(x.G);
   const size_t vg = static_cast<size_t>(x.V) * gs;
-  int32_t* cols = columns + grp.slot() * walk::column_words(x.V, K);
-  walk::stage_columns(grp, cols, x.parent, x.action_from, x.V, x.G, g);
+  int32_t* staged = columns + grp.slot() * walk::column_words(x.V, K);
+  walk::stage_columns(grp, staged, x.parent, x.action_from, x.V, x.G, g);
+  const walk::SharedColumns cols{staged, x.V};
 
   // 1. pending prior-row write: lane j takes actions j, j + K, ...
   const int pleaf = walk::pending_row_node(x.pu_write, x.pu_leaf, x.V, g);
@@ -129,32 +126,19 @@ __global__ void __launch_bounds__(walk::kGroupThreads)
                          x.cpuct, g);
 }
 
-// Launch the <K, S> instantiation if it is the one asked for; sets *err.
-template <int K, int S>
-bool try_launch(int lanes, int slots, const Args& x, int threads, int blocks,
-                int smem, cudaStream_t stream, cudaError_t* err) {
-  if (lanes != K || slots != S) return false;
-  const int need = threads / K * walk::column_words(x.V, K) * 4;
-  if (smem < need || smem > kMaxSmem) {
-    *err = cudaErrorInvalidValue;
-    return true;
+struct SelectApplyPacked {
+  static constexpr bool kDevicePlacement = false;  // shared memory only
+  template <int K, int S>
+  static auto fn() {
+    return select_apply_packed_kernel<K, S>;
   }
-  if (smem > kDefaultSmem) {
-    *err = cudaFuncSetAttribute(select_apply_packed_kernel<K, S>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem);
-    if (*err != cudaSuccess) return true;
-  }
-  select_apply_packed_kernel<K, S><<<blocks, threads, smem, stream>>>(x);
-  *err = cudaGetLastError();
-  return true;
-}
+};
 
 }  // namespace
 
-// lanes, slots, threads, blocks, smem: the launch geometry
-// (alphatpu_torch.mcts.kernels.walk_geometry).  Instantiated for
-// lanes 1, 2, ..., 32 with one slot, and 32 lanes with 2 to 6 slots.
+// lanes, slots, threads, blocks, smem, placement: the launch geometry
+// (alphatpu_torch.mcts.kernels.walk_geometry); walk::launch_group refuses
+// a geometry it has no instantiation for, and the device placement.
 extern "C" int launch_select_apply_packed(
     void* prior, void* packed, const void* parent, const void* action_from,
     const void* expanded, const void* probs, const void* pu_nodes,
@@ -163,12 +147,8 @@ extern "C" int launch_select_apply_packed(
     void* nodes_out, void* actions_out, void* leaf_out, void* laction_out,
     void* alloc_out, void* rootpi_out, int A, int V, int G, int D, float cpuct,
     int scale, int lanes, int slots, int threads, int blocks, int smem,
-    void* stream) {
-  if (A < 1 || A > walk::kMaxActions || V < 1 || G < 1 || D < 1 ||
-      scale < 1 || lanes < 1 || slots < 1 || lanes * slots < A ||
-      threads < 32 || threads > walk::kGroupThreads || threads % 32 != 0 ||
-      static_cast<long long>(blocks) * (threads / lanes) < G)
-    return static_cast<int>(cudaErrorInvalidValue);
+    int placement, void* stream) {
+  if (scale < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args x{
       static_cast<float*>(prior), static_cast<uint32_t*>(packed),
       static_cast<const int32_t*>(parent),
@@ -183,20 +163,6 @@ extern "C" int launch_select_apply_packed(
       static_cast<int32_t*>(leaf_out), static_cast<int32_t*>(laction_out),
       static_cast<bool*>(alloc_out), static_cast<float*>(rootpi_out), A, V, G,
       D, cpuct, scale};
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  const int t = threads, b = blocks;
-  const bool instantiated =
-      try_launch<1, 1>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<2, 1>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<4, 1>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<8, 1>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<16, 1>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<32, 1>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<32, 2>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<32, 3>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<32, 4>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<32, 5>(lanes, slots, x, t, b, smem, st, &err) ||
-      try_launch<32, 6>(lanes, slots, x, t, b, smem, st, &err);
-  return static_cast<int>(instantiated ? err : cudaErrorInvalidValue);
+  return walk::launch_group<SelectApplyPacked>(
+      {lanes, slots, threads, blocks, smem, placement}, x, stream);
 }

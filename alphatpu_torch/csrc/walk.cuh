@@ -18,9 +18,10 @@
 // and records the path, the leaf, the leaf action, needs_alloc and the
 // depth-0 policy.
 //
-// Two walks: walk_game, one thread per game (select_apply_packed1.cu,
-// select_apply.cu, select.cu), and walk_group, K lanes of a warp per game
-// (select_apply_packed.cu).
+// Two walks: walk_group, K lanes of a warp per game (select_apply_packed.cu,
+// select_apply.cu, select.cu, launched through one <K, S> dispatch,
+// launch_group), and walk_game, one thread per game (select_apply_packed1.cu
+// alone).
 //
 // Arithmetic is that of the plain torch version in
 // alphatpu_torch/mcts/kernels.py (_walk_plain), and sums over actions run
@@ -149,7 +150,8 @@ __device__ __forceinline__ void walk_game(
 
 // Row loaders, one per storage of the edge stats.
 
-// Three f32 planes (select_apply.cu, select.cu).
+// Three f32 planes (select_apply.cu, select.cu).  Visit counts are whole
+// numbers below 2^24, as walk_group's integer reduction needs.
 struct F32Rows {
   const float* prior;
   const float* wsum;
@@ -210,31 +212,15 @@ __device__ __forceinline__ int pending_row_node(const bool* __restrict__ write,
 // that depth): per edge at depth d the leaf value's contribution is 1 - v
 // on the leaf edge and every second edge above it, v on the others.  A
 // path's edges are distinct tree edges, so no two threads - and no two
-// steps of one thread - write the same word: no atomics.
-
-// f32 planes: wsum += contrib, visits += 1 (select_apply.cu).
-__device__ __forceinline__ void add_path_f32(
-    float* __restrict__ wsum, float* __restrict__ visits,
-    const int32_t* __restrict__ nodes, const int32_t* __restrict__ actions,
-    int len, float value, int V, int G, int D, int g) {
-  const size_t gs = static_cast<size_t>(G);
-  const size_t vg = static_cast<size_t>(V) * gs;
-  for (int d = 0; d < D; ++d) {
-    const int node = nodes[d * gs + g];
-    if (node < 0) continue;
-    const int k = len - 1 - d;
-    const float contrib = (k % 2 == 0) ? 1.0f - value : value;
-    const size_t i = static_cast<size_t>(actions[d * gs + g]) * vg +
-                     static_cast<size_t>(node) * gs + g;
-    wsum[i] = wsum[i] + contrib;
-    visits[i] = visits[i] + 1.0f;
-  }
-}
+// steps of one thread - write the same word: no atomics.  The group
+// kernels split a path's depths across their lanes (add_path_lanes in
+// select_apply_packed.cu and select_apply.cu).
 
 // A packed word with an integer wsum field at bit ``wshift`` and visits
-// below it: one add of ((contrib * scale) << wshift) + 1 per edge.  The
-// value lies on the 1/scale grid, so contrib * scale is an exact integer;
-// the add is unsigned, where the carry into bit 31 is defined.
+// below it: one add of ((contrib * scale) << wshift) + 1 per edge
+// (select_apply_packed1.cu).  The value lies on the 1/scale grid, so
+// contrib * scale is an exact integer; the add is unsigned, where the
+// carry into bit 31 is defined.
 __device__ __forceinline__ void add_path_packed(
     uint32_t* __restrict__ packed, const int32_t* __restrict__ nodes,
     const int32_t* __restrict__ actions, int len, float value, float fscale,
@@ -273,7 +259,9 @@ inline int blocks_for(int G) { return (G + kThreads - 1) / kThreads; }
 // the node's flag, uniform and row are loaded together; the game's parent
 // and action_from columns are copied into shared memory once, while the
 // apply phase runs (stage_columns), so the child lookup reads no device
-// memory; the divisions (1 / (alpha - Q), pi) run across lanes; exact
+// memory - unless they do not fit a block's shared memory, and then the
+// lookup reads them where they lie (the device placement, group_columns);
+// the divisions (1 / (alpha - Q), pi) run across lanes; exact
 // reductions (visit and action counts, the child id, the max that seeds
 // alpha) use warp reductions in any order.  The order-sensitive f32 sums
 // (the Newton sums, the CDF prefix) broadcast each action's term from the
@@ -341,9 +329,59 @@ __device__ __forceinline__ void stage_columns(
   __pipeline_commit();
 }
 
-template <int K, int S, class Rows>
+// Where the game's columns go: copied into shared memory, or read where
+// they lie when they do not fit a block (kernels.walk_geometry decides).
+constexpr int kSharedColumns = 0;
+constexpr int kDeviceColumns = 1;
+
+// What the child lookup reads, two views of a game's parent and
+// action_from columns; ``match(v, node, action)`` tells whether slot v is
+// the child under (node, action).
+
+// The copy staged in shared memory, parent at [0, V) and action_from at
+// [V, 2V) (select_apply_packed.cu, which takes no other placement).
+struct SharedColumns {
+  const int32_t* cols;
+  int V;
+  __device__ __forceinline__ bool match(int v, int node, int action) const {
+    return cols[v] == node && cols[V + v] == action;
+  }
+};
+
+// Either placement, chosen at run time (select_apply.cu, select.cu): slot v
+// at parent[v * stride] and action_from[v * stride].  The pointers are
+// generic, so one instantiation serves both.
+struct Columns {
+  const int32_t* parent;
+  const int32_t* action_from;
+  size_t stride;
+  __device__ __forceinline__ bool match(int v, int node, int action) const {
+    const size_t i = static_cast<size_t>(v) * stride;
+    const int32_t p = parent[i];  // both loads issue unconditionally
+    const int32_t a = action_from[i];
+    return (p == node) & (a == action);
+  }
+};
+
+// Game g's columns in ``placement``: the shared placement starts copying
+// them into the game's part of ``smem`` (stride 1); the device placement
+// points into the [V, G] planes (stride G), where lanes of one slot read
+// neighbouring games' words.
+template <int K>
+__device__ __forceinline__ Columns group_columns(
+    const Group<K>& grp, int32_t* smem, int placement,
+    const int32_t* __restrict__ parent,
+    const int32_t* __restrict__ action_from, int V, int G, int g) {
+  if (placement == kDeviceColumns)
+    return {parent + g, action_from + g, static_cast<size_t>(G)};
+  int32_t* cols = smem + grp.slot() * column_words(V, K);
+  stage_columns(grp, cols, parent, action_from, V, G, g);
+  return {cols, cols + V, 1};
+}
+
+template <int K, int S, class Rows, class Cols>
 __device__ __forceinline__ void walk_group(
-    const Group<K>& grp, const Rows& rows, const int32_t* cols,
+    const Group<K>& grp, const Rows& rows, const Cols cols,
     const bool* __restrict__ expanded, const float* __restrict__ probs,
     int32_t* __restrict__ nodes_out, int32_t* __restrict__ actions_out,
     int32_t* __restrict__ leaf_out, int32_t* __restrict__ laction_out,
@@ -456,14 +494,14 @@ __device__ __forceinline__ void walk_group(
       actions_out[d * gs + g] = action;
     }
     recorded = d + 1;
-    if (d == 0) {  // the columns staged at kernel start
-      __pipeline_wait_prior(0);
+    if (d == 0) {  // the columns staged at kernel start (none in flight
+      __pipeline_wait_prior(0);  // in the device placement)
       __syncwarp(grp.mask);
     }
     int cid_part = 0;  // the child under (node, action); 0 = none
 #pragma unroll 8
     for (int v = j; v < V; v += K)
-      if (cols[v] == node && cols[V + v] == action) cid_part += v;
+      if (cols.match(v, node, action)) cid_part += v;
     const int cid = __reduce_add_sync(grp.mask, cid_part);
     if (cid == 0) {
       leaf_action = action;
@@ -483,6 +521,80 @@ __device__ __forceinline__ void walk_group(
     laction_out[g] = leaf_action;
     alloc_out[g] = needs_alloc;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The one dispatch of the three group kernels (select_apply_packed.cu,
+// select_apply.cu, select.cu).  Each names its kernel template through a
+// trait: ``Kernel::fn<K, S>()`` returns the __global__ function taking the
+// kernel's Args by value (with fields A, V, G, D), and
+// ``Kernel::kDevicePlacement`` says whether it takes the device placement.
+// ---------------------------------------------------------------------------
+
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without
+                                         // the opt-in attribute
+constexpr int kMaxSmem = 232448;         // what a block can use on sm_90
+
+// The launch geometry (alphatpu_torch.mcts.kernels.WalkGeometry).
+struct Geometry {
+  int lanes, slots, threads, blocks, smem, placement;
+};
+
+// Launch the <K, S> instantiation if it is the one asked for; sets *err.
+template <class Kernel, int K, int S, class Args>
+bool try_launch(const Geometry& geo, const Args& x, cudaStream_t stream,
+                cudaError_t* err) {
+  if (geo.lanes != K || geo.slots != S) return false;
+  const bool shared = geo.placement == kSharedColumns;
+  const int need = shared ? geo.threads / K * column_words(x.V, K) * 4 : 0;
+  if (geo.smem < need || geo.smem > (shared ? kMaxSmem : 0)) {
+    *err = cudaErrorInvalidValue;
+    return true;
+  }
+  const auto fn = Kernel::template fn<K, S>();
+  if (geo.smem > kDefaultSmem) {
+    *err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+    if (*err != cudaSuccess) return true;
+  }
+  void* args[] = {const_cast<Args*>(&x)};
+  const cudaError_t launched =
+      cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(geo.blocks),
+                       dim3(geo.threads), args, geo.smem, stream);
+  const cudaError_t last = cudaGetLastError();  // clears a launch error
+  *err = launched != cudaSuccess ? launched : last;
+  return true;
+}
+
+// Instantiated for lanes 1, 2, ..., 32 with one slot, and 32 lanes with 2
+// to 6 slots (A up to 192 >= kMaxActions).  Any other geometry, or a
+// placement the kernel does not take, is refused.
+template <class Kernel, class Args>
+int launch_group(const Geometry& geo, const Args& x, void* stream) {
+  const bool placed = geo.placement == kSharedColumns ||
+                      (Kernel::kDevicePlacement &&
+                       geo.placement == kDeviceColumns);
+  if (x.A < 1 || x.A > kMaxActions || x.V < 1 || x.G < 1 || x.D < 1 ||
+      !placed || geo.lanes < 1 || geo.slots < 1 ||
+      geo.lanes * geo.slots < x.A || geo.threads < 32 ||
+      geo.threads > kGroupThreads || geo.threads % 32 != 0 ||
+      static_cast<long long>(geo.blocks) * (geo.threads / geo.lanes) < x.G)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  const bool instantiated =
+      try_launch<Kernel, 1, 1>(geo, x, st, &err) ||
+      try_launch<Kernel, 2, 1>(geo, x, st, &err) ||
+      try_launch<Kernel, 4, 1>(geo, x, st, &err) ||
+      try_launch<Kernel, 8, 1>(geo, x, st, &err) ||
+      try_launch<Kernel, 16, 1>(geo, x, st, &err) ||
+      try_launch<Kernel, 32, 1>(geo, x, st, &err) ||
+      try_launch<Kernel, 32, 2>(geo, x, st, &err) ||
+      try_launch<Kernel, 32, 3>(geo, x, st, &err) ||
+      try_launch<Kernel, 32, 4>(geo, x, st, &err) ||
+      try_launch<Kernel, 32, 5>(geo, x, st, &err) ||
+      try_launch<Kernel, 32, 6>(geo, x, st, &err);
+  return static_cast<int>(instantiated ? err : cudaErrorInvalidValue);
 }
 
 }  // namespace walk

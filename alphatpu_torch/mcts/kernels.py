@@ -20,10 +20,12 @@ written by hand in CUDA C++ for Hopper (``alphatpu_torch/csrc/``):
 
 The four walks share one CUDA header (``csrc/walk.cuh``) and one plain
 walk (:func:`_walk_plain`); they differ in how a node's row is loaded.
-:func:`select_apply_packed` walks each game with a group of lanes of a
-warp (:func:`walk_geometry`), the other three with one thread per game;
-:func:`backup` runs one thread per path depth and game
-(:func:`backup_geometry`).  Each
+:func:`select_apply_packed`, :func:`select_apply` and :func:`select` walk
+each game with a group of lanes of a warp (``walk_group``, launch geometry
+from :func:`walk_geometry`; the two f32 kernels also take trees whose
+columns do not fit shared memory), :func:`select_apply_packed1` with one
+thread per game (``walk_game``); :func:`backup` runs one thread per path
+depth and game (:func:`backup_geometry`).  Each
 wrapper runs its plain torch version (``*_plain``) when - and only when -
 its tensors lie on the CPU; on CUDA tensors it launches the kernel or
 raises.  ``launches`` on each wrapper counts the kernel launches.
@@ -360,16 +362,21 @@ _GROUP_THREADS = 128  # walk.cuh: kGroupThreads
 _BACKUP_THREADS = 256  # backup.cu: kBackupThreads
 _DEFAULT_SMEM = 48 * 1024  # dynamic shared memory without an opt-in
 _MAX_SMEM = 232448  # what a block can use on sm_90
+# where the cooperative walk's child lookup reads a game's parent and
+# action_from columns (walk.cuh: kSharedColumns, kDeviceColumns)
+SHARED_COLUMNS = 0  # copied into the block's shared memory
+DEVICE_COLUMNS = 1  # read from the [V, G] planes in device memory
 
 
 class WalkGeometry(NamedTuple):
-    """Launch geometry of the cooperative walk (``select_apply_packed``)."""
+    """Launch geometry of the cooperative walk (``walk_group``)."""
 
     lanes: int  # lanes per game: a power of two up to 32
     slots: int  # actions each lane holds: ceil(A / lanes), at most 6
     threads: int  # per block: 32, 64 or 128
     blocks: int
     smem: int  # bytes of shared memory per block: the games' columns
+    placement: int  # SHARED_COLUMNS, or DEVICE_COLUMNS with smem 0
 
 
 def column_words(V: int, lanes: int) -> int:
@@ -378,11 +385,14 @@ def column_words(V: int, lanes: int) -> int:
     return -(-2 * V // 32) * 32 + lanes
 
 
-def walk_geometry(A: int, G: int, V: int) -> WalkGeometry:
+def walk_geometry(A: int, G: int, V: int,
+                  device_columns: bool = False) -> WalkGeometry:
     """Lanes per game: the next power of two of A, capped at 32, so each
     lane holds ceil(A / lanes) actions.  Blocks of 128 threads, halved
     down to one warp while that leaves SMs without a block or the games'
-    columns above 48 KB of shared memory."""
+    columns above 48 KB of shared memory.  Where the columns of one warp's
+    games exceed a block's shared memory, ``device_columns`` takes the
+    device placement (the lookup reads device memory); without it, raise."""
     if not 1 <= A <= MAX_ACTIONS:
         raise ValueError(f"walk_geometry: A={A} outside 1..{MAX_ACTIONS}")
     if G < 1 or V < 1:
@@ -392,15 +402,18 @@ def walk_geometry(A: int, G: int, V: int) -> WalkGeometry:
     def smem(threads):
         return threads // lanes * column_words(V, lanes) * 4
 
+    shared = smem(32) <= _MAX_SMEM
+    if not (shared or device_columns):
+        raise ValueError(f"walk_geometry: V={V} needs {smem(32)} B of "
+                         f"shared memory per block, above {_MAX_SMEM}")
     threads = _GROUP_THREADS
     while threads > 32 and (-(-G * lanes // threads) < NUM_SMS
-                            or smem(threads) > _DEFAULT_SMEM):
+                            or (shared and smem(threads) > _DEFAULT_SMEM)):
         threads //= 2
-    if smem(threads) > _MAX_SMEM:
-        raise ValueError(f"walk_geometry: V={V} needs {smem(threads)} B of "
-                         f"shared memory per block, above {_MAX_SMEM}")
     return WalkGeometry(lanes, -(-A // lanes), threads,
-                        -(-G // (threads // lanes)), smem(threads))
+                        -(-G // (threads // lanes)),
+                        smem(threads) if shared else 0,
+                        SHARED_COLUMNS if shared else DEVICE_COLUMNS)
 
 
 class BackupGeometry(NamedTuple):
@@ -563,10 +576,11 @@ def select_apply(prior, wsum, visits, parent, action_from, expanded, probs,
         "select_apply", (("prior", prior, f32), ("wsum", wsum, f32),
                          ("visits", visits, f32)),
         parent, action_from, expanded, probs, pend)
+    geometry = walk_geometry(A, G, V, device_columns=True)
     out = _selection_out(A, G, D, prior.device)
     _launch("launch_select_apply", prior.device, prior, wsum, visits, parent,
             action_from, expanded, probs, *pend, *out, A, V, G, D,
-            ctypes.c_float(cpuct))
+            ctypes.c_float(cpuct), *geometry)
     select_apply.launches += 1
     return out
 
@@ -583,10 +597,11 @@ def select(prior, wsum, visits, parent, action_from, expanded, probs,
         "select", (("prior", prior, f32), ("wsum", wsum, f32),
                    ("visits", visits, f32)),
         parent, action_from, expanded, probs)
+    geometry = walk_geometry(A, G, V, device_columns=True)
     out = _selection_out(A, G, D, prior.device)
     _launch("launch_select", prior.device, prior, wsum, visits, parent,
             action_from, expanded, probs, *out, A, V, G, D,
-            ctypes.c_float(cpuct))
+            ctypes.c_float(cpuct), *geometry)
     select.launches += 1
     return out
 

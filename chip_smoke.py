@@ -14,8 +14,11 @@ Phases, each fatal on failure:
    A=7, V=64, G=8192, D=42, on a tree grown by the port's own search) and
    at a synthetic wide shape (A=169, V=64, G=2048) - with each kernel's
    time at both shapes beside its bound and its plain version's; the
-   read-only ``select`` against ``select_apply``'s walk, bit for bit; and
-   where ``select_apply_packed``'s time goes (``walk_breakdown``),
+   read-only ``select`` against ``select_apply``'s walk, bit for bit;
+   where ``select_apply_packed``'s time goes (``walk_breakdown``); and
+   ``select_apply`` and ``select`` on a synthetic tree whose parent and
+   action_from columns do not fit a block's shared memory (A=7, V=8000,
+   G=512: the device placement), timed beside their bounds,
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
@@ -81,6 +84,8 @@ ROLLOUTS = 64
 CHUNK_ROUNDS = 8
 CHUNKS = 2  # 16 rounds at level 1
 WIDE = (169, 64, 2048)  # A, V, G of the synthetic wide shape
+# A, V, G of a synthetic tree whose columns do not fit a block
+DEVICE_SHAPE = (7, 8000, 512)
 SMALL_G = 512  # lanes of the card-vs-CPU searches
 GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
 CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
@@ -235,7 +240,10 @@ def synthetic_tree(A, V, G, scale, seed):
     """A random tree of V-2 allocated nodes per game: children under
     distinct (parent, action) edges, normalized priors over random legal
     moves, small integer visits on the child edges, value sums on the
-    1/scale grid."""
+    1/scale grid.  Node v < A hangs under a random earlier node by the
+    v-th action of a per-game permutation; node v >= A (a tree larger than
+    the row) under a random earlier node with a free action - the first
+    free one from a random start - or, if it has none, under node v - 1."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -248,18 +256,26 @@ def synthetic_tree(A, V, G, scale, seed):
     expanded[:n] = rng.random((n, G)) < 0.9
     expanded[0] = True
     legal = rng.random((A, V, G)) < 0.7
-    for v in range(1, n):
-        parent[v] = rng.integers(0, v, G)
-        action_from[v] = perm[v]
-        expanded[parent[v], gi] = True
-        legal[perm[v], parent[v], gi] = True
-    legal &= expanded[None]
-    prior = np.where(legal, rng.random((A, V, G)), 0.0)
     # as in a grown tree, only edges with a child have visits, and they
     # hold most of their node's mass (so that walks go deep)
     child = np.zeros((A, V, G), bool)
+    turn = np.arange(A)[:, None]
     for v in range(1, n):
-        child[action_from[v], parent[v], gi] = True
+        up = rng.integers(0, v, G)
+        if v < A:
+            action = perm[v]
+        else:
+            up = np.where(child[:, up, gi].all(0), v - 1, up)
+            order = (rng.integers(0, A, G) + turn) % A  # [A, G]
+            free = ~child[order, up, gi]
+            action = order[free.argmax(0), gi]
+        parent[v] = up
+        action_from[v] = action
+        expanded[up, gi] = True
+        legal[action, up, gi] = True
+        child[action, up, gi] = True
+    legal &= expanded[None]
+    prior = np.where(legal, rng.random((A, V, G)), 0.0)
     prior = np.where(child, prior + 20.0, prior)
     prior = (prior / np.maximum(prior.sum(0, keepdims=True), 1e-30))
     visits = np.where(child, rng.integers(1, 5, (A, V, G)), 0)
@@ -267,6 +283,20 @@ def synthetic_tree(A, V, G, scale, seed):
     return (prior.astype(np.float32), wsum.astype(np.float32),
             visits.astype(np.float32), parent, action_from, expanded,
             np.full((G,), n, np.int32))
+
+
+def synthetic_tree_on(dev, A, V, G, scale, seed):
+    """:func:`synthetic_tree` as a ``Tree`` on ``dev`` (no game states)."""
+    import torch
+
+    from alphatpu_torch.mcts.tree import Tree
+
+    prior, wsum, visits, parent, action_from, expanded, next_idx = (
+        torch.from_numpy(x).to(dev)
+        for x in synthetic_tree(A, V, G, scale, seed))
+    return Tree(parent=parent, action_from=action_from, expanded=expanded,
+                states=None, prior=prior, wsum=wsum, visits=visits,
+                next_idx=next_idx)
 
 
 def backup_yardstick(wsum, visits, nodes, actions, length, value):
@@ -299,10 +329,10 @@ def show_timing(r) -> str:
             + (f"; library {lib:.4f} ms" if lib is not None else ""))
 
 
-def parity(K, tree, D, gen, cpuct, scale, label, timed):
+def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
     """Kernel parity of the four walk kernels and backup on one tree (and
-    a level-1 ``scale``, ``D`` depths): each kernel against its plain
-    version with an
+    a level-1 ``scale``, ``D`` depths), or of those named in ``kernels``:
+    each kernel against its plain version with an
     empty and with a real pending update, and select against
     select_apply's walk bit for bit.  With ``timed``, each kernel's device
     time, its bound on this call's inputs (``alphatpu_torch.mcts.bounds``),
@@ -318,35 +348,36 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed):
     dev = prior.device
     walk = (tree.parent, tree.action_from, tree.expanded)
     layout = K.packed1_layout(V)
-    packed = K.pack_stats(wsum, visits, scale)
-    packed1 = K.pack1_stats(prior, wsum, visits, layout)
     empty = K.empty_pending(D, A, G, dev)
     probs = [torch.rand((D, G), generator=gen, device=dev) for _ in range(2)]
 
     # each walk kernel: (planes, kernel(*planes, p, pend), plain, value
-    # grid of its pending update)
+    # grid of its pending update); the planes are built for those asked for
     engines = {
         "select_apply_packed": (
-            (prior, packed),
+            lambda: (prior, K.pack_stats(wsum, visits, scale)),
             lambda pr, pk, p, pend: K.select_apply_packed(
                 pr, pk, *walk, p, pend, cpuct, scale),
             lambda pr, pk, p, pend: K.select_apply_packed_plain(
                 pr, pk, *walk, p, pend, cpuct, scale), scale),
         "select_apply_packed1": (
-            (packed1,),
+            lambda: (K.pack1_stats(prior, wsum, visits, layout),),
             lambda pk, p, pend: K.select_apply_packed1(
                 pk, *walk, p, pend, cpuct, layout),
             lambda pk, p, pend: K.select_apply_packed1_plain(
                 pk, *walk, p, pend, cpuct, layout), layout.scale),
         "select_apply": (
-            (prior, wsum, visits),
+            lambda: (prior, wsum, visits),
             lambda pr, w, n, p, pend: K.select_apply(
                 pr, w, n, *walk, p, pend, cpuct),
             lambda pr, w, n, p, pend: K.select_apply_plain(
                 pr, w, n, *walk, p, pend, cpuct), None),
     }
     out = {}
-    for name, (planes, kern, plain, grid) in engines.items():
+    for name, (make_planes, kern, plain, grid) in engines.items():
+        if name not in kernels:
+            continue
+        planes = make_planes()
         n1, e1, sel = compare_walk(
             name, lambda *x: kern(*x, probs[0], empty),
             lambda *x: plain(*x, probs[0], empty), planes)
@@ -355,6 +386,7 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed):
             name, lambda *x: kern(*x, probs[1], pend),
             lambda *x: plain(*x, probs[1], pend), planes)
         depth = float((sel.nodes >= 0).sum(0).float().mean())
+        longest = int((sel2.nodes >= 0).sum(0).max())  # of the timed walk
         r = out[name] = {"err": max(e1, e2), "ms": None, "plain_ms": None,
                          "cost": walk_cost(name, V, sel2, pend),
                          "library_ms": None}
@@ -369,40 +401,46 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed):
             del copies
         print(f"{name} parity, {label}: diverged lanes {n1}/{G} and {n2}/{G},"
               f" root_pi max abs err {max(e1, e2):.3g}, mean path length "
-              f"{depth:.2f}" + (show_timing(r) if timed else ""))
+              f"{depth:.2f}, longest {longest}"
+              + (show_timing(r) if timed else ""))
 
     # select: the read-only walk, against its plain version and against
     # select_apply's walk on the same planes with an empty pending update
-    name = "select"
-    errs, ns = [], []
-    for p in probs:
-        n, e, sk = compare_walk(
-            name, lambda *x: K.select(*x, *walk, p, cpuct),
-            lambda *x: K.select_plain(*x, *walk, p, cpuct),
-            (prior, wsum, visits))
-        errs.append(e)
-        ns.append(n)
-        s4 = K.select_apply(prior.clone(), wsum.clone(), visits.clone(),
-                            *walk, p, empty, cpuct)
-        if not all(torch.equal(x, y) for x, y in zip(sk, s4)):
-            raise AssertionError("select differs from select_apply's walk")
-    r = out[name] = {"err": max(errs), "ms": None, "plain_ms": None,
-                     "cost": walk_cost(name, V, sk), "library_ms": None}
-    if timed:
-        # a copy of the planes per launch, as for the other kernels: the
-        # three planes fit the 50 MB L2, and a search finds them cold
-        reps = 20
-        copies = [[t.clone() for t in (prior, wsum, visits)]
-                  for _ in range(reps + 1)]
-        r["ms"] = device_ms(lambda i: K.select(*copies[i], *walk, probs[1],
-                                               cpuct), reps)
-        r["plain_ms"] = wall_ms(lambda i: K.select_plain(
-            *copies[i], *walk, probs[1], cpuct), 3)
-        del copies
-    print(f"select parity, {label}: diverged lanes {ns[0]}/{G} and "
-          f"{ns[1]}/{G}, root_pi max abs "
-          f"err {max(errs):.3g}; equal to select_apply's walk bit for bit"
-          + (show_timing(r) if timed else ""))
+    if "select" in kernels:
+        name = "select"
+        errs, ns = [], []
+        for p in probs:
+            n, e, sk = compare_walk(
+                name, lambda *x: K.select(*x, *walk, p, cpuct),
+                lambda *x: K.select_plain(*x, *walk, p, cpuct),
+                (prior, wsum, visits))
+            errs.append(e)
+            ns.append(n)
+            s4 = K.select_apply(prior.clone(), wsum.clone(), visits.clone(),
+                                *walk, p, empty, cpuct)
+            if not all(torch.equal(x, y) for x, y in zip(sk, s4)):
+                raise AssertionError("select differs from select_apply's walk")
+        r = out[name] = {"err": max(errs), "ms": None, "plain_ms": None,
+                         "cost": walk_cost(name, V, sk), "library_ms": None}
+        if timed:
+            # a copy of the planes per launch, as for the other kernels: the
+            # three planes fit the 50 MB L2, and a search finds them cold
+            reps = 20
+            copies = [[t.clone() for t in (prior, wsum, visits)]
+                      for _ in range(reps + 1)]
+            r["ms"] = device_ms(lambda i: K.select(*copies[i], *walk, probs[1],
+                                                   cpuct), reps)
+            r["plain_ms"] = wall_ms(lambda i: K.select_plain(
+                *copies[i], *walk, probs[1], cpuct), 3)
+            del copies
+        print(f"select parity, {label}: diverged lanes {ns[0]}/{G} and "
+              f"{ns[1]}/{G}, root_pi max abs "
+              f"err {max(errs):.3g}; equal to select_apply's walk bit for "
+              f"bit; longest path {int((sk.nodes >= 0).sum(0).max())}"
+              + (show_timing(r) if timed else ""))
+
+    if "backup" not in kernels:
+        return out
 
     # backup: the flush of a pending update onto the f32 stats (the path
     # of the last engine's walk above)
@@ -889,12 +927,41 @@ def main() -> int:
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
-    for line in _build.build_report["log"].splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill",
-                                   "stack")):
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_lines(_build.build_report["log"]):
+        print(f"  ptxas: {line}")
 
     return smoke(dev, card, kind)
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per kernel instantiation from ptxas's ``-v`` report: the
+    kernel and its <lanes, slots> (read off the mangled name), registers,
+    stack frame and spills."""
+    import re
+
+    def demangle(mangled):
+        # _ZN <length><identifier>... [ILi<K>ELi<S>E]: the last identifier
+        # is the function, after its (possibly hashed) namespaces
+        rest, ident = re.sub(r"^_ZN?", "", mangled), mangled
+        while (n := re.match(r"\d+", rest)):
+            size = int(n.group())
+            ident = rest[len(n.group()):len(n.group()) + size]
+            rest = rest[len(n.group()) + size:]
+        t = re.match(r"ILi(\d+)ELi(\d+)E", rest)
+        return ident + (f"<{t.group(1)}, {t.group(2)}>" if t else "")
+
+    lines, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = demangle(m.group(1))
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {regs} registers, {frame}")
+            name, frame = None, ""
+    return lines
 
 
 def smoke(dev, card: str, kind: str) -> int:
@@ -905,7 +972,7 @@ def smoke(dev, card: str, kind: str) -> int:
     from alphatpu_torch.games import make_game
     from alphatpu_torch.mcts import kernels as K
     from alphatpu_torch.mcts.search import run_mcts
-    from alphatpu_torch.mcts.tree import Tree, init_tree
+    from alphatpu_torch.mcts.tree import init_tree
     from alphatpu_torch.nets import MLP, config_for_game
 
     # ---- 3. kernel parity ----
@@ -925,18 +992,32 @@ def smoke(dev, card: str, kind: str) -> int:
     walk_breakdown(K, tree, D, gen, scale, card)
 
     Aw, Vw, Gw = WIDE
-    arrays = synthetic_tree(Aw, Vw, Gw, scale, SEED + 1)
-    prior_w, wsum_w, visits_w, parent_w, af_w, exp_w, next_w = (
-        torch.from_numpy(x).to(dev) for x in arrays)
-    wide = Tree(parent=parent_w, action_from=af_w, expanded=exp_w,
-                states=None, prior=prior_w, wsum=wsum_w, visits=visits_w,
-                next_idx=next_w)
+    wide = synthetic_tree_on(dev, Aw, Vw, Gw, scale, SEED + 1)
     wide_results = parity(K, wide, min(Aw, Vw), gen, CPUCT, scale,
                           f"synthetic A={Aw} V={Vw} G={Gw}", True)
     print(f"  [{card}]")
     errs = {k: max(results[k]["err"], wide_results[k]["err"])
             for k in KERNELS}
-    del arrays, wide, prior_w, wsum_w, visits_w
+    del wide
+
+    # a tree whose columns do not fit a block: the f32 kernels read them
+    # from device memory (its own generator: the later phases draw as
+    # before)
+    Ad, Vd, Gd = DEVICE_SHAPE
+    geo = K.walk_geometry(Ad, Gd, Vd, device_columns=True)
+    if geo.placement != K.DEVICE_COLUMNS:
+        raise AssertionError(f"A={Ad} V={Vd} G={Gd}: geometry {geo}")
+    big = synthetic_tree_on(dev, Ad, Vd, Gd, scale, SEED + 2)
+    Dd = min(game.max_game_length, Vd)
+    device_results = parity(
+        K, big, Dd, torch.Generator(device=dev).manual_seed(SEED + 2), CPUCT,
+        scale, f"synthetic A={Ad} V={Vd} G={Gd} D={Dd}, columns in device "
+        f"memory ({geo.threads} threads x {geo.blocks} blocks)", True,
+        kernels=("select_apply", "select"))
+    print(f"  [{card}]")
+    for k, r in device_results.items():
+        errs[k] = max(errs[k], r["err"])
+    del big
 
     # ---- 4. the search on the card against the CPU path ----
     net_cpu = MLP.from_seed(config_for_game(game), SEED,

@@ -520,7 +520,9 @@ def test_launch_geometry_covers_every_shape(G):
         (32, s) for s in range(2, 7)}
     for V in (8, 16, 64):
         for A in range(1, K.MAX_ACTIONS + 1):
-            lanes, slots, threads, blocks, smem = K.walk_geometry(A, G, V)
+            lanes, slots, threads, blocks, smem, placement = K.walk_geometry(
+                A, G, V)
+            assert placement == K.SHARED_COLUMNS
             assert (lanes, slots) in instantiated, (A, lanes, slots)
             assert lanes * (slots - 1) < A <= lanes * slots
             assert lanes >= min(A, 32)
@@ -531,15 +533,50 @@ def test_launch_geometry_covers_every_shape(G):
             assert smem == games * K.column_words(V, lanes) * 4 <= 48 * 1024
             assert K.column_words(V, lanes) >= 2 * V
     # a big tree: the blocks shrink to keep the columns in shared memory
-    lanes, _, threads, _, smem = K.walk_geometry(7, G, 1600)
+    lanes, _, threads, _, smem, _ = K.walk_geometry(7, G, 1600)
     assert threads == 32 and smem == 4 * K.column_words(1600, 8) * 4
     threads, blocks = K.backup_geometry(G)
     assert threads % 32 == 0 and 32 <= threads <= 256
     assert (blocks - 1) * threads < G <= blocks * threads
     with pytest.raises(ValueError, match="A=170"):
         K.walk_geometry(K.MAX_ACTIONS + 1, G, 64)
+    with pytest.raises(ValueError, match="A=170"):
+        K.walk_geometry(K.MAX_ACTIONS + 1, G, 64, device_columns=True)
+    # select_apply_packed keeps its columns in shared memory: past it, raise
     with pytest.raises(ValueError, match="shared memory"):
         K.walk_geometry(1, G, 4096)
+    assert K.walk_geometry(1, G, 4096, True).placement == K.DEVICE_COLUMNS
+
+
+@pytest.mark.parametrize("V", [8, 64, 1600, 4096, 8000, 20000])
+@pytest.mark.parametrize("G", [1, 200, 2048, 8192])
+def test_walk_geometry_places_the_columns_of_any_tree(G, V):
+    """The f32 kernels' geometry (device placement allowed) never raises
+    for 1 <= A <= 169: the columns go to shared memory exactly when one
+    warp's games fit a block's, with smem their bytes; otherwise the lookup
+    reads device memory and the block asks for no shared memory.  Lanes,
+    slots and blocks follow the same rules either way."""
+    instantiated = {(k, 1) for k in (1, 2, 4, 8, 16, 32)} | {
+        (32, s) for s in range(2, 7)}
+    for A in range(1, K.MAX_ACTIONS + 1):
+        geo = K.walk_geometry(A, G, V, device_columns=True)
+        assert (geo.lanes, geo.slots) in instantiated, (A, geo)
+        assert geo.lanes * (geo.slots - 1) < A <= geo.lanes * geo.slots
+        assert geo.threads in (32, 64, 128)
+        games = geo.threads // geo.lanes
+        assert (geo.blocks - 1) * games < G <= geo.blocks * games
+        assert geo.blocks >= K.NUM_SMS or geo.threads == 32
+        words = K.column_words(V, geo.lanes)
+        fits = 32 // geo.lanes * words * 4 <= 232448
+        assert geo.placement == (K.SHARED_COLUMNS if fits
+                                 else K.DEVICE_COLUMNS), (A, geo)
+        assert geo.smem == (games * words * 4 if fits else 0)
+        if fits:  # the same launch as select_apply_packed's
+            assert geo == K.walk_geometry(A, G, V)
+            assert geo.smem <= 48 * 1024 or geo.threads == 32
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                K.walk_geometry(A, G, V)
 
 
 def _hand_tree():

@@ -4,8 +4,10 @@ The CPU tests check that ``alphatpu_torch`` never imports JAX and builds
 nothing at import.  The tests marked ``cuda`` hold each CUDA kernel to its
 plain torch version on the card; they skip where torch finds no CUDA device.
 """
+import ctypes
 import math
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -67,6 +69,44 @@ def test_build_paths_are_inside_the_package():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     # .gitignore keeps built libraries out of the repository
     assert "alphatpu_torch/_build/" in (REPO / ".gitignore").read_text()
+
+
+_C_ENTRY = re.compile(r'extern "C" int (launch_\w+)\((.*?)\)\s*\{', re.S)
+
+
+def _c_entry_points() -> dict:
+    """Every ``extern "C" int launch_*`` of ``csrc/*.cu``: name -> its
+    parameters as ctypes types (a pointer, an int or a float)."""
+    from alphatpu_torch import _build
+
+    def ctype(param):
+        decl = " ".join(param.split())
+        if "*" in decl:
+            return ctypes.c_void_p
+        kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+        assert decl.split()[0] in kinds, decl
+        return kinds[decl.split()[0]]
+
+    return {name: [ctype(p) for p in params.split(",")]
+            for src in _build.sources()
+            for name, params in _C_ENTRY.findall(src.read_text())}
+
+
+def test_signatures_name_every_c_entry_point():
+    from alphatpu_torch import _build
+
+    assert set(_c_entry_points()) == set(_build._SIGNATURES)
+
+
+@pytest.mark.parametrize("entry", [
+    "launch_select_apply_packed", "launch_select_apply_packed1",
+    "launch_select_apply", "launch_select", "launch_backup"])
+def test_signatures_match_the_c_declarations(entry):
+    """ctypes passes what ``_SIGNATURES`` declares: a mismatch with the C
+    parameters would show only on the card, as a wrong argument."""
+    from alphatpu_torch import _build
+
+    assert _build._SIGNATURES[entry] == _c_entry_points()[entry]
 
 
 def test_library_name_follows_headers(tmp_path, monkeypatch):
@@ -274,37 +314,74 @@ def _synthetic_tree(A, V, G, scale, device, seed):
             t(expanded), t(np.full((G,), n, np.int32)))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 200, 8192])
-@pytest.mark.parametrize("A", [1, 7, 9, 33, 169])
-def test_main_path_kernels_match_plain_at_every_geometry(A, G, cuda):
-    """select_apply_packed and backup against their plain versions, bit for
-    bit, at group widths from 1 to 32 lanes (A=1: 32 games per warp; A=9:
-    16 lanes for 9 actions; A=33 and 169: 32 lanes of 2 and 6 slots), on
-    one game, a partial block and warp (G=200), and 8192 games."""
+def _walks_match_plain(kernel, A, V, G, D, seed, device):
+    """Two calls of the group-walk kernel ``kernel`` against its plain
+    version, bit for bit, on a synthetic tree: the second applies the first
+    walk's update (select_apply kernels; no prior row written on a few
+    lanes), and ``select`` is also held to ``select_apply``'s walk with an
+    empty pending update.  Returns the tree's f32 planes and the last walk
+    with its pending update."""
     from alphatpu_torch.mcts import kernels as K
 
-    V = 16
     S = K.value_scale(V)
     prior, wsum, visits, *walk, next_idx = _synthetic_tree(
-        A, V, G, S, cuda, seed=A * 7 + G)
-    packed = K.pack_stats(wsum, visits, S)
-    before = (K.select_apply_packed.launches, K.backup.launches)
-    pend = K.empty_pending(V, A, G, cuda)
+        A, V, G, S, device, seed)
+    launches = {k: getattr(K, k).launches for k in (
+        "select_apply_packed", "select_apply", "select")}
+    pend = K.empty_pending(D, A, G, device)
     for step in range(2):
-        probs = torch.rand((V, G), device=cuda)
-        a = (prior.clone(), packed.clone())
-        b = (prior.clone(), packed.clone())
-        sk = K.select_apply_packed(*a, *walk, probs, pend, 1.5, S)
-        sp = K.select_apply_packed_plain(*b, *walk, probs, pend, 1.5, S)
+        probs = torch.rand((D, G), device=device)
+        if kernel == "select_apply_packed":
+            a = (prior.clone(), K.pack_stats(wsum, visits, S))
+            b = tuple(t.clone() for t in a)
+            sk = K.select_apply_packed(*a, *walk, probs, pend, 1.5, S)
+            sp = K.select_apply_packed_plain(*b, *walk, probs, pend, 1.5, S)
+        elif kernel == "select_apply":
+            a = (prior.clone(), wsum.clone(), visits.clone())
+            b = tuple(t.clone() for t in a)
+            sk = K.select_apply(*a, *walk, probs, pend, 1.5)
+            sp = K.select_apply_plain(*b, *walk, probs, pend, 1.5)
+        else:
+            a = b = (prior, wsum, visits)
+            sk = K.select(*a, *walk, probs, 1.5)
+            sp = K.select_plain(*b, *walk, probs, 1.5)
+            s4 = K.select_apply(prior.clone(), wsum.clone(), visits.clone(),
+                                *walk, probs, pend, 1.5)
+            assert all(torch.equal(x, y) for x, y in zip(sk, s4))
         torch.cuda.synchronize()
         for x, y in zip(a + tuple(sk), b + tuple(sp)):
             assert torch.equal(x, y)
-        # the next call applies this walk's update (no prior row written on
-        # a few lanes)
-        pend = _pending(sk, next_idx, A, S)
+        if kernel != "select":  # the f32 engine backs up unquantized
+            pend = _pending(sk, next_idx, A,
+                            S if kernel == "select_apply_packed" else None)
     if G > 1:  # walks went below the root, and some asked for a node
         assert (sk.nodes >= 0).sum() > G and sk.needs_alloc.any()
+    launches[kernel] += 2
+    if kernel == "select":
+        launches["select_apply"] += 2
+    assert {k: getattr(K, k).launches for k in launches} == launches
+    return wsum, visits, sk, pend
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 200, 8192])
+@pytest.mark.parametrize("A", [1, 7, 9, 33, 169])
+@pytest.mark.parametrize("kernel", [
+    "select_apply_packed", "select_apply", "select"])
+def test_main_path_kernels_match_plain_at_every_geometry(kernel, A, G, cuda):
+    """The three group walks against their plain versions, bit for bit, at
+    group widths from 1 to 32 lanes (A=1: 32 games per warp; A=9: 16 lanes
+    for 9 actions; A=33 and 169: 32 lanes of 2 and 6 slots), on one game,
+    a partial block and warp (G=200), and 8192 games; with
+    select_apply_packed, backup against its plain version on its path."""
+    from alphatpu_torch.mcts import kernels as K
+
+    V = 16
+    wsum, visits, sk, pend = _walks_match_plain(kernel, A, V, G, V,
+                                                A * 7 + G, cuda)
+    if kernel != "select_apply_packed":
+        return
+    before = K.backup.launches
     value = torch.rand((G,), device=cuda)
     path = (sk.nodes, sk.actions, pend.length, value)
     a = (wsum.clone(), visits.clone())
@@ -313,8 +390,21 @@ def test_main_path_kernels_match_plain_at_every_geometry(A, G, cuda):
     K.backup_plain(*b, *path)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert (K.select_apply_packed.launches, K.backup.launches) == (
-        before[0] + 2, before[1] + 1)
+    assert K.backup.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["select_apply", "select"])
+def test_f32_walks_read_columns_from_device_memory(kernel, cuda):
+    """A tree whose columns do not fit a block's shared memory (A=7,
+    V=8000: 4 games x 64 KB): the f32 kernels take the device placement
+    and stay bit for bit equal to their plain versions, over D=200
+    recorded depths (not a multiple of the group's 8 lanes)."""
+    from alphatpu_torch.mcts import kernels as K
+
+    A, V, G = 7, 8000, 512
+    assert K.walk_geometry(A, G, V, True).placement == K.DEVICE_COLUMNS
+    _walks_match_plain(kernel, A, V, G, 200, 5, cuda)
 
 
 @pytest.mark.cuda
