@@ -45,9 +45,10 @@ _SIGNATURES = {
     # pointers x 19, A, V, G, D, cpuct, scale, the geometry, stream
     "launch_select_apply_packed": [_P] * 19 + [_I] * 4 + [_F, _I]
                                   + _GEOMETRY + [_P],
-    # pointers x 18, A, V, G, D, cpuct, bits_v, bits_w, scale, stream
+    # pointers x 18, A, V, G, D, cpuct, bits_v, bits_w, scale, the
+    # geometry, stream
     "launch_select_apply_packed1": [_P] * 18 + [_I] * 4 + [_F] + [_I] * 3
-                                   + [_P],
+                                   + _GEOMETRY + [_P],
     # pointers x 20, A, V, G, D, cpuct, the geometry, stream
     "launch_select_apply": [_P] * 20 + [_I] * 4 + [_F] + _GEOMETRY + [_P],
     # pointers x 13, A, V, G, D, cpuct, the geometry, stream

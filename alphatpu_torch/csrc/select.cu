@@ -55,9 +55,8 @@ __global__ void __launch_bounds__(walk::kGroupThreads)
 }
 
 struct Select {
-  static constexpr bool kDevicePlacement = true;  // trees of any size
   template <int K, int S>
-  static auto fn() {
+  static auto fn(int) {  // either placement: Args.placement picks
     return select_kernel<K, S>;
   }
 };

@@ -119,9 +119,8 @@ __global__ void __launch_bounds__(walk::kGroupThreads)
 }
 
 struct SelectApply {
-  static constexpr bool kDevicePlacement = true;  // trees of any size
   template <int K, int S>
-  static auto fn() {
+  static auto fn(int) {  // either placement: Args.placement picks
     return select_apply_kernel<K, S>;
   }
 };

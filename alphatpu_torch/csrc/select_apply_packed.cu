@@ -31,8 +31,12 @@
 // stays bit for bit equal to its plain version.  The game's parent and
 // action_from columns are copied into shared memory (cp.async) at the
 // start, behind the apply phase, which the lanes split: prior-row entries
-// and path depths.  Tensor cores and TMA have no role: there is no matrix
-// product, and each game's rows are scattered words chosen by the walk.
+// and path depths.  Where one warp's games' columns do not fit a block
+// (from V = 7,249 at connect4's A=7), a second instantiation of each
+// <K, S> reads them from device memory (the device placement); the shared
+// one keeps its own lookup.  Tensor cores and TMA have no role: there is
+// no matrix product, and each game's rows are scattered words chosen by
+// the walk.
 #include "walk.cuh"
 
 namespace {
@@ -62,30 +66,7 @@ struct Args {
   int scale;
 };
 
-// The pending backup adds at the wsum half's offset 16, lane j taking
-// depths j, j + K, ... (walk::add_path_packed's arithmetic; unrolled so
-// that the path loads issue together).
-template <int K>
-__device__ __forceinline__ void add_path_lanes(
-    uint32_t* __restrict__ packed, const int32_t* __restrict__ nodes,
-    const int32_t* __restrict__ actions, int len, float value, float fscale,
-    int V, int G, int D, int g, int j) {
-  const size_t gs = static_cast<size_t>(G);
-  const size_t vg = static_cast<size_t>(V) * gs;
-#pragma unroll 4
-  for (int d = j; d < D; d += K) {
-    const int node = nodes[d * gs + g];
-    if (node < 0) continue;
-    const int k = len - 1 - d;
-    const float contrib = (k % 2 == 0) ? 1.0f - value : value;
-    const uint32_t cfix =
-        static_cast<uint32_t>(static_cast<int32_t>(contrib * fscale));
-    const size_t a = static_cast<size_t>(actions[d * gs + g]);
-    packed[a * vg + static_cast<size_t>(node) * gs + g] += (cfix << 16) + 1u;
-  }
-}
-
-template <int K, int S>
+template <int K, int S, class Cols>
 __global__ void __launch_bounds__(walk::kGroupThreads)
     select_apply_packed_kernel(const Args x) {
   extern __shared__ int32_t columns[];
@@ -95,9 +76,8 @@ __global__ void __launch_bounds__(walk::kGroupThreads)
   const int j = grp.j;
   const size_t gs = static_cast<size_t>(x.G);
   const size_t vg = static_cast<size_t>(x.V) * gs;
-  int32_t* staged = columns + grp.slot() * walk::column_words(x.V, K);
-  walk::stage_columns(grp, staged, x.parent, x.action_from, x.V, x.G, g);
-  const walk::SharedColumns cols{staged, x.V};
+  const Cols cols = walk::placed_columns<Cols>(grp, columns, x.parent,
+                                               x.action_from, x.V, x.G, g);
 
   // 1. pending prior-row write: lane j takes actions j, j + K, ...
   const int pleaf = walk::pending_row_node(x.pu_write, x.pu_leaf, x.V, g);
@@ -109,10 +89,11 @@ __global__ void __launch_bounds__(walk::kGroupThreads)
       if (a < x.A) x.prior[a * vg + row] = x.pu_newp[a * gs + g];
     }
   }
-  // 2. pending backup adds
-  add_path_lanes<K>(x.packed, x.pu_nodes, x.pu_actions, x.pu_length[g],
-                    x.pu_value[g], static_cast<float>(x.scale), x.V, x.G,
-                    x.D, g, j);
+  // 2. pending backup adds at the wsum half's offset 16
+  walk::add_packed_path<K>(x.packed, x.pu_nodes, x.pu_actions,
+                           x.pu_length[g], x.pu_value[g],
+                           static_cast<float>(x.scale), 16, x.V, x.G, x.D, g,
+                           j);
   // every word a game touches is its own: the group's barrier orders the
   // writes above before the walk's reads
   __syncwarp(grp.mask);
@@ -127,10 +108,11 @@ __global__ void __launch_bounds__(walk::kGroupThreads)
 }
 
 struct SelectApplyPacked {
-  static constexpr bool kDevicePlacement = false;  // shared memory only
   template <int K, int S>
-  static auto fn() {
-    return select_apply_packed_kernel<K, S>;
+  static auto fn(int placement) {
+    return placement == walk::kDeviceColumns
+               ? select_apply_packed_kernel<K, S, walk::DeviceColumns>
+               : select_apply_packed_kernel<K, S, walk::SharedColumns>;
   }
 };
 
@@ -138,7 +120,7 @@ struct SelectApplyPacked {
 
 // lanes, slots, threads, blocks, smem, placement: the launch geometry
 // (alphatpu_torch.mcts.kernels.walk_geometry); walk::launch_group refuses
-// a geometry it has no instantiation for, and the device placement.
+// a geometry it has no instantiation for.
 extern "C" int launch_select_apply_packed(
     void* prior, void* packed, const void* parent, const void* action_from,
     const void* expanded, const void* probs, const void* pu_nodes,

@@ -18,10 +18,8 @@
 // and records the path, the leaf, the leaf action, needs_alloc and the
 // depth-0 policy.
 //
-// Two walks: walk_group, K lanes of a warp per game (select_apply_packed.cu,
-// select_apply.cu, select.cu, launched through one <K, S> dispatch,
-// launch_group), and walk_game, one thread per game (select_apply_packed1.cu
-// alone).
+// One walk, walk_group: K lanes of a warp per game, for all four kernels,
+// launched through one <K, S> dispatch, launch_group.
 //
 // Arithmetic is that of the plain torch version in
 // alphatpu_torch/mcts/kernels.py (_walk_plain), and sums over actions run
@@ -31,6 +29,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -38,115 +37,9 @@
 namespace walk {
 
 constexpr int kMaxActions = 169;
-constexpr int kThreads = 128;
 constexpr int kNewtonSteps = 96;  // 12 chunks x 8 in the reference
 constexpr float kNewtonTol = 1e-3f;
 constexpr float kAlphaFloor = 1e-4f;
-
-// One game's walk.  The rows of the current node live in per-thread arrays
-// (local memory, cached in L1) so that A is a runtime argument up to
-// kMaxActions.
-template <class Rows>
-__device__ __forceinline__ void walk_game(
-    const Rows& rows, const int32_t* __restrict__ parent,
-    const int32_t* __restrict__ action_from, const bool* __restrict__ expanded,
-    const float* __restrict__ probs, int32_t* __restrict__ nodes_out,
-    int32_t* __restrict__ actions_out, int32_t* __restrict__ leaf_out,
-    int32_t* __restrict__ laction_out, bool* __restrict__ alloc_out,
-    float* __restrict__ rootpi_out, int A, int V, int G, int D, float cpuct,
-    int g) {
-  const size_t gs = static_cast<size_t>(G);
-  const size_t vg = static_cast<size_t>(V) * gs;
-  for (int d = 0; d < D; ++d) {
-    nodes_out[d * gs + g] = -1;
-    actions_out[d * gs + g] = 0;
-  }
-  float P[kMaxActions];
-  float Q[kMaxActions];
-  int node = 0;
-  int leaf_action = 0;
-  bool needs_alloc = false;
-  for (int d = 0; d < D; ++d) {
-    const size_t row = static_cast<size_t>(node) * gs + g;
-    const bool exp = expanded[row];
-    float nvis = 0.0f;
-    float acts = 0.0f;
-    for (int a = 0; a < A; ++a) {
-      float p, w, nv;
-      rows.load(a * vg + row, &p, &w, &nv);
-      P[a] = p;
-      Q[a] = nv > 0.0f ? w / fmaxf(nv, 1.0f) : 0.0f;
-      nvis += nv;
-      acts += p > 0.0f ? 1.0f : 0.0f;
-    }
-    const float n = 1.0f + nvis;
-    const float lam = cpuct * sqrtf(n) / (acts + n);
-    const bool fresh = nvis == 0.0f;
-    float alpha = -INFINITY;
-    for (int a = 0; a < A; ++a)
-      alpha = fmaxf(alpha, Q[a] + fmaxf(lam * P[a], kAlphaFloor));
-    if (!fresh) {
-      float prev_err = INFINITY;
-      for (int it = 0; it < kNewtonSteps; ++it) {
-        float s = 0.0f;
-        float gsum = 0.0f;
-        for (int a = 0; a < A; ++a) {
-          const float r = 1.0f / (alpha - Q[a]);
-          const float frac = (lam * P[a]) * r;
-          s += frac;
-          gsum += frac * r;
-        }
-        const float grad = -gsum;
-        const float err = s - 1.0f;
-        if (err < kNewtonTol || err == prev_err) break;  // latched
-        alpha = alpha - err / (grad == 0.0f ? 1.0f : grad);
-        prev_err = err;
-      }
-    }
-    // policy row (recomputed where read: the same operations each time)
-    auto pi = [&](int a) {
-      return fresh ? P[a] : (lam * P[a]) / (alpha - Q[a]);
-    };
-    if (d == 0)
-      for (int a = 0; a < A; ++a) rootpi_out[a * gs + g] = pi(a);
-
-    // CDF sample: first action whose inclusive prefix sum reaches the
-    // uniform and has mass, else the last action with mass, else 0
-    const float prob = probs[d * gs + g];
-    float c = 0.0f;
-    int first = A;
-    int last = -1;
-    for (int a = 0; a < A; ++a) {
-      const float p = pi(a);
-      c += p;
-      if (p > 0.0f) {
-        if (first == A && c >= prob) first = a;
-        last = a;
-      }
-    }
-    const int action = first < A ? first : (last > 0 ? last : 0);
-
-    if (exp) {
-      nodes_out[d * gs + g] = node;
-      actions_out[d * gs + g] = action;
-    }
-    int cid = 0;  // the child under (node, action); 0 = none
-    for (int v = 0; v < V; ++v) {
-      const size_t i = static_cast<size_t>(v) * gs + g;
-      if (parent[i] == node && action_from[i] == action) cid += v;
-    }
-    const bool hit_missing = exp && cid == 0;
-    if (hit_missing) {
-      leaf_action = action;
-      needs_alloc = true;
-    }
-    if (!exp || hit_missing) break;
-    node = cid;
-  }
-  leaf_out[g] = node;
-  laction_out[g] = leaf_action;
-  alloc_out[g] = needs_alloc;
-}
 
 // Row loaders, one per storage of the edge stats.
 
@@ -209,25 +102,25 @@ __device__ __forceinline__ int pending_row_node(const bool* __restrict__ write,
 }
 
 // The backup of one game's recorded path (node -1 = nothing recorded at
-// that depth): per edge at depth d the leaf value's contribution is 1 - v
-// on the leaf edge and every second edge above it, v on the others.  A
-// path's edges are distinct tree edges, so no two threads - and no two
-// steps of one thread - write the same word: no atomics.  The group
-// kernels split a path's depths across their lanes (add_path_lanes in
-// select_apply_packed.cu and select_apply.cu).
-
-// A packed word with an integer wsum field at bit ``wshift`` and visits
-// below it: one add of ((contrib * scale) << wshift) + 1 per edge
-// (select_apply_packed1.cu).  The value lies on the 1/scale grid, so
-// contrib * scale is an exact integer; the add is unsigned, where the
-// carry into bit 31 is defined.
-__device__ __forceinline__ void add_path_packed(
+// that depth) on a packed word with an integer wsum field at bit
+// ``wshift`` and visits below it (select_apply_packed.cu at 16,
+// select_apply_packed1.cu at bits_v): per edge at depth d the leaf value's
+// contribution is 1 - v on the leaf edge and every second edge above it, v
+// on the others, added as ((contrib * scale) << wshift) + 1.  The value
+// lies on the 1/scale grid, so contrib * scale is an exact integer; the
+// add is unsigned, where the carry into bit 31 is defined.  Lane j of the
+// game's K takes depths j, j + K, ... (unrolled, so that the path loads
+// issue together).  A path's edges are distinct tree edges, so no two
+// lanes write the same word: no atomics.
+template <int K>
+__device__ __forceinline__ void add_packed_path(
     uint32_t* __restrict__ packed, const int32_t* __restrict__ nodes,
     const int32_t* __restrict__ actions, int len, float value, float fscale,
-    int wshift, int V, int G, int D, int g) {
+    int wshift, int V, int G, int D, int g, int j) {
   const size_t gs = static_cast<size_t>(G);
   const size_t vg = static_cast<size_t>(V) * gs;
-  for (int d = 0; d < D; ++d) {
+#pragma unroll 4
+  for (int d = j; d < D; d += K) {
     const int node = nodes[d * gs + g];
     if (node < 0) continue;
     const int k = len - 1 - d;
@@ -239,9 +132,6 @@ __device__ __forceinline__ void add_path_packed(
         (cfix << wshift) + 1u;
   }
 }
-
-inline int blocks_for(int G) { return (G + kThreads - 1) / kThreads; }
-
 
 // ---------------------------------------------------------------------------
 // The cooperative walk: K lanes of one warp per game (K a power of two up
@@ -260,14 +150,15 @@ inline int blocks_for(int G) { return (G + kThreads - 1) / kThreads; }
 // and action_from columns are copied into shared memory once, while the
 // apply phase runs (stage_columns), so the child lookup reads no device
 // memory - unless they do not fit a block's shared memory, and then the
-// lookup reads them where they lie (the device placement, group_columns);
+// lookup reads them where they lie (the device placement: group_columns,
+// placed_columns);
 // the divisions (1 / (alpha - Q), pi) run across lanes; exact
 // reductions (visit and action counts, the child id, the max that seeds
 // alpha) use warp reductions in any order.  The order-sensitive f32 sums
 // (the Newton sums, the CDF prefix) broadcast each action's term from the
 // lane that holds it and fold in action order on every lane - unrolled,
 // so the broadcasts issue together - and every lane holds the same bits,
-// the same as walk_game and _walk_plain.  A zero from a padding slot
+// the same as _walk_plain.  A zero from a padding slot
 // leaves a running sum as it is: the sum starts at +0 and is never -0.
 // ---------------------------------------------------------------------------
 
@@ -334,12 +225,13 @@ __device__ __forceinline__ void stage_columns(
 constexpr int kSharedColumns = 0;
 constexpr int kDeviceColumns = 1;
 
-// What the child lookup reads, two views of a game's parent and
+// What the child lookup reads, three views of a game's parent and
 // action_from columns; ``match(v, node, action)`` tells whether slot v is
 // the child under (node, action).
 
 // The copy staged in shared memory, parent at [0, V) and action_from at
-// [V, 2V) (select_apply_packed.cu, which takes no other placement).
+// [V, 2V) (the shared instantiations of select_apply_packed.cu and
+// select_apply_packed1.cu).
 struct SharedColumns {
   const int32_t* cols;
   int V;
@@ -363,6 +255,25 @@ struct Columns {
   }
 };
 
+// The [V, G] planes in device memory (the device instantiations of
+// select_apply_packed.cu and select_apply_packed1.cu): slot v at
+// parent[v * stride], read through the read-only data cache (__ldg; no
+// walk kernel writes the columns).  With plain global loads, ptxas kept
+// four of the lookup's loads in flight (two slots; kernel 1 <8, 1>), and
+// kernels 1 and 3 took 0.93-1.08 ms at A=7, V=8000, G=512 against 0.57-0.64
+// ms this way (H100 SXM, chip_smoke.py phase 3).
+struct DeviceColumns {
+  const int32_t* parent;
+  const int32_t* action_from;
+  size_t stride;
+  __device__ __forceinline__ bool match(int v, int node, int action) const {
+    const size_t i = static_cast<size_t>(v) * stride;
+    const int32_t p = __ldg(parent + i);
+    const int32_t a = __ldg(action_from + i);
+    return (p == node) & (a == action);
+  }
+};
+
 // Game g's columns in ``placement``: the shared placement starts copying
 // them into the game's part of ``smem`` (stride 1); the device placement
 // points into the [V, G] planes (stride G), where lanes of one slot read
@@ -377,6 +288,27 @@ __device__ __forceinline__ Columns group_columns(
   int32_t* cols = smem + grp.slot() * column_words(V, K);
   stage_columns(grp, cols, parent, action_from, V, G, g);
   return {cols, cols + V, 1};
+}
+
+// Game g's columns in the view ``Cols``, fixed at compile time (the packed
+// kernels, instantiated once per placement, so that the shared
+// instantiation keeps its own lookup and registers): SharedColumns starts
+// copying them into the game's part of ``smem``; DeviceColumns points into
+// the [V, G] planes (stride G).
+template <class Cols, int K>
+__device__ __forceinline__ Cols placed_columns(
+    const Group<K>& grp, int32_t* smem, const int32_t* __restrict__ parent,
+    const int32_t* __restrict__ action_from, int V, int G, int g) {
+  static_assert(std::is_same<Cols, SharedColumns>::value ||
+                    std::is_same<Cols, DeviceColumns>::value,
+                "Cols: SharedColumns or DeviceColumns");
+  if constexpr (std::is_same<Cols, SharedColumns>::value) {
+    int32_t* staged = smem + grp.slot() * column_words(V, K);
+    stage_columns(grp, staged, parent, action_from, V, G, g);
+    return {staged, V};
+  } else {
+    return {parent + g, action_from + g, static_cast<size_t>(G)};
+  }
 }
 
 template <int K, int S, class Rows, class Cols>
@@ -524,11 +456,13 @@ __device__ __forceinline__ void walk_group(
 }
 
 // ---------------------------------------------------------------------------
-// The one dispatch of the three group kernels (select_apply_packed.cu,
-// select_apply.cu, select.cu).  Each names its kernel template through a
-// trait: ``Kernel::fn<K, S>()`` returns the __global__ function taking the
-// kernel's Args by value (with fields A, V, G, D), and
-// ``Kernel::kDevicePlacement`` says whether it takes the device placement.
+// The one dispatch of the four walk kernels.  Each names its kernel
+// template through a trait: ``Kernel::fn<K, S>(placement)`` returns the
+// __global__ function, taking the kernel's Args by value (with fields A, V,
+// G, D), that serves that column placement - one instantiation per
+// placement for the packed kernels (select_apply_packed.cu,
+// select_apply_packed1.cu), one for both for the f32 kernels, which read
+// the placement from their Args (select_apply.cu, select.cu).
 // ---------------------------------------------------------------------------
 
 constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without
@@ -551,7 +485,7 @@ bool try_launch(const Geometry& geo, const Args& x, cudaStream_t stream,
     *err = cudaErrorInvalidValue;
     return true;
   }
-  const auto fn = Kernel::template fn<K, S>();
+  const auto fn = Kernel::template fn<K, S>(geo.placement);
   if (geo.smem > kDefaultSmem) {
     *err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
@@ -567,13 +501,12 @@ bool try_launch(const Geometry& geo, const Args& x, cudaStream_t stream,
 }
 
 // Instantiated for lanes 1, 2, ..., 32 with one slot, and 32 lanes with 2
-// to 6 slots (A up to 192 >= kMaxActions).  Any other geometry, or a
-// placement the kernel does not take, is refused.
+// to 6 slots (A up to 192 >= kMaxActions), in both placements.  Any other
+// geometry is refused.
 template <class Kernel, class Args>
 int launch_group(const Geometry& geo, const Args& x, void* stream) {
   const bool placed = geo.placement == kSharedColumns ||
-                      (Kernel::kDevicePlacement &&
-                       geo.placement == kDeviceColumns);
+                      geo.placement == kDeviceColumns;
   if (x.A < 1 || x.A > kMaxActions || x.V < 1 || x.G < 1 || x.D < 1 ||
       !placed || geo.lanes < 1 || geo.slots < 1 ||
       geo.lanes * geo.slots < x.A || geo.threads < 32 ||

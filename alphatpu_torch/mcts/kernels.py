@@ -20,12 +20,11 @@ written by hand in CUDA C++ for Hopper (``alphatpu_torch/csrc/``):
 
 The four walks share one CUDA header (``csrc/walk.cuh``) and one plain
 walk (:func:`_walk_plain`); they differ in how a node's row is loaded.
-:func:`select_apply_packed`, :func:`select_apply` and :func:`select` walk
-each game with a group of lanes of a warp (``walk_group``, launch geometry
-from :func:`walk_geometry`; the two f32 kernels also take trees whose
-columns do not fit shared memory), :func:`select_apply_packed1` with one
-thread per game (``walk_game``); :func:`backup` runs one thread per path
-depth and game (:func:`backup_geometry`).  Each
+Each walks every game with a group of lanes of a warp (``walk_group``,
+launch geometry from :func:`walk_geometry`, which places a tree of any
+size: its columns in shared memory, or in device memory where they do
+not fit); :func:`backup` runs one thread per path depth and game
+(:func:`backup_geometry`).  Each
 wrapper runs its plain torch version (``*_plain``) when - and only when -
 its tensors lie on the CPU; on CUDA tensors it launches the kernel or
 raises.  ``launches`` on each wrapper counts the kernel launches.
@@ -385,14 +384,13 @@ def column_words(V: int, lanes: int) -> int:
     return -(-2 * V // 32) * 32 + lanes
 
 
-def walk_geometry(A: int, G: int, V: int,
-                  device_columns: bool = False) -> WalkGeometry:
+def walk_geometry(A: int, G: int, V: int) -> WalkGeometry:
     """Lanes per game: the next power of two of A, capped at 32, so each
     lane holds ceil(A / lanes) actions.  Blocks of 128 threads, halved
     down to one warp while that leaves SMs without a block or the games'
     columns above 48 KB of shared memory.  Where the columns of one warp's
-    games exceed a block's shared memory, ``device_columns`` takes the
-    device placement (the lookup reads device memory); without it, raise."""
+    games exceed a block's shared memory, the device placement: the lookup
+    reads them from device memory, and the block asks for none."""
     if not 1 <= A <= MAX_ACTIONS:
         raise ValueError(f"walk_geometry: A={A} outside 1..{MAX_ACTIONS}")
     if G < 1 or V < 1:
@@ -403,9 +401,6 @@ def walk_geometry(A: int, G: int, V: int,
         return threads // lanes * column_words(V, lanes) * 4
 
     shared = smem(32) <= _MAX_SMEM
-    if not (shared or device_columns):
-        raise ValueError(f"walk_geometry: V={V} needs {smem(32)} B of "
-                         f"shared memory per block, above {_MAX_SMEM}")
     threads = _GROUP_THREADS
     while threads > 32 and (-(-G * lanes // threads) < NUM_SMS
                             or (shared and smem(threads) > _DEFAULT_SMEM)):
@@ -555,10 +550,11 @@ def select_apply_packed1(packed, parent, action_from, expanded, probs,
     A, V, G, D = _check_walk(
         "select_apply_packed1", (("packed", packed, torch.int32),),
         parent, action_from, expanded, probs, pend)
+    geometry = walk_geometry(A, G, V)
     out = _selection_out(A, G, D, packed.device)
     _launch("launch_select_apply_packed1", packed.device, packed, parent,
             action_from, expanded, probs, *pend, *out, A, V, G, D,
-            ctypes.c_float(cpuct), *layout)
+            ctypes.c_float(cpuct), *layout, *geometry)
     select_apply_packed1.launches += 1
     return out
 
@@ -576,7 +572,7 @@ def select_apply(prior, wsum, visits, parent, action_from, expanded, probs,
         "select_apply", (("prior", prior, f32), ("wsum", wsum, f32),
                          ("visits", visits, f32)),
         parent, action_from, expanded, probs, pend)
-    geometry = walk_geometry(A, G, V, device_columns=True)
+    geometry = walk_geometry(A, G, V)
     out = _selection_out(A, G, D, prior.device)
     _launch("launch_select_apply", prior.device, prior, wsum, visits, parent,
             action_from, expanded, probs, *pend, *out, A, V, G, D,
@@ -597,7 +593,7 @@ def select(prior, wsum, visits, parent, action_from, expanded, probs,
         "select", (("prior", prior, f32), ("wsum", wsum, f32),
                    ("visits", visits, f32)),
         parent, action_from, expanded, probs)
-    geometry = walk_geometry(A, G, V, device_columns=True)
+    geometry = walk_geometry(A, G, V)
     out = _selection_out(A, G, D, prior.device)
     _launch("launch_select", prior.device, prior, wsum, visits, parent,
             action_from, expanded, probs, *out, A, V, G, D,

@@ -8,7 +8,9 @@ Phases, each fatal on failure:
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions; no CUDA device -> exit 1,
 2. build the CUDA kernels from ``alphatpu_torch/csrc`` (nvcc, sm_90a, one
-   process per source) and print ptxas's register, stack and spill lines,
+   process per source) and print ptxas's register, stack and spill lines
+   (one per instantiation: the packed kernels' carry their column view,
+   ``SharedColumns`` or ``DeviceColumns`` - the device placement),
 3. kernel parity on the card: each of the five kernels against its plain
    torch version on the same inputs - at the production shape (connect4,
    A=7, V=64, G=8192, D=42, on a tree grown by the port's own search) and
@@ -16,13 +18,16 @@ Phases, each fatal on failure:
    time at both shapes beside its bound and its plain version's; the
    read-only ``select`` against ``select_apply``'s walk, bit for bit;
    where ``select_apply_packed``'s time goes (``walk_breakdown``); and
-   ``select_apply`` and ``select`` on a synthetic tree whose parent and
-   action_from columns do not fit a block's shared memory (A=7, V=8000,
-   G=512: the device placement), timed beside their bounds,
+   the four walks on a synthetic tree whose parent and action_from columns
+   do not fit a block's shared memory (A=7, V=8000, G=512: the device
+   placement), timed beside their bounds,
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
-   one with ``segment_rollouts=False`` (the f32 engine),
+   one with ``segment_rollouts=False`` (the f32 engine); then connect4
+   trees of 7,300 nodes (the device placement): a 64-rollout search at
+   levels 1 and 2 on the card against the CPU path, and a level-1 search
+   of 7,300 rollouts (``--rollout 7300``) at 128 lanes on the card alone,
 6. the per-phase search (``search.select`` / ``expand`` / ``backup``) at
    8192 lanes, against the f32 engine's ``run_mcts`` on the same uniforms,
 7. continuous selfplay on connect4 with the 4x512 net from a fixed seed,
@@ -50,8 +55,9 @@ Phases, each fatal on failure:
 11. the CLI end to end, in process (``alphatpu_torch.cli.main``): two
    tictactoe generations at 1024 games, then a third resumed from the
    checkpoint,
-12. a JSON line of the kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+12. a JSON line of the kernels (for the four walks also ``ms_device`` and
+   ``bound_ms_device``, at the device placement's shape), then the result
+   line ``{"ok": true, "device": {...}}``.
 
 Launch counts: before each path every count is set to 0, and after it the
 counts must be exactly what the path owes (launches made for the parity
@@ -86,6 +92,9 @@ CHUNKS = 2  # 16 rounds at level 1
 WIDE = (169, 64, 2048)  # A, V, G of the synthetic wide shape
 # A, V, G of a synthetic tree whose columns do not fit a block
 DEVICE_SHAPE = (7, 8000, 512)
+# tree nodes of the connect4 searches in the device placement (from
+# 7,249), and the lanes of the one with as many rollouts
+BIG_TREE, BIG_TREE_G = 7300, 128
 SMALL_G = 512  # lanes of the card-vs-CPU searches
 GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
 CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
@@ -110,6 +119,8 @@ FAMILIES = {
     "gobang13": (2048, 2),
     "hex13": (2048, 2),
 }
+WALKS = ("select_apply_packed", "select_apply_packed1", "select_apply",
+         "select")
 CSRC = "alphatpu_torch/csrc/"
 PALLAS = "alphatpu/mcts/pallas_kernels.py:"
 # name -> (source, the TPU kernel it replaces)
@@ -521,9 +532,10 @@ def walk_breakdown(K, tree, D, gen, scale, card):
 
 
 def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
-                  training=True):
+                  training=True, rollouts=None):
     """``run_mcts`` at one engine level on the card and on the CPU, from
-    the same uniforms.  Exact: the tree structure, visits and (packed
+    the same uniforms, ``rollouts`` of them (default V) on trees of V
+    nodes.  Exact: the tree structure, visits and (packed
     levels) wsum; the level-2 prior to one step of its 1/2048 grid, other
     floats to rtol 1e-4 (the net's matmuls round differently on the two
     devices, and a leaf value or prior that lands on the other side of a
@@ -534,12 +546,13 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
     from alphatpu_torch.mcts.tree import init_tree
 
     cpu = torch.device("cpu")
+    R = V if rollouts is None else rollouts
     D = min(game.max_game_length, V)
-    probs = torch.rand((V, D, G), generator=torch.Generator().manual_seed(1))
+    probs = torch.rand((R, D, G), generator=torch.Generator().manual_seed(1))
     searched = []
     for d, n in ((dev, net), (cpu, net_cpu)):
         t = init_tree(game, game.initial(G, d), V)
-        _, pi = run_mcts(game, n, t, rollouts=V, cpuct=cpuct,
+        _, pi = run_mcts(game, n, t, rollouts=R, cpuct=cpuct,
                          training=training, probs=probs.to(d),
                          packed_stats=level)
         searched.append((t, pi))
@@ -562,8 +575,56 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
     torch.testing.assert_close(pig.cpu()[:, ok], pic[:, ok], rtol=1e-4,
                                atol=1e-6 + grid)
     print(f"search on the card vs the CPU path, {game.name}, level {level} "
-          f"(G={G}, R={V}, cpuct {cpuct}, training={training}): diverged "
-          f"lanes {n_bad}/{G}")
+          f"(G={G}, R={R}, V={V}, cpuct {cpuct}, training={training}): "
+          f"diverged lanes {n_bad}/{G}")
+
+
+def big_tree_searches(K, game, net, net_cpu, dev, card) -> None:
+    """Phase 5's connect4 trees of BIG_TREE nodes, whose columns exceed a
+    block's shared memory: the packed kernels take the device placement.
+    A 64-rollout search at levels 1 and 2 on the card against the CPU path
+    (launches as owed), then a level-1 search of as many rollouts as nodes
+    on BIG_TREE_G lanes, on the card alone: every rollout but the first
+    backs up through a root edge."""
+    import torch
+
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+
+    A, V = game.max_actions, BIG_TREE
+    for G in (SMALL_G, BIG_TREE_G):
+        geo = K.walk_geometry(A, G, V)
+        if geo.placement != K.DEVICE_COLUMNS:
+            raise AssertionError(f"A={A} V={V} G={G}: geometry {geo}")
+    for level, kernel in ((1, "select_apply_packed"),
+                          (2, "select_apply_packed1")):
+        K.reset_launch_counts()
+        search_vs_cpu(game, net, net_cpu, dev, V, SMALL_G, level,
+                      rollouts=ROLLOUTS)
+        expect_launches(K, f"the level-{level} search of a {V}-node tree",
+                        {kernel: ROLLOUTS, "backup": 1})
+
+    G = BIG_TREE_G
+    tree = init_tree(game, game.initial(G, dev), V)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_mcts(game, net, tree, rollouts=V, cpuct=CPUCT, training=True,
+             generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_launches(K, f"the {V}-rollout level-1 search",
+                    {"select_apply_packed": V, "backup": 1})
+    root = tree.visits[:, 0, :].sum(0)
+    if not bool((root == V - 1).all()):
+        raise AssertionError(f"{V}-rollout search: root visits "
+                             f"{root.unique().tolist()} != {V - 1}")
+    if not bool(torch.isfinite(tree.wsum).all()):
+        raise AssertionError(f"{V}-rollout search: non-finite wsum")
+    print(f"level-1 search of {V} rollouts on {V}-node trees (--rollout "
+          f"{V}), connect4, {G} lanes: {wall:.3f} s, root visits {V - 1} "
+          f"in every game, mean nodes allocated "
+          f"{float(tree.next_idx.float().mean()):.2f}  [{card}]")
 
 
 def phase_search(game, net, tree, probs, cpuct):
@@ -940,15 +1001,21 @@ def ptxas_lines(log: str) -> list:
     import re
 
     def demangle(mangled):
-        # _ZN <length><identifier>... [ILi<K>ELi<S>E]: the last identifier
-        # is the function, after its (possibly hashed) namespaces
+        # _ZN <length><identifier>... [ILi<K>ELi<S>E[N4walk<length><view>E]]:
+        # the last identifier is the function, after its (possibly hashed)
+        # namespaces; the packed kernels' third argument is their view
         rest, ident = re.sub(r"^_ZN?", "", mangled), mangled
         while (n := re.match(r"\d+", rest)):
             size = int(n.group())
             ident = rest[len(n.group()):len(n.group()) + size]
             rest = rest[len(n.group()) + size:]
-        t = re.match(r"ILi(\d+)ELi(\d+)E", rest)
-        return ident + (f"<{t.group(1)}, {t.group(2)}>" if t else "")
+        t = re.match(r"ILi(\d+)ELi(\d+)E(?:N4walk(\d+))?", rest)
+        if not t:
+            return ident
+        args = [t.group(1), t.group(2)]
+        if t.group(3):
+            args.append(rest[t.end():t.end() + int(t.group(3))])
+        return f"{ident}<{', '.join(args)}>"
 
     lines, name, frame = [], None, ""
     for line in log.splitlines():
@@ -1000,11 +1067,11 @@ def smoke(dev, card: str, kind: str) -> int:
             for k in KERNELS}
     del wide
 
-    # a tree whose columns do not fit a block: the f32 kernels read them
+    # a tree whose columns do not fit a block: the four walks read them
     # from device memory (its own generator: the later phases draw as
     # before)
     Ad, Vd, Gd = DEVICE_SHAPE
-    geo = K.walk_geometry(Ad, Gd, Vd, device_columns=True)
+    geo = K.walk_geometry(Ad, Gd, Vd)
     if geo.placement != K.DEVICE_COLUMNS:
         raise AssertionError(f"A={Ad} V={Vd} G={Gd}: geometry {geo}")
     big = synthetic_tree_on(dev, Ad, Vd, Gd, scale, SEED + 2)
@@ -1013,7 +1080,7 @@ def smoke(dev, card: str, kind: str) -> int:
         K, big, Dd, torch.Generator(device=dev).manual_seed(SEED + 2), CPUCT,
         scale, f"synthetic A={Ad} V={Vd} G={Gd} D={Dd}, columns in device "
         f"memory ({geo.threads} threads x {geo.blocks} blocks)", True,
-        kernels=("select_apply", "select"))
+        kernels=WALKS)
     print(f"  [{card}]")
     for k, r in device_results.items():
         errs[k] = max(errs[k], r["err"])
@@ -1046,6 +1113,8 @@ def smoke(dev, card: str, kind: str) -> int:
     print(f"pre-grown search: {G} lanes, {half} level-1 rollouts then {half}"
           f" f32 rollouts; mean nodes allocated "
           f"{float(tree.next_idx.float().mean()):.2f} of {V}")
+    del tree
+    big_tree_searches(K, game, net, net_cpu, dev, card)
 
     # ---- 6. the per-phase search at full width ----
     probs = torch.rand((V, D, G), generator=gen, device=dev)
@@ -1122,6 +1191,7 @@ def smoke(dev, card: str, kind: str) -> int:
     # ---- 12. result ----
     def row(name, src, line):
         r, w = results[name], wide_results[name]
+        d = device_results.get(name)
         return {"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": PALLAS + line, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": r["ms"],
@@ -1130,7 +1200,9 @@ def smoke(dev, card: str, kind: str) -> int:
                 "library_ms": r["library_ms"], "ms_wide": w["ms"],
                 "plain_ms_wide": w["plain_ms"],
                 "bound_ms_wide": w["cost"].bound_ms,
-                "library_ms_wide": w["library_ms"]}
+                "library_ms_wide": w["library_ms"],
+                "ms_device": d and d["ms"],
+                "bound_ms_device": d and d["cost"].bound_ms}
 
     print(json.dumps({"kernels": [row(name, src, line) for name, (src, line)
                                   in KERNELS.items()]}))

@@ -540,26 +540,25 @@ def test_launch_geometry_covers_every_shape(G):
     assert (blocks - 1) * threads < G <= blocks * threads
     with pytest.raises(ValueError, match="A=170"):
         K.walk_geometry(K.MAX_ACTIONS + 1, G, 64)
-    with pytest.raises(ValueError, match="A=170"):
-        K.walk_geometry(K.MAX_ACTIONS + 1, G, 64, device_columns=True)
-    # select_apply_packed keeps its columns in shared memory: past it, raise
-    with pytest.raises(ValueError, match="shared memory"):
-        K.walk_geometry(1, G, 4096)
-    assert K.walk_geometry(1, G, 4096, True).placement == K.DEVICE_COLUMNS
+    with pytest.raises(ValueError, match="A=0"):
+        K.walk_geometry(0, G, 64)
+    # past a block's shared memory the columns stay in device memory
+    geo = K.walk_geometry(1, G, 4096)
+    assert geo.placement == K.DEVICE_COLUMNS and geo.smem == 0
 
 
 @pytest.mark.parametrize("V", [8, 64, 1600, 4096, 8000, 20000])
 @pytest.mark.parametrize("G", [1, 200, 2048, 8192])
 def test_walk_geometry_places_the_columns_of_any_tree(G, V):
-    """The f32 kernels' geometry (device placement allowed) never raises
-    for 1 <= A <= 169: the columns go to shared memory exactly when one
-    warp's games fit a block's, with smem their bytes; otherwise the lookup
-    reads device memory and the block asks for no shared memory.  Lanes,
-    slots and blocks follow the same rules either way."""
+    """The geometry of every walk kernel never raises for 1 <= A <= 169:
+    the columns go to shared memory exactly when one warp's games fit a
+    block's, with smem their bytes; otherwise the lookup reads device
+    memory and the block asks for no shared memory.  Lanes, slots and
+    blocks follow the same rules either way."""
     instantiated = {(k, 1) for k in (1, 2, 4, 8, 16, 32)} | {
         (32, s) for s in range(2, 7)}
     for A in range(1, K.MAX_ACTIONS + 1):
-        geo = K.walk_geometry(A, G, V, device_columns=True)
+        geo = K.walk_geometry(A, G, V)
         assert (geo.lanes, geo.slots) in instantiated, (A, geo)
         assert geo.lanes * (geo.slots - 1) < A <= geo.lanes * geo.slots
         assert geo.threads in (32, 64, 128)
@@ -571,12 +570,63 @@ def test_walk_geometry_places_the_columns_of_any_tree(G, V):
         assert geo.placement == (K.SHARED_COLUMNS if fits
                                  else K.DEVICE_COLUMNS), (A, geo)
         assert geo.smem == (games * words * 4 if fits else 0)
-        if fits:  # the same launch as select_apply_packed's
-            assert geo == K.walk_geometry(A, G, V)
+        if fits:  # above 48 KB only in a one-warp block
             assert geo.smem <= 48 * 1024 or geo.threads == 32
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                K.walk_geometry(A, G, V)
+        else:  # the games' columns: more than a block can hold
+            assert 32 // geo.lanes * words * 4 > 232448
+
+
+# (A, V, placement): connect4's last shared tree and first device trees,
+# hex13's / gobang13's on either side of its threshold
+_PLACEMENTS = ((7, 7248, K.SHARED_COLUMNS), (7, 7249, K.DEVICE_COLUMNS),
+               (7, 8191, K.DEVICE_COLUMNS), (169, 29040, K.SHARED_COLUMNS),
+               (169, 29041, K.DEVICE_COLUMNS))
+
+
+@pytest.mark.parametrize("kernel", ["select_apply_packed",
+                                    "select_apply_packed1", "select_apply",
+                                    "select"])
+def test_wrappers_launch_with_the_placement_the_tree_needs(kernel,
+                                                           monkeypatch):
+    """The geometry each walk wrapper passes to its kernel (captured in
+    place of the launch, on meta tensors): the device placement for
+    connect4 from V = 7,249 and A=169 from V = 29,041, and below that the
+    shared placement - at connect4's V = 7,248 the one-warp launch with
+    232,064 B of shared memory, as before the device placement existed."""
+    meta = torch.device("meta")
+    G, D = 8192, 42
+    t = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=meta)
+    i32 = torch.int32
+    launched = []
+    monkeypatch.setattr(K, "_on_cuda", lambda name, x: True)
+    monkeypatch.setattr(K, "_launch",
+                        lambda entry, dev, *a: launched.append(a[-6:]))
+    monkeypatch.setattr(getattr(K, kernel), "launches", 0)
+    for A, V, placement in _PLACEMENTS:
+        walk = (t(V, G, dt=i32), t(V, G, dt=i32), t(V, G, dt=torch.bool),
+                t(D, G))
+        pend = K.PendingUpdate(t(D, G, dt=i32), t(D, G, dt=i32), t(G, dt=i32),
+                               t(G), t(G, dt=i32), t(A, G),
+                               t(G, dt=torch.bool))
+        f32 = (t(A, V, G), t(A, V, G), t(A, V, G))
+        calls = {
+            "select_apply_packed": lambda: K.select_apply_packed(
+                t(A, V, G), t(A, V, G, dt=i32), *walk, pend, CPUCT, 8),
+            "select_apply_packed1": lambda: K.select_apply_packed1(
+                t(A, V, G, dt=i32), *walk, pend, CPUCT,
+                K.packed1_layout(64)),
+            "select_apply": lambda: K.select_apply(*f32, *walk, pend, CPUCT),
+            "select": lambda: K.select(*f32, *walk, CPUCT),
+        }
+        calls[kernel]()
+        geo = K.WalkGeometry(*launched[-1])
+        assert geo == K.walk_geometry(A, G, V)
+        assert geo.placement == placement, (A, V, geo)
+        if placement == K.DEVICE_COLUMNS:
+            assert geo.smem == 0
+    assert K.WalkGeometry(*launched[0]) == (8, 1, 32, 2048, 232064,
+                                            K.SHARED_COLUMNS)
+    assert getattr(K, kernel).launches == len(_PLACEMENTS)
 
 
 def _hand_tree():

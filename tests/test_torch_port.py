@@ -319,15 +319,18 @@ def _walks_match_plain(kernel, A, V, G, D, seed, device):
     version, bit for bit, on a synthetic tree: the second applies the first
     walk's update (select_apply kernels; no prior row written on a few
     lanes), and ``select`` is also held to ``select_apply``'s walk with an
-    empty pending update.  Returns the tree's f32 planes and the last walk
-    with its pending update."""
+    empty pending update.  The packed kernels take the tree's stats packed
+    (level 2: the 1-plane word of a V-rollout search).  Returns the tree's
+    f32 planes and the last walk with its pending update."""
     from alphatpu_torch.mcts import kernels as K
 
     S = K.value_scale(V)
+    layout = K.packed1_layout(V)
     prior, wsum, visits, *walk, next_idx = _synthetic_tree(
         A, V, G, S, device, seed)
     launches = {k: getattr(K, k).launches for k in (
-        "select_apply_packed", "select_apply", "select")}
+        "select_apply_packed", "select_apply_packed1", "select_apply",
+        "select")}
     pend = K.empty_pending(D, A, G, device)
     for step in range(2):
         probs = torch.rand((D, G), device=device)
@@ -336,6 +339,12 @@ def _walks_match_plain(kernel, A, V, G, D, seed, device):
             b = tuple(t.clone() for t in a)
             sk = K.select_apply_packed(*a, *walk, probs, pend, 1.5, S)
             sp = K.select_apply_packed_plain(*b, *walk, probs, pend, 1.5, S)
+        elif kernel == "select_apply_packed1":
+            a = (K.pack1_stats(prior, wsum, visits, layout),)
+            b = (a[0].clone(),)
+            sk = K.select_apply_packed1(*a, *walk, probs, pend, 1.5, layout)
+            sp = K.select_apply_packed1_plain(*b, *walk, probs, pend, 1.5,
+                                              layout)
         elif kernel == "select_apply":
             a = (prior.clone(), wsum.clone(), visits.clone())
             b = tuple(t.clone() for t in a)
@@ -352,8 +361,9 @@ def _walks_match_plain(kernel, A, V, G, D, seed, device):
         for x, y in zip(a + tuple(sk), b + tuple(sp)):
             assert torch.equal(x, y)
         if kernel != "select":  # the f32 engine backs up unquantized
-            pend = _pending(sk, next_idx, A,
-                            S if kernel == "select_apply_packed" else None)
+            grid = {"select_apply_packed": S,
+                    "select_apply_packed1": layout.scale}
+            pend = _pending(sk, next_idx, A, grid.get(kernel))
     if G > 1:  # walks went below the root, and some asked for a node
         assert (sk.nodes >= 0).sum() > G and sk.needs_alloc.any()
     launches[kernel] += 2
@@ -367,9 +377,9 @@ def _walks_match_plain(kernel, A, V, G, D, seed, device):
 @pytest.mark.parametrize("G", [1, 200, 8192])
 @pytest.mark.parametrize("A", [1, 7, 9, 33, 169])
 @pytest.mark.parametrize("kernel", [
-    "select_apply_packed", "select_apply", "select"])
+    "select_apply_packed", "select_apply_packed1", "select_apply", "select"])
 def test_main_path_kernels_match_plain_at_every_geometry(kernel, A, G, cuda):
-    """The three group walks against their plain versions, bit for bit, at
+    """The four group walks against their plain versions, bit for bit, at
     group widths from 1 to 32 lanes (A=1: 32 games per warp; A=9: 16 lanes
     for 9 actions; A=33 and 169: 32 lanes of 2 and 6 slots), on one game,
     a partial block and warp (G=200), and 8192 games; with
@@ -394,17 +404,69 @@ def test_main_path_kernels_match_plain_at_every_geometry(kernel, A, G, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["select_apply", "select"])
+@pytest.mark.parametrize("kernel", [
+    "select_apply_packed", "select_apply_packed1", "select_apply", "select"])
 def test_f32_walks_read_columns_from_device_memory(kernel, cuda):
     """A tree whose columns do not fit a block's shared memory (A=7,
-    V=8000: 4 games x 64 KB): the f32 kernels take the device placement
-    and stay bit for bit equal to their plain versions, over D=200
-    recorded depths (not a multiple of the group's 8 lanes)."""
+    V=8000: 4 games x 64 KB): every walk kernel takes the device placement
+    and stays bit for bit equal to its plain version, over D=200 recorded
+    depths (not a multiple of the group's 8 lanes)."""
     from alphatpu_torch.mcts import kernels as K
 
     A, V, G = 7, 8000, 512
-    assert K.walk_geometry(A, G, V, True).placement == K.DEVICE_COLUMNS
+    assert K.walk_geometry(A, G, V).placement == K.DEVICE_COLUMNS
     _walks_match_plain(kernel, A, V, G, 200, 5, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2])
+def test_packed_levels_search_a_tree_in_device_memory(level, cuda):
+    """A 64-rollout search at level 1 or 2 on connect4 trees of 7,300
+    nodes, whose columns exceed a block's shared memory (the device
+    placement), on the card against the CPU path from the same uniforms.
+    Both nets hold the same weights in {-1/8, 0, 1/8}, so their products
+    are exact on either device; a rounding of exp or sigmoid that moves a
+    prior or a leaf value across its grid may still change a lane: at most
+    2 of 256 differ.  The others hold the same tree, visits and wsum."""
+    import numpy as np
+
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import config_for_game, params_from_jax
+    from alphatpu_torch.nets.mlp import init_numpy
+
+    game = make_game("connect4")
+    A, V, G, R = game.max_actions, 7300, 256, 64
+    assert K.walk_geometry(A, G, V).placement == K.DEVICE_COLUMNS
+    cfg = config_for_game(game, width=32, depth=2)
+    rng = np.random.default_rng(6)
+    flat = {k: np.zeros_like(v) if k.endswith("_b")
+            else (rng.integers(-1, 2, v.shape) / 8).astype(np.float32)
+            for k, v in init_numpy(cfg, 0).items()}
+    probs = torch.from_numpy(np.random.default_rng(7).random(
+        (R, game.max_game_length, G), dtype=np.float32))
+    kernel = K.select_apply_packed if level == 1 else K.select_apply_packed1
+    trees = []
+    for dev in (cuda, torch.device("cpu")):
+        tree = init_tree(game, game.initial(G, dev), V)
+        before = kernel.launches
+        run_mcts(game, params_from_jax(flat, cfg, device=dev), tree,
+                 rollouts=R, cpuct=1.5, training=True, probs=probs.to(dev),
+                 packed_stats=level)
+        trees.append(tree)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernel.launches == before + R
+    fields = ("parent", "action_from", "expanded", "next_idx", "visits",
+              "wsum")
+    bad = torch.zeros(G, dtype=torch.bool)
+    for f in fields:
+        x, y = (getattr(t, f).cpu() for t in trees)
+        bad |= (x != y).reshape(-1, G).any(0)
+    assert int(bad.sum()) <= 2, int(bad.sum())
+    assert bool((trees[1].visits[:, 0].sum(0) == R - 1).all())
 
 
 @pytest.mark.cuda
