@@ -162,10 +162,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch finds no CUDA device; pass "
-                           "--device cpu to train on the CPU")
+    from . import resolve_device
+
+    device = resolve_device(args.device)
 
     from .games import make_game
     from .pipeline import init_pipeline, resume, run_generation

@@ -90,6 +90,22 @@ class Game:
         player = pos.player.to(torch.int8).unsqueeze(-1)
         return torch.where(p != 0, player, -player)
 
+    def _board_rows(self, pos) -> list:
+        """The text rows of a one-game position (leaves leading with G = 1),
+        copied to the host: X for the first mover's stones, O for the
+        second's, ``.`` for empty; cell (r, c) is bit r + rows * c."""
+        rows, cols = self.spec.rows, self.spec.cols
+        bp = bb.to_planes(self.spec, pos.bplayer[0]).tolist()
+        bo = bb.to_planes(self.spec, pos.bopponent[0]).tolist()
+        sp, so = ("X", "O") if int(pos.player[0]) == 1 else ("O", "X")
+        return [" ".join(sp if bp[r + rows * c] else so if bo[r + rows * c]
+                         else "." for c in range(cols))
+                for r in range(rows)]
+
+    def render(self, pos) -> str:
+        """Host-side text board of a one-game position."""
+        return "\n".join(self._board_rows(pos))
+
     def _line_win(self, board: torch.Tensor, nvict: int) -> torch.Tensor:
         """bool[G]: ``nvict`` stones in a row on ``board`` along any of the
         four directions (``nvict - 1`` shift-ANDs per direction)."""

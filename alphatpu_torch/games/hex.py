@@ -89,6 +89,12 @@ class Hex(Game):
             lp=pos.lp - 1,
         )
 
+    def render(self, pos) -> str:
+        """The embedded board, border included, each row shifted one
+        space right of the one above (the rhombus)."""
+        return "\n".join(" " * r + row
+                         for r, row in enumerate(self._board_rows(pos)))
+
     def is_over(self, pos: HexState):
         spec = self.spec
         a = pos.bopponent  # stones (border included) of the side that moved

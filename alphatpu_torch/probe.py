@@ -1,0 +1,695 @@
+"""Absolute strength probes: scripted alpha-beta opponents, and the
+net-against-probe driver.
+
+Counterpart of :mod:`alphatpu.probe`.  The engines are host-side Python
+over int bitboards and are copied unchanged (the tests hold each copy's
+``best_action`` to the original's on the same positions and generator
+seeds):
+
+* :class:`LineProbe` - Gobang/TicTacToe and Connect-4 (at full depth on
+  3x3 it is the perfect TicTacToe player),
+* :class:`GomokuProbe` - threat-aware alpha-beta for Gobang,
+* :class:`ReversiProbe` - alpha-beta Othello with an exact endgame solve,
+* :class:`HexProbe` - depth-2 minimax over a shortest-connection eval.
+
+:func:`eval_vs_probe` plays the net (a full MCTS per ply through the
+port's ``run_mcts``, on the games' device) against a probe moving on the
+host; ``python -m alphatpu_torch.probe`` runs it on a ``net<N>.npz``
+written by either package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+WIN = 1 << 20  # terminal score scale; heuristic evals stay well below
+
+
+def _popcount(x: int) -> int:
+    return x.bit_count()
+
+
+# ---------------------------------------------------------------------------
+# k-in-a-row family (Gobang / TicTacToe / Connect-4)
+# ---------------------------------------------------------------------------
+
+
+class LineProbe:
+    """Fixed-depth alpha-beta for k-in-a-row games on an R x C board.
+
+    Bitboard layout: one guard bit padded on top of every column (bit index
+    ``r + (R+1) * c``), so the four line directions are plain int shifts
+    that cannot wrap across columns: 1 (down a column), R+1 (right), R+2
+    (down-right diagonal), R (up-right anti-diagonal).
+
+    ``gravity=True`` gives Connect-4 move semantics (action = column, the
+    stone lands on the lowest free cell i.e. the highest free row index,
+    matching games/connect4.py); otherwise actions are cells ``r + R * c``.
+    """
+
+    def __init__(self, rows: int, cols: int, nvict: int, depth: int,
+                 gravity: bool = False):
+        self.rows, self.cols, self.nvict = rows, cols, nvict
+        self.depth = depth
+        self.gravity = gravity
+        self.stride = rows + 1
+        self.num_actions = cols if gravity else rows * cols
+        self.cells = [
+            (r + (rows + 1) * c)
+            for c in range(cols)
+            for r in range(rows)
+        ]  # padded bit of unpadded cell r + rows*c, cell-index order
+        self.full = 0
+        for b in self.cells:
+            self.full |= 1 << b
+        self.col_mask = [
+            sum(1 << (r + (rows + 1) * c) for r in range(rows))
+            for c in range(cols)
+        ]
+        # centre-out static move ordering (strong for alpha-beta pruning)
+        if gravity:
+            order = sorted(range(cols), key=lambda c: abs(c - (cols - 1) / 2))
+            self.order = list(order)
+        else:
+            self.order = sorted(
+                range(rows * cols),
+                key=lambda a: abs(a % rows - (rows - 1) / 2)
+                + abs(a // rows - (cols - 1) / 2),
+            )
+        self.dirs = (1, rows + 1, rows + 2, rows)
+        # heuristic weights for open k-runs, k = 2 .. nvict-1
+        self.weights = {k: 4 ** (k - 2) for k in range(2, nvict)}
+
+    # -- bit helpers --------------------------------------------------------
+
+    def from_planes(self, mover, other):
+        """planes: bool/int arrays indexed by cell = r + rows*c."""
+        m = o = 0
+        for i, b in enumerate(self.cells):
+            if mover[i]:
+                m |= 1 << b
+            if other[i]:
+                o |= 1 << b
+        return m, o
+
+    def wins(self, b: int) -> bool:
+        for d in self.dirs:
+            x = b
+            for _ in range(self.nvict - 1):
+                x &= x >> d
+                if not x:
+                    break
+            if x:
+                return True
+        return False
+
+    def _runs_score(self, b: int) -> int:
+        s = 0
+        for d in self.dirs:
+            x = b
+            for k in range(2, self.nvict):
+                x &= x >> d
+                if not x:
+                    break
+                s += self.weights[k] * _popcount(x)
+        return s
+
+    def evaluate(self, me: int, other: int) -> int:
+        return self._runs_score(me) - self._runs_score(other)
+
+    def moves(self, me: int, other: int):
+        occ = me | other
+        if self.gravity:
+            # stones land at row rows-1-count (games/connect4.py:77), so a
+            # column is full exactly when its row-0 cell is occupied
+            return [c for c in self.order
+                    if not (occ >> (self.stride * c)) & 1]
+        return [a for a in self.order if not (occ >> self.cells[a]) & 1]
+
+    def play_bit(self, me: int, other: int, a: int) -> int:
+        """The padded bit the action lands on."""
+        if self.gravity:
+            cnt = _popcount((me | other) & self.col_mask[a])
+            return (self.rows - 1 - cnt) + self.stride * a
+        return self.cells[a]
+
+    # -- search -------------------------------------------------------------
+
+    def _search(self, me, other, depth, alpha, beta, ply):
+        """Score of the position for `me` to move; `other` has not won."""
+        acts = self.moves(me, other)
+        if not acts:
+            return 0  # board full, draw
+        best = -WIN * 2
+        for a in acts:
+            nme = me | (1 << self.play_bit(me, other, a))
+            if self.wins(nme):
+                sc = WIN - ply  # prefer the fastest win
+            elif depth <= 1:
+                sc = self.evaluate(nme, other) if (nme | other) != self.full \
+                    else 0
+            else:
+                sc = -self._search(other, nme, depth - 1, -beta, -alpha,
+                                   ply + 1)
+            if sc > best:
+                best = sc
+                if best > alpha:
+                    alpha = best
+                    if alpha >= beta:
+                        break
+        return best
+
+    def best_action(self, mover, other, rng: np.random.Generator) -> int:
+        me, op = self.from_planes(mover, other)
+        best, cands = -WIN * 4, []
+        alpha, beta = -WIN * 2, WIN * 2
+        for a in self.moves(me, op):
+            nme = me | (1 << self.play_bit(me, op, a))
+            if self.wins(nme):
+                sc = WIN
+            elif self.depth <= 1:
+                sc = self.evaluate(nme, op) if (nme | op) != self.full else 0
+            else:
+                sc = -self._search(op, nme, self.depth - 1, -beta, -alpha, 1)
+            # Scores are ints: alpha = best - 1 keeps true ties exact (a
+            # fail-soft child below the window returns <= best - 1, never a
+            # spurious == best), so the tie list stays sound for random
+            # tie-breaking.
+            if sc > best:
+                best, cands = sc, [a]
+                alpha = best - 1
+            elif sc == best:
+                cands.append(a)
+        return int(cands[rng.integers(len(cands))]) if cands else 0
+
+
+class GomokuProbe(LineProbe):
+    """Threat-aware alpha-beta for Gobang - the stronger probe family the
+    r3 verdict asked for (an opponent the net does not trivially beat, vs
+    the full-width depth-3 LineProbe it was probed against).
+
+    Three standard gomoku-engine devices on top of :class:`LineProbe`:
+
+    * **candidate restriction**: only empty cells within Chebyshev
+      distance 2 of an existing stone are considered (center opening),
+      and the list is truncated to the ``max_cands`` highest-proximity
+      cells (stones within distance 1 weighted over distance 2; stable
+      center-out tiebreak) - the classic selective-search practice that
+      makes depth 5 tractable where full-width depth 3 was the limit,
+    * **forced moves**: at every node, if the mover can complete five the
+      move list is exactly those wins; else if the opponent threatens to
+      complete five next ply, only the blocking cells are searched,
+    * **open-run eval**: runs are scored by their open ends (a blocked
+      four is a single threat, an open four is winning) instead of the
+      raw run count of LineProbe.evaluate.
+    """
+
+    def __init__(self, rows: int, cols: int, nvict: int, depth: int,
+                 max_cands: int = 12):
+        super().__init__(rows, cols, nvict, depth)
+        self.center = (rows // 2) + rows * (cols // 2)  # action index
+        self.max_cands = max_cands
+
+    def _dilate(self, b: int) -> int:
+        s = self.stride
+        out = b
+        for d in (1, s - 1, s, s + 1):
+            out |= (b << d) | (b >> d)
+        return out & self.full
+
+    def moves(self, me: int, other: int):
+        occ = me | other
+        if not occ:
+            return [self.center]
+        cand = self._dilate(self._dilate(occ)) & ~occ
+        cands = [a for a in self.order if (cand >> self.cells[a]) & 1]
+        if not cands:  # isolated remnant cells: fall back to full width
+            return super().moves(me, other)
+        mywin = [a for a in cands
+                 if self.wins(me | (1 << self.cells[a]))]
+        if mywin:
+            return mywin
+        block = [a for a in cands
+                 if self.wins(other | (1 << self.cells[a]))]
+        if block:
+            return block
+        if len(cands) > self.max_cands:
+            def prox(a):
+                b = 1 << self.cells[a]
+                n1 = _popcount(self._dilate(b) & occ)
+                n2 = _popcount(self._dilate(self._dilate(b)) & occ)
+                return -(4 * n1 + n2)
+            cands.sort(key=prox)  # stable: keeps the center-out tiebreak
+            cands = cands[:self.max_cands]
+        return cands
+
+    def _open_score(self, b: int, empty: int) -> int:
+        s = 0
+        for d in self.dirs:
+            x = b
+            for k in range(2, self.nvict):
+                x &= x >> d  # bit i set <=> i, i+d, .., i+(k-1)d all set
+                if not x:
+                    break
+                lo = x & (empty << d)          # empty cell before the run
+                hi = x & (empty >> (k * d))    # empty cell after the run
+                base = 8 ** (k - 2)
+                s += base * (_popcount(lo) + _popcount(hi)
+                             + 4 * _popcount(lo & hi))
+        return s
+
+    def evaluate(self, me: int, other: int) -> int:
+        empty = self.full & ~(me | other)
+        return self._open_score(me, empty) - self._open_score(other, empty)
+
+
+# ---------------------------------------------------------------------------
+# Reversi
+# ---------------------------------------------------------------------------
+
+
+class ReversiProbe:
+    """Fixed-depth alpha-beta Othello with bit-parallel move generation,
+    a corners/mobility/discs eval and an exact solve once the number of
+    empty squares falls to ``exact_empties`` (standard engine structure,
+    same rules as games/reversi.py: pass action = size^2, game over when
+    both sides have only the pass move, winner by disc count)."""
+
+    def __init__(self, size: int, depth: int = 4, exact_empties: int = 10):
+        self.size = size
+        self.depth = depth
+        self.exact_empties = exact_empties
+        self.num_actions = size * size + 1
+        self.pass_action = size * size
+        n = size
+        self.full = (1 << (n * n)) - 1
+        not_r0 = not_rl = 0
+        for c in range(n):
+            for r in range(n):
+                i = r + n * c
+                if r != 0:
+                    not_r0 |= 1 << i
+                if r != n - 1:
+                    not_rl |= 1 << i
+        # (shift, source mask) per direction in cell = r + n*c layout
+        self.dirshift = [
+            (1, not_rl), (-1, not_r0), (n, self.full), (-n, self.full),
+            (n + 1, not_rl), (n - 1, not_r0), (-(n - 1), not_rl),
+            (-(n + 1), not_r0),
+        ]
+        corners = [0, n - 1, n * (n - 1), n * n - 1]
+        self.corner_mask = sum(1 << c for c in corners)
+        # corners first in the static ordering, X-squares last
+        xsq = {(1 + n), (n - 2) + n, 1 + n * (n - 2), (n - 2) + n * (n - 2)}
+        self.order = sorted(
+            range(n * n),
+            key=lambda a: 0 if (1 << a) & self.corner_mask else
+            (2 if a in xsq else 1),
+        )
+
+    def _shift(self, b: int, d: int, mask: int) -> int:
+        b &= mask
+        return (b << d) & self.full if d > 0 else b >> -d
+
+    def legal(self, me: int, op: int) -> int:
+        empty = self.full & ~(me | op)
+        mv = 0
+        for d, mask in self.dirshift:
+            t = op & self._shift(me, d, mask)
+            for _ in range(self.size - 2):
+                t |= op & self._shift(t, d, mask)
+            mv |= empty & self._shift(t, d, mask)
+        return mv
+
+    def play(self, me: int, op: int, a: int):
+        """Returns (new_mover, new_other) = (op', me') after `me` plays a."""
+        if a == self.pass_action:
+            return op, me
+        bit = 1 << a
+        flips = 0
+        for d, mask in self.dirshift:
+            cap = 0
+            cur = self._shift(bit, d, mask)
+            while cur & op:
+                cap |= cur
+                cur = self._shift(cur, d, mask)
+            if cur & me:
+                flips |= cap
+        me |= bit | flips
+        return op & ~flips, me
+
+    def evaluate(self, me: int, op: int) -> int:
+        corner = _popcount(me & self.corner_mask) - _popcount(
+            op & self.corner_mask)
+        mob = _popcount(self.legal(me, op)) - _popcount(self.legal(op, me))
+        disc = _popcount(me) - _popcount(op)
+        return 100 * corner + 5 * mob + disc
+
+    def _final(self, me: int, op: int) -> int:
+        diff = _popcount(me) - _popcount(op)
+        return 0 if diff == 0 else (WIN // 2 + diff if diff > 0
+                                    else -(WIN // 2 - diff))
+
+    def _actions(self, mv: int):
+        return [a for a in self.order if (mv >> a) & 1]
+
+    def _search(self, me, op, depth, alpha, beta, passed):
+        mv = self.legal(me, op)
+        if not mv:
+            if passed:
+                return self._final(me, op)
+            return -self._search(op, me, depth, -beta, -alpha, True)
+        if depth <= 0:
+            return self.evaluate(me, op)
+        best = -WIN * 2
+        for a in self._actions(mv):
+            nop, nme = self.play(me, op, a)
+            sc = -self._search(nop, nme, depth - 1, -beta, -alpha, False)
+            if sc > best:
+                best = sc
+                if best > alpha:
+                    alpha = best
+                    if alpha >= beta:
+                        break
+        return best
+
+    def from_planes(self, mover, other):
+        m = o = 0
+        for i in range(self.size * self.size):
+            if mover[i]:
+                m |= 1 << i
+            if other[i]:
+                o |= 1 << i
+        return m, o
+
+    def best_action(self, mover, other, rng: np.random.Generator) -> int:
+        me, op = self.from_planes(mover, other)
+        mv = self.legal(me, op)
+        if not mv:
+            return self.pass_action
+        empties = self.size * self.size - _popcount(me | op)
+        depth = empties + 2 if empties <= self.exact_empties else self.depth
+        best, cands = -WIN * 4, []
+        alpha, beta = -WIN * 2, WIN * 2
+        for a in self._actions(mv):
+            nop, nme = self.play(me, op, a)
+            sc = -self._search(nop, nme, depth - 1, -beta, -alpha, False)
+            # int scores + alpha = best - 1: exact tie detection (see
+            # LineProbe.best_action)
+            if sc > best:
+                best, cands = sc, [a]
+                alpha = best - 1
+            elif sc == best:
+                cands.append(a)
+        return int(cands[rng.integers(len(cands))])
+
+
+# ---------------------------------------------------------------------------
+# Hex
+# ---------------------------------------------------------------------------
+
+
+class HexProbe:
+    """Depth-2 minimax over a shortest-connection-path eval for NxN Hex.
+
+    The classic scripted Hex baseline: each side's *potential* is the
+    minimum number of empty cells it still needs to claim to connect its
+    two edges (Bellman-Ford over the hex adjacency with cost 0 on own
+    stones, 1 on empty, inf on opponent stones; potential 0 = won).  Eval =
+    opponent potential - my potential, so the engine both extends its own
+    best chain and blocks the opponent's.  All depth-2 leaves (my move a x
+    opponent reply b) are evaluated in one vectorized batch, making full
+    minimax over ~n^4 leaves cheap; immediate wins / losses short-circuit
+    at the WIN scale like the other probes.
+
+    Geometry matches games/hex.py (reference Hex.jl): planes come in the
+    embedded (N+1)x(N+1) layout (plane index = row + (N+1)*col) where
+    logical action a = x*n + y sits at (row y+1, col x+1).  The side owning
+    the col-0 border (plane bit 2) connects along x (left-right); the other
+    connects along y (top-bottom).  Hex neighbours of (x, y): (x+-1, y),
+    (x, y+-1), (x+1, y-1), (x-1, y+1).
+    """
+
+    def __init__(self, n: int, depth: int = 2):
+        assert depth in (1, 2)
+        self.n, self.depth = n, depth
+        m = n + 1
+        # embedded plane index of logical cell (x, y), cell-index order a=x*n+y
+        xs, ys = np.divmod(np.arange(n * n), n)
+        self._plane_idx = (ys + 1) + m * (xs + 1)
+        # 6 hex-neighbour offsets in (dx, dy)
+        self._nbrs = ((1, 0), (-1, 0), (0, 1), (0, -1), (1, -1), (-1, 1))
+
+    def from_planes(self, mover, other):
+        """-> (me [n,n] bool, op [n,n] bool, me_axis 0|1): logical stone
+        grids indexed [x, y] plus the axis the mover connects (0 = x)."""
+        mover = np.asarray(mover, bool)
+        other = np.asarray(other, bool)
+        me = mover[self._plane_idx].reshape(self.n, self.n)
+        op = other[self._plane_idx].reshape(self.n, self.n)
+        me_axis = 0 if mover[2] else 1  # col-0 border bit -> x-connector
+        return me, op, me_axis
+
+    def _potential(self, me, op, axis):
+        """Batched shortest-path potential: me/op are bool [B, n, n] (axis 0
+        = x).  Returns f32[B] - empty cells still needed to connect, 0 if
+        connected, INF if impossible."""
+        n = self.n
+        INF = np.float32(1e9)
+        cost = np.where(op, INF, np.where(me, 0.0, 1.0)).astype(np.float32)
+        if axis == 1:  # connect along y: transpose to reuse the x sweep
+            cost = np.swapaxes(cost, 1, 2)
+        dist = np.full(cost.shape, INF, np.float32)
+        dist[:, 0, :] = cost[:, 0, :]  # enter from the x=0 edge
+        for _ in range(2 * n):
+            best = dist
+            for dx, dy in self._nbrs:
+                sl = np.full_like(dist, INF)
+                xs_src = slice(max(0, -dx), n - max(0, dx))
+                xs_dst = slice(max(0, dx), n - max(0, -dx))
+                ys_src = slice(max(0, -dy), n - max(0, dy))
+                ys_dst = slice(max(0, dy), n - max(0, -dy))
+                sl[:, xs_dst, ys_dst] = dist[:, xs_src, ys_src]
+                best = np.minimum(best, sl + cost)
+            if np.array_equal(best, dist):
+                break
+            dist = best
+        return dist[:, n - 1, :].min(axis=1)
+
+    def _eval(self, me, op, me_axis):
+        """Batched eval from the mover's perspective: [B]."""
+        d_me = self._potential(me, op, me_axis)
+        d_op = self._potential(op, me, 1 - me_axis)
+        return d_op - d_me
+
+    def best_action(self, mover, other, rng: np.random.Generator) -> int:
+        n = self.n
+        me, op, me_axis = self.from_planes(mover, other)
+        empty = ~(me | op)
+        acts = np.flatnonzero(empty.reshape(-1))  # a = x*n + y order
+        if len(acts) == 0:
+            return 0
+
+        # my-move boards [A, n, n]
+        A = len(acts)
+        me_a = np.broadcast_to(me, (A, n, n)).copy()
+        me_a.reshape(A, -1)[np.arange(A), acts] = True
+        d_me = self._potential(me_a, np.broadcast_to(op, (A, n, n)), me_axis)
+        if (d_me == 0).any():  # immediate win
+            cands = acts[d_me == 0]
+            return int(cands[rng.integers(len(cands))])
+        if self.depth == 1:
+            score = self._potential(
+                np.broadcast_to(op, (A, n, n)), me_a, 1 - me_axis) - d_me
+        else:
+            # opponent replies: pairs (a, b) with b any remaining empty cell
+            rem = [np.setdiff1d(acts, [a]) for a in acts]
+            B = len(acts) - 1
+            if B == 0:
+                score = -d_me
+            else:
+                pair_me = np.repeat(me_a, B, axis=0)  # [A*B, n, n]
+                pair_op = np.broadcast_to(op, (A * B, n, n)).copy()
+                flat_b = np.concatenate(rem)
+                pair_op.reshape(A * B, -1)[np.arange(A * B), flat_b] = True
+                # leaf score from MY perspective
+                leaf = -self._eval(pair_op, pair_me, 1 - me_axis)
+                d_op_win = self._potential(pair_op, pair_me, 1 - me_axis)
+                leaf = np.where(d_op_win == 0, -WIN, leaf)
+                score = leaf.reshape(A, B).min(axis=1)  # opp minimizes
+        best = score.max()
+        cands = acts[score == best]
+        return int(cands[rng.integers(len(cands))])
+
+
+def probe_for_game(game, depth: int | None = None):
+    """A probe engine for `game`: Gobang/TicTacToe, Connect-4, Reversi
+    (alpha-beta) and Hex (vectorized minimax over a shortest-connection
+    eval)."""
+    name = game.name
+    if name == "connect4":
+        return LineProbe(6, 7, 4, depth or 8, gravity=True)
+    if name == "tictactoe":
+        return LineProbe(3, 3, 3, depth or 9)  # full depth = perfect play
+    if name.startswith("gobang"):
+        return GomokuProbe(game.n, game.n, game.nvict, depth or 5)
+    if name.startswith("reversi"):
+        return ReversiProbe(game.size, depth or 4)
+    if name.startswith("hex"):
+        return HexProbe(game.n, depth or 2)
+    raise ValueError(f"no probe engine for {name}")
+
+
+# ---------------------------------------------------------------------------
+# candidate vs probe driver
+# ---------------------------------------------------------------------------
+
+
+
+def eval_vs_probe(game, net, generator=None, probe=None, *,
+                  num_games: int = 64, rollouts: int = 64,
+                  cpuct: float = 1.5, temp_moves: int = 8, seed: int = 0,
+                  trace: bool = False, device="cuda", uniforms=None):
+    """(net_wins, draws, net_losses) over ``num_games`` games against the
+    probe, the first half with the net moving first.  The net plays by
+    full MCTS on ``device`` (sampling from the root policy for the first
+    ``temp_moves`` plies, greedy after); the probe moves on the host with
+    random tie-breaks, game i from ``np.random.default_rng(seed * 100003 +
+    i)``.  A game still running after ``max_game_length`` plies counts as
+    a draw.
+
+    Every ply the net searches all games, whoever is to move, and both its
+    greedy and its sampled pick are computed.  Its random numbers come
+    from ``generator`` on ``device`` (per ply: the search's uniforms, then
+    one sampling uniform per game), or from ``uniforms``
+    (:class:`~alphatpu_torch.selfplay.SelfplayUniforms`: ``probs[t]`` and
+    ``move[t]`` for ply t), the tests' injection point.
+
+    ``trace=True`` additionally returns a per-ply record list (the applied
+    action, the net's greedy and sampled candidates, whose turn, liveness)
+    plus the per-game result array."""
+    from . import resolve_device
+    from .games.base import where_games
+    from .mcts.newton import cdf_sample
+    from .mcts.search import run_mcts
+    from .mcts.tree import init_tree, reset_tree
+    from .selfplay import broadcast_initial
+
+    dev = resolve_device(device)
+    probe = probe or probe_for_game(game)
+    G = num_games
+    net_first = np.arange(G) < (G + 1) // 2
+    host_rngs = [np.random.default_rng(seed * 100003 + i) for i in range(G)]
+
+    positions = broadcast_initial(game, G, dev)
+    tree = init_tree(game, positions, rollouts)
+    done = np.zeros(G, bool)
+    result = np.zeros(G, np.int8)
+    enc = game.encode(positions).cpu().numpy()
+    V = game.vectorized_state
+    records = []
+
+    for t in range(game.max_game_length):
+        if done.all():
+            break
+        net_turn = ((t % 2) == 0) == net_first
+        reset_tree(tree, positions)
+        _, pol = run_mcts(
+            game, net, tree, rollouts=rollouts, cpuct=cpuct, training=False,
+            generator=generator,
+            probs=None if uniforms is None else uniforms.probs[t])
+        u = (torch.rand((G,), generator=generator, device=dev)
+             if uniforms is None else uniforms.move[t])
+        # the raw uniform, not scaled by the root policy's mass as selfplay
+        # and the duel scale it: the reference's protocol as it stands
+        picks = torch.stack([torch.argmax(pol, dim=0).to(torch.int32),
+                             cdf_sample(pol, u)]).cpu().numpy()
+        greedy, sampled = picks
+        net_act = sampled if t < temp_moves else greedy
+        actions = np.zeros(G, np.int32)
+        for i in range(G):
+            if done[i]:
+                continue
+            if net_turn[i]:
+                actions[i] = net_act[i]
+            else:
+                actions[i] = probe.best_action(
+                    enc[i, :V] > 0, enc[i, V:] > 0, host_rngs[i])
+        if trace:
+            records.append({
+                "ply": t, "alive": ~done.copy(), "net_turn": net_turn,
+                "action": actions.copy(), "greedy": greedy.copy(),
+                "sampled": sampled.copy(),
+                "sampling_phase": t < temp_moves,
+            })
+        alive = torch.from_numpy(~done).to(dev)
+        positions = where_games(
+            alive, game.play(positions, torch.from_numpy(actions).to(dev)),
+            positions)
+        f, r = game.is_over(positions)
+        # one copy to the host: the encodings, then done and result
+        host = torch.cat([game.encode(positions), f[:, None].float(),
+                          r[:, None].float()], dim=1).cpu().numpy()
+        enc = host[:, :2 * V]
+        f, r = host[:, 2 * V] > 0, host[:, 2 * V + 1].astype(np.int8)
+        newly = ~done & f
+        result[newly] = r[newly]
+        done |= f
+
+    net_sign = np.where(net_first, 1, -1).astype(np.int8)
+    wins = int(((result == net_sign) & done).sum())
+    losses = int(((result == -net_sign) & done).sum())
+    draws = int(((result == 0) & done).sum() + (~done).sum())
+    if trace:
+        return wins, draws, losses, {
+            "records": records, "result": result, "net_first": net_first,
+            "net_sign": net_sign,
+        }
+    return wins, draws, losses
+
+
+def main(argv=None):
+    """``python -m alphatpu_torch.probe --game <g> --ckpt net<N>.npz``:
+    the net of a checkpoint of either package (its ``best/`` weights, at
+    the game's reference size) against the game's probe; prints one JSON
+    line."""
+    import argparse
+    import json
+
+    from . import resolve_device
+    from .games import make_game
+    from .nets import config_for_game, params_from_jax
+
+    ap = argparse.ArgumentParser(prog="alphatpu_torch.probe",
+                                 description=main.__doc__)
+    ap.add_argument("--game", required=True)
+    ap.add_argument("--ckpt", required=True, help="net<N>.npz checkpoint")
+    ap.add_argument("--depth", type=int, default=None)
+    ap.add_argument("--games", type=int, default=64)
+    ap.add_argument("--rollout", type=int, default=64)
+    ap.add_argument("--cpuct", type=float, default=1.5)
+    ap.add_argument("--temp-moves", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="the torch device the net searches on: cuda "
+                         "(default), cuda:<n> or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    game = make_game(args.game)
+    with np.load(args.ckpt) as z:
+        net = params_from_jax(dict(z), config_for_game(game), device=dev,
+                              prefix="best/")
+    probe = probe_for_game(game, args.depth)
+    w, d, l = eval_vs_probe(
+        game, net, torch.Generator(device=dev).manual_seed(args.seed), probe,
+        num_games=args.games, rollouts=args.rollout, cpuct=args.cpuct,
+        temp_moves=args.temp_moves, seed=args.seed, device=dev)
+    print(json.dumps({
+        "game": game.name, "probe_depth": probe.depth,
+        "net_wins": w, "draws": d, "net_losses": l,
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -28,6 +28,7 @@ import time
 import torch
 
 from . import checkpoint as ckpt
+from . import resolve_device
 from .buffer import create_buffer
 from .duel import DuelConfig, duel_half
 from .games import make_game
@@ -107,10 +108,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="write the windows as JSON")
     args = p.parse_args(argv)
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("profile_generation: no CUDA device (use --device "
-                         "cpu for a CPU run)")
+    dev = resolve_device(args.device)
     game = make_game(args.game)
     kw = {k: v for k, v in (("width", args.width), ("depth", args.depth))
           if v is not None}

@@ -55,13 +55,23 @@ Phases, each fatal on failure:
 11. the CLI end to end, in process (``alphatpu_torch.cli.main``): two
    tictactoe generations at 1024 games, then a third resumed from the
    checkpoint,
-12. a JSON line of the kernels (for the four walks also ``ms_device`` and
+12. evaluation and play: ``eval_vs_probe`` on connect4 (4x512, 64 games,
+   64 rollouts, against a depth-4 ``LineProbe``), ``eval_vs_random`` on
+   tictactoe (6x128, 256 games, 64 rollouts) and five moves of the
+   interactive engine on connect4 (one game, 128 rollouts a move), each
+   with its launches checked; kernels 1 and 2 against their plain versions
+   on a tree grown at the probe games' positions (G=64) and at the
+   engine's (G=1); the G=1 search on the card against the CPU path,
+13. a JSON line of the kernels (for the four walks also ``ms_device`` and
    ``bound_ms_device``, at the device placement's shape), then the result
    line ``{"ok": true, "device": {...}}``.
 
 Launch counts: before each path every count is set to 0, and after it the
 counts must be exactly what the path owes (launches made for the parity
-checks are not counted).  The kernels line reports, for
+checks are not counted): a search of R rollouts owes R launches of its
+engine's walk and one ``backup``, so ``eval_vs_probe`` owes plies x 64 and
+plies, ``eval_vs_random`` 2 x 9 x 64 and 2 x 9, the interactive engine
+128 and 1 a move.  The kernels line reports, for
 ``select_apply_packed`` and ``backup``, the launches of the CLI run (the
 main path, phase 11); for the other three kernels those of the path that
 runs each (phases 6 and 7).
@@ -99,6 +109,10 @@ SMALL_G = 512  # lanes of the card-vs-CPU searches
 GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
 CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
 CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS = 16, 8
+# phase 12: probe games and the probe's depth; the interactive engine's
+# moves and rollouts a move (the CLI's --readout default)
+PROBE_GAMES, PROBE_DEPTH = 64, 4
+PLAY_MOVES, PLAY_READOUT = 5, 128
 DUEL_CPUCT = 2.0  # DuelConfig's
 # (game, rollouts = tree nodes, lanes, cpuct, training) of phase 9
 PATH_SHAPES = (
@@ -960,6 +974,134 @@ def cli_run(K, dev, card: str) -> dict:
     return launches
 
 
+def evaluation_and_play(K, dev, card: str) -> dict:
+    """Phase 12: the evaluation and play paths, each with its launches
+    checked - ``eval_vs_probe`` on connect4 (the reference net, PROBE_GAMES
+    games, ROLLOUTS rollouts, against a depth-PROBE_DEPTH ``LineProbe``),
+    ``eval_vs_random`` on tictactoe, and PLAY_MOVES moves of the
+    interactive engine (a G = 1 search of PLAY_READOUT rollouts) on
+    connect4; then kernels 1 and 2 against their plain versions on a tree
+    grown at a position of the probe games (G = PROBE_GAMES) and at the
+    interactive engine's position (G = 1), and the G = 1 search on the card
+    against the CPU path.  Returns {kernel: max abs error} of the two
+    kernels' checks."""
+    import torch
+
+    from alphatpu_torch.eval import EvalConfig, eval_vs_random
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.games.base import where_games
+    from alphatpu_torch.interactive import make_engine
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import MLP, config_for_game
+    from alphatpu_torch.probe import eval_vs_probe, probe_for_game
+
+    t_phase = time.perf_counter()
+    pair = ("select_apply_packed", "backup")
+    game = make_game("connect4")
+    net = MLP.from_seed(config_for_game(game), SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    # eval_vs_probe: every ply searches all games
+    G, R = PROBE_GAMES, ROLLOUTS
+    probe = probe_for_game(game, PROBE_DEPTH)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    w, d, l, trace = eval_vs_probe(game, net, gen, probe, num_games=G,
+                                   rollouts=R, cpuct=CPUCT, seed=SEED,
+                                   trace=True, device=dev)
+    wall = time.perf_counter() - t0
+    plies = len(trace["records"])
+    expect_launches(K, f"eval_vs_probe (connect4, {plies} plies)",
+                    {"select_apply_packed": plies * R, "backup": plies})
+    if w + d + l != G or not game.min_game_length <= plies <= \
+            game.max_game_length:
+        raise AssertionError(f"eval_vs_probe: {w}/{d}/{l}, {plies} plies")
+    print(f"eval_vs_probe: connect4 {net.cfg.depth}x{net.cfg.width} (random "
+          f"weights, seed {SEED}) vs LineProbe depth {probe.depth}, {G} games"
+          f" x {R} rollouts: net W/D/L {w}/{d}/{l}, {plies} plies, "
+          f"{wall:.3f} s  [{card}]")
+
+    # a tree grown at the probe games' positions half way through
+    positions = game.initial(G, dev)
+    for rec in trace["records"][:plies // 2]:
+        alive = torch.from_numpy(rec["alive"]).to(dev)
+        act = torch.from_numpy(rec["action"]).to(dev)
+        positions = where_games(alive, game.play(positions, act), positions)
+    tree = init_tree(game, positions, R)
+    run_mcts(game, net, tree, rollouts=R - 2, cpuct=CPUCT, training=False,
+             generator=gen)
+    D = min(game.max_game_length, R)
+    errs = parity(K, tree, D, gen, CPUCT, K.value_scale(R),
+                  f"eval_vs_probe's tree, connect4 ply {plies // 2} A="
+                  f"{game.max_actions} V={R} G={G} D={D}", False,
+                  kernels=pair)
+    del tree
+
+    # eval_vs_random: 2 halves x T plies, every ply searched
+    ttt = make_game("tictactoe")
+    ttt_net = MLP.from_seed(config_for_game(ttt), SEED, device=dev)
+    cfg = EvalConfig()
+    T = ttt.max_game_length
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    w, d, l = eval_vs_random(ttt, ttt_net, gen, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    expect_launches(K, "eval_vs_random (tictactoe)",
+                    {"select_apply_packed": 2 * T * cfg.rollouts,
+                     "backup": 2 * T})
+    if w + d + l != cfg.num_games:
+        raise AssertionError(f"eval_vs_random: {w}/{d}/{l}")
+    print(f"eval_vs_random: tictactoe {ttt_net.cfg.depth}x"
+          f"{ttt_net.cfg.width} (random weights) vs the uniform mover, "
+          f"{cfg.num_games} games x {cfg.rollouts} rollouts: net W/D/L "
+          f"{w}/{d}/{l}, {wall:.3f} s  [{card}]")
+
+    # the interactive engine: one game, PLAY_MOVES engine moves
+    choose = make_engine(game, net, PLAY_READOUT, CPUCT)
+    pos = game.initial(1, dev)
+    moves = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(PLAY_MOVES):
+        action, pi = choose(pos, gen)
+        if not bool(game.legal_mask(pos)[0, action]) or not bool(
+                torch.isfinite(pi).all()):
+            raise AssertionError(f"interactive engine: move {action}, pi {pi}")
+        moves.append(action)
+        pos = game.play(pos, torch.tensor([action], device=dev))
+    wall = time.perf_counter() - t0
+    expect_launches(K, f"{PLAY_MOVES} interactive engine moves (G=1)",
+                    {"select_apply_packed": PLAY_MOVES * PLAY_READOUT,
+                     "backup": PLAY_MOVES})
+    print(f"interactive engine: connect4, G=1, {PLAY_READOUT} rollouts a "
+          f"move, moves {moves}: {wall / PLAY_MOVES:.3f} s a move  [{card}]")
+    print("  board after them:\n    " + game.render(pos).replace(
+        "\n", "\n    "))
+    geo = K.walk_geometry(game.max_actions, 1, PLAY_READOUT)
+    print(f"  G=1 walk geometry: {geo}; backup {K.backup_geometry(1)}")
+    tree = init_tree(game, pos, PLAY_READOUT)
+    run_mcts(game, net, tree, rollouts=PLAY_READOUT - 2, cpuct=CPUCT,
+             training=False, generator=gen)
+    D = min(game.max_game_length, PLAY_READOUT)
+    one = parity(K, tree, D, gen, CPUCT, K.value_scale(PLAY_READOUT),
+                 f"the interactive engine's tree, connect4 A="
+                 f"{game.max_actions} V={PLAY_READOUT} G=1 D={D}", False,
+                 kernels=pair)
+    for k, r in one.items():
+        errs[k]["err"] = max(errs[k]["err"], r["err"])
+    net_cpu = MLP.from_seed(config_for_game(game), SEED,
+                            device=torch.device("cpu"))
+    search_vs_cpu(game, net, net_cpu, dev, PLAY_READOUT, 1, 1,
+                  training=False)
+    print(f"evaluation and play: {time.perf_counter() - t_phase:.3f} s  "
+          f"[{card}]")
+    return {k: r["err"] for k, r in errs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1032,7 +1174,7 @@ def ptxas_lines(log: str) -> list:
 
 
 def smoke(dev, card: str, kind: str) -> int:
-    """Phases 3-12 on the device ``dev``; ``card`` is the nvidia-smi line
+    """Phases 3-13 on the device ``dev``; ``card`` is the nvidia-smi line
     printed beside every time, ``kind`` the device name."""
     import torch
 
@@ -1188,7 +1330,11 @@ def smoke(dev, card: str, kind: str) -> int:
     launches["select_apply_packed"] = cli["select_apply_packed"]
     launches["backup"] = cli["backup"]
 
-    # ---- 12. result ----
+    # ---- 12. evaluation and play ----
+    for k, e in evaluation_and_play(K, dev, card).items():
+        errs[k] = max(errs[k], e)
+
+    # ---- 13. result ----
     def row(name, src, line):
         r, w = results[name], wide_results[name]
         d = device_results.get(name)

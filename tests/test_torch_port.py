@@ -27,7 +27,10 @@ MODULES = (
     "alphatpu_torch.mcts.search", "alphatpu_torch.buffer",
     "alphatpu_torch.selfplay", "alphatpu_torch.train", "alphatpu_torch.duel",
     "alphatpu_torch.checkpoint", "alphatpu_torch.pipeline",
-    "alphatpu_torch.cli", "alphatpu_torch._build",
+    "alphatpu_torch.cli", "alphatpu_torch._build", "alphatpu_torch.probe",
+    "alphatpu_torch.eval", "alphatpu_torch.oracles",
+    "alphatpu_torch.cpu_mcts", "alphatpu_torch.render",
+    "alphatpu_torch.interactive",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more
@@ -524,3 +527,44 @@ def test_one_generation_on_the_card(cuda, tmp_path):
         assert torch.equal(getattr(fresh.train_net, name),
                            getattr(state.train_net, name))
     assert torch.equal(fresh.rng.get_state(), state.rng.get_state())
+
+
+@pytest.mark.cuda
+def test_evaluation_and_play_on_the_card(cuda):
+    """eval_vs_probe, eval_vs_random and the interactive engine (one game)
+    search on the card through the two main-path kernels, with the launches
+    each owes: R and 1 per searched ply or move."""
+    from alphatpu_torch.eval import EvalConfig, eval_vs_random
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.interactive import make_engine
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.nets import MLP, config_for_game
+    from alphatpu_torch.probe import eval_vs_probe
+
+    game = make_game("tictactoe")
+    net = MLP.from_seed(config_for_game(game, width=32, depth=2), 0,
+                        device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    K.reset_launch_counts()
+    w, d, l, trace = eval_vs_probe(game, net, gen, num_games=16, rollouts=8,
+                                   trace=True, device=cuda)
+    plies = len(trace["records"])
+    assert w + d + l == 16 and 5 <= plies <= 9
+    assert (K.select_apply_packed.launches, K.backup.launches) == (
+        plies * 8, plies)
+
+    K.reset_launch_counts()
+    assert sum(eval_vs_random(game, net, gen, EvalConfig(num_games=8,
+                                                         rollouts=8),
+                              device=cuda)) == 8
+    assert (K.select_apply_packed.launches, K.backup.launches) == (
+        2 * 9 * 8, 2 * 9)
+
+    K.reset_launch_counts()
+    choose = make_engine(game, net, 16, 1.5)
+    pos = game.initial(1, cuda)
+    for _ in range(3):
+        action, pi = choose(pos, gen)
+        assert bool(game.legal_mask(pos)[0, action])
+        pos = game.play(pos, torch.tensor([action], device=cuda))
+    assert (K.select_apply_packed.launches, K.backup.launches) == (3 * 16, 3)

@@ -1,0 +1,211 @@
+"""The port's probe engines and ``eval_vs_probe`` against ``alphatpu.probe``.
+
+The engines are copies: each one's ``best_action`` must equal the
+original's on the same random positions (played through the reference's
+rule oracles) and the same ``np.random.default_rng`` seeds.
+
+``eval_vs_probe`` runs in both packages on the same uniforms: the test
+recreates the reference's key stream (per ply: split the key, the search
+draws one uniform block per rollout from the ply's key, the sampled pick
+one uniform per game from ``fold_in(key, 1)``) and feeds it to the port.
+The net's weights are in {-1/8, 0, 1/8} (exact float32 products, see
+test_torch_search); both packages search with the f32 engine (16 lanes are
+no multiple of the reference's 128-lane block).  W/D/L and every ply's
+applied action, greedy and sampled pick must be equal.
+"""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alphatpu import checkpoint as jax_ckpt
+from alphatpu import probe as jax_probe
+from alphatpu.games import make_game as jax_make_game
+from alphatpu.nets import apply_inference
+from alphatpu.oracles import (
+    OracleConnect4, OracleGobang, OracleHex, OracleReversi,
+)
+from alphatpu_torch import probe
+from alphatpu_torch.checkpoint import save_checkpoint
+from alphatpu_torch.games import make_game
+from alphatpu_torch.nets import MLP, config_for_game, params_from_jax
+from alphatpu_torch.selfplay import SelfplayUniforms
+from alphatpu_torch.train import adam_init
+
+from test_torch_selfplay import dyadic_params
+
+# the tests run tiny tensors, where torch's CPU thread pool costs more
+# than it saves
+torch.set_num_threads(1)
+
+# engine name -> (oracle, (port engine, reference engine), plies of the
+# random playouts: the probes' positions)
+ENGINES = {
+    "tictactoe": (lambda: OracleGobang(3, 3),
+                  lambda m: m.LineProbe(3, 3, 3, depth=9), 8),
+    "connect4": (OracleConnect4,
+                 lambda m: m.LineProbe(6, 7, 4, depth=4, gravity=True), 30),
+    "gobang8": (lambda: OracleGobang(8, 5),
+                lambda m: m.GomokuProbe(8, 8, 5, depth=3), 20),
+    "reversi6x6": (lambda: OracleReversi(6),
+                   lambda m: m.ReversiProbe(6, depth=4), 20),
+    "hex7": (lambda: OracleHex(7), lambda m: m.HexProbe(7, depth=2), 30),
+}
+
+
+def random_positions(oracle, plies, seed, n=6):
+    """``n`` positions, each after a random number (below ``plies``) of
+    uniform legal moves from the start; none is over."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        st = oracle.initial()
+        for _ in range(int(rng.integers(0, plies))):
+            legal = oracle.legal_actions(st)
+            nxt = oracle.play(st, legal[rng.integers(len(legal))])
+            if oracle.is_over(nxt)[0]:
+                break
+            st = nxt
+        out.append(st)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(ENGINES))
+def test_engine_best_action_matches_reference(name):
+    make_oracle, make_engine, plies = ENGINES[name]
+    oracle = make_oracle()
+    ours, ref = make_engine(probe), make_engine(jax_probe)
+    for i, st in enumerate(random_positions(oracle, plies, seed=len(name))):
+        mover, other = oracle.planes(st)
+        for seed in (i, 100 + i):
+            got = ours.best_action(mover > 0, other > 0,
+                                   np.random.default_rng(seed))
+            want = ref.best_action(mover > 0, other > 0,
+                                   np.random.default_rng(seed))
+            assert got == want, (name, i, seed)
+            assert got in oracle.legal_actions(st)
+
+
+def _fields(engine):
+    return {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in vars(engine).items()}
+
+
+@pytest.mark.parametrize("name", ["tictactoe", "connect4", "gobang8",
+                                  "gobang9", "reversi6x6", "reversi8x8",
+                                  "hex7", "hex13"])
+def test_probe_for_game_matches_reference(name):
+    """The port's games carry the attributes ``probe_for_game`` reads, so it
+    builds the reference's engine for each; an explicit depth is kept."""
+    for depth in (None, 2):
+        ours = probe.probe_for_game(make_game(name), depth)
+        ref = jax_probe.probe_for_game(jax_make_game(name), depth)
+        assert type(ours).__name__ == type(ref).__name__
+        assert _fields(ours) == _fields(ref)
+
+
+def probe_uniforms(key, T, R, D, G):
+    """The uniforms the reference's eval_vs_probe draws from ``key``
+    (probe.py:612 -> search.py:465-467, and probe.py:587-588)."""
+    probs, move = [], []
+    for _ in range(T):
+        key, k = jax.random.split(key)
+        probs.append(np.stack([np.asarray(jax.random.uniform(kk, (D, G)))
+                               for kk in jax.random.split(k, R)]))
+        move.append(np.asarray(jax.random.uniform(jax.random.fold_in(k, 1),
+                                                  (G,))))
+    return SelfplayUniforms(torch.from_numpy(np.stack(probs)),
+                            torch.from_numpy(np.stack(move)))
+
+
+@pytest.mark.parametrize("temp_moves,depth,seed", [(8, None, 0), (2, 2, 3)])
+def test_eval_vs_probe_matches_reference(temp_moves, depth, seed,
+                                         monkeypatch):
+    """tictactoe, 16 games, 8 rollouts, against the perfect player (depth
+    9) and a depth-2 probe."""
+    G, R = 16, 8
+    jgame, game = jax_make_game("tictactoe"), make_game("tictactoe")
+    cfg = config_for_game(game, width=32, depth=2)
+    flat = dyadic_params(cfg, 21)
+    key = jax.random.key(9)
+    monkeypatch.setenv("ALPHATPU_NO_PACK", "1")
+
+    monkeypatch.setenv("ALPHATPU_FORCE_INTERPRET", "1")
+    jw, jd, jl, jtrace = jax_probe.eval_vs_probe(
+        jgame, apply_inference, {k: jnp.asarray(v) for k, v in flat.items()},
+        key, jax_probe.probe_for_game(jgame, depth), num_games=G,
+        rollouts=R, temp_moves=temp_moves, seed=seed, trace=True)
+    monkeypatch.delenv("ALPHATPU_FORCE_INTERPRET")
+
+    T = game.max_game_length
+    w, d, l, trace = probe.eval_vs_probe(
+        game, params_from_jax(flat, cfg), None,
+        probe.probe_for_game(game, depth), num_games=G, rollouts=R,
+        temp_moves=temp_moves, seed=seed, trace=True, device="cpu",
+        uniforms=probe_uniforms(key, T, R, min(T, R), G))
+    assert (w, d, l) == (jw, jd, jl)
+    assert w + d + l == G
+    assert len(trace["records"]) == len(jtrace["records"])
+    for ours, ref in zip(trace["records"], jtrace["records"]):
+        assert ours.keys() == ref.keys()
+        for k in ref:
+            np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+    for k in ("result", "net_first", "net_sign"):
+        np.testing.assert_array_equal(trace[k], jtrace[k], err_msg=k)
+
+
+def test_eval_vs_probe_counts_unfinished_games_as_draws():
+    """A game still running after max_game_length plies is a draw: a
+    tictactoe whose move bound is 4 plies ends no game."""
+    game = make_game("tictactoe")
+    game.max_game_length = 4
+    net = MLP.from_seed(config_for_game(game, width=16, depth=1), 0)
+    w, d, l, trace = probe.eval_vs_probe(
+        game, net, torch.Generator().manual_seed(0), num_games=4,
+        rollouts=4, trace=True, device="cpu")
+    assert (w, d, l) == (0, 4, 0)
+    assert len(trace["records"]) == 4
+
+
+def test_eval_vs_probe_never_falls_back_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    game = make_game("tictactoe")
+    net = MLP.from_seed(config_for_game(game, width=16, depth=1), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe.eval_vs_probe(game, net, None, num_games=2, rollouts=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe.main(["--game", "tictactoe", "--ckpt", "unused.npz"])
+
+
+def test_probe_main_reads_either_packages_checkpoint(tmp_path, capsys):
+    """``python -m alphatpu_torch.probe`` on the same weights written by the
+    port's save_checkpoint and by alphatpu.checkpoint: the same JSON line,
+    whose tally covers every game."""
+    game = make_game("tictactoe")
+    cfg = config_for_game(game)  # the reference size the probe loads
+    best = MLP.from_seed(cfg, 4)
+    train = best.copy(trainable=True)
+    port_path = save_checkpoint(
+        str(tmp_path / "port"), 3, best_net=best, train_net=train,
+        opt_state=adam_init(train), elo=0.0, best_generation=3,
+        rng=torch.Generator().manual_seed(0))
+    params = {n: jnp.asarray(getattr(best, n).detach().numpy())
+              for n in ("base", "res", "policy_w", "policy_b", "value_w",
+                        "value_b", "feature_w", "feature_b")}
+    jax_path = jax_ckpt.save_checkpoint(
+        str(tmp_path / "jax"), 3, best_params=params, train_params=params,
+        opt_state=None, elo=0.0, best_generation=3,
+        rng=jax.random.key_data(jax.random.key(0)))
+    lines = []
+    for path in (port_path, jax_path):
+        probe.main(["--game", "tictactoe", "--ckpt", path, "--games", "4",
+                    "--rollout", "8", "--depth", "3", "--seed", "1",
+                    "--device", "cpu"])
+        lines.append(capsys.readouterr().out.strip())
+    assert lines[0] == lines[1]
+    rec = json.loads(lines[0])
+    assert rec["game"] == "tictactoe" and rec["probe_depth"] == 3
+    assert rec["net_wins"] + rec["draws"] + rec["net_losses"] == 4
