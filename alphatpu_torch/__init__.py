@@ -13,7 +13,10 @@ gating duel, checkpoints, the pipeline and the CLI (``python -m
 alphatpu_torch.cli``); and evaluation and play - the probe engines and
 ``eval_vs_probe`` (``python -m alphatpu_torch.probe``), ``eval_vs_random``
 and ``ladder``, the numpy CPU engine, text and SVG boards, and interactive
-play (``python -m alphatpu_torch.interactive``).
+play (``python -m alphatpu_torch.interactive``); data-parallel training
+over ``torch.distributed`` (:mod:`alphatpu_torch.parallel`, the CLI's
+``--devices`` and ``--multihost``); and the net zoo
+(:mod:`alphatpu_torch.nets.zoo`).
 """
 
 import torch

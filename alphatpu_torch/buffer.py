@@ -1,15 +1,20 @@
 """Device-resident replay ring buffer.
 
-Counterpart of :mod:`alphatpu.buffer` (single shard): one dense tensor per
-field, written in place by masked scatters in round-major, then game order.
+Counterpart of :mod:`alphatpu.buffer`: one dense tensor per field,
+written in place by masked scatters in round-major, then game order.
 Encoded states and final-state features are 0/1 and {-1, +1}, stored as
-int8.
+int8.  In a world of D ranks (:mod:`alphatpu_torch.parallel`) each rank
+holds its own shard, ``create_buffer(game, capacity // D)``, and samples
+it; the reference's one buffer of D shards, with a ``(D,)`` cursor and
+total, appears only in a checkpoint (:mod:`alphatpu_torch.checkpoint`).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from .parallel.mesh import all_reduce
 
 
 @dataclasses.dataclass
@@ -43,14 +48,15 @@ def create_buffer(game, capacity: int, device=None) -> ReplayBuffer:
 
 
 def buffer_size(buffer: ReplayBuffer) -> torch.Tensor:
-    """Number of valid samples."""
+    """Number of valid samples in this (local) shard."""
     return torch.clamp_max(buffer.total[0], buffer.capacity)
 
 
 def global_buffer_size(buffer: ReplayBuffer) -> int:
-    """Host-side: the valid samples of the buffer (one shard here; the
-    reference sums its per-device shards)."""
-    return int(buffer_size(buffer))
+    """Host-side: the valid samples of every rank's shard (an all_reduce
+    in a world of several ranks, so every rank calls it), this buffer's
+    own in a world of one."""
+    return int(all_reduce(buffer_size(buffer).reshape(1)))
 
 
 def write_samples(buffer: ReplayBuffer, state, policy, player, value, fstate,
@@ -76,12 +82,12 @@ def write_samples(buffer: ReplayBuffer, state, policy, player, value, fstate,
 
 def sample_batch(buffer: ReplayBuffer, generator: torch.Generator | None,
                  batch_size: int, idx: torch.Tensor | None = None):
-    """A batch drawn uniformly with replacement from the valid rows
-    ``[0, size)`` (row 0 of an empty buffer), as ``(state, policy, value,
+    """A batch drawn uniformly with replacement from the shard's valid
+    rows ``[0, size)`` (row 0 of an empty buffer), as ``(state, policy, value,
     fstate)`` with the states and features as float32.  ``idx`` (i64[B])
     replaces the draw: the injection point of the tests."""
     if idx is None:
-        size = max(global_buffer_size(buffer), 1)
+        size = max(int(buffer_size(buffer)), 1)
         idx = torch.randint(0, size, (batch_size,), generator=generator,
                             device=buffer.state.device)
     idx = idx.to(buffer.state.device).long()

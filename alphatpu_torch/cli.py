@@ -4,10 +4,20 @@ Counterpart of :mod:`alphatpu.cli`: the same flags with the same names and
 defaults, plus ``--device`` (default ``cuda``; ``--device cpu`` runs every
 kernel's plain torch version on the CPU).  Without CUDA and without
 ``--device cpu`` the run stops with an error: it never moves to the CPU by
-itself.  ``--devices`` other than 1 and ``--multihost`` (with its three
-companions) raise ``NotImplementedError``: multi-GPU training is not ported
-yet (ROADMAP.md, queue 1, item 11).  ``--profile-dir`` traces the first
-generation with ``torch.profiler`` (a Chrome trace in that directory).
+itself.  ``--profile-dir`` traces the first generation with
+``torch.profiler`` (a Chrome trace in that directory; rank 0's in a world
+of several).
+
+Data-parallel training, one process per rank (:mod:`alphatpu_torch.
+parallel`): ``--devices D`` spawns D ranks on this host, one card each
+(``nccl``) or, under ``--device cpu``, D CPU processes (``gloo``), joined
+at a free ``tcp://localhost`` port; ``--devices 0`` takes every visible
+card.  ``--multihost`` makes this process one rank of a world spread over
+hosts: ``--coordinator host:port``, ``--num-processes`` and
+``--process-id``, or torchrun's ``MASTER_ADDR``/``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``; each process drives one card.
+Without ``--multihost`` its three companions are ignored, as the
+reference ignores them.
 
 Usage:
     python -m alphatpu_torch.cli --game connect4 --samples 32768 \\
@@ -20,6 +30,7 @@ import json
 import os
 import sys
 import time
+from typing import NamedTuple
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,15 +87,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --ckpt-dir")
     p.add_argument("--devices", type=int, default=1,
-                   help="devices to train on; only 1 is ported")
+                   help="data-parallel ranks, one process and one card "
+                        "each (CPU processes under --device cpu): selfplay "
+                        "lanes, buffer, learner and duels shard over them "
+                        "(0 = every visible card, 1 = single-device path)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training; not ported")
+                   help="this process is one rank of a world over hosts, "
+                        "one card per process: give --coordinator, "
+                        "--num-processes and --process-id, or run under "
+                        "torchrun")
     p.add_argument("--coordinator", default=None,
-                   help="with --multihost; not ported")
+                   help="with --multihost: rank 0's address host:port "
+                        "(default: torchrun's MASTER_ADDR/MASTER_PORT)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="with --multihost; not ported")
+                   help="with --multihost: the world size (default: "
+                        "WORLD_SIZE)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="with --multihost; not ported")
+                   help="with --multihost: this process's rank (default: "
+                        "RANK)")
     p.add_argument("--stats-file", default=None,
                    help="append per-generation stats as JSON lines")
     p.add_argument("--profile-dir", default=None,
@@ -102,7 +122,60 @@ def default_samples(game_name: str) -> int:
     return 16384 if game_name == "reversi8x8" else 32768
 
 
-def make_pipeline_config(args, game):
+class WorldPlan(NamedTuple):
+    """The world the flags ask for, before any process joins it."""
+
+    size: int
+    rank: int | None  # None: spawn ranks 0..size-1 on this host
+    init_method: str | None
+    backend: str | None
+
+
+def resolve_world(args, env=None) -> WorldPlan:
+    """The world of ``args``' ``--devices``, ``--multihost`` and its
+    companions (``env``: default ``os.environ``, for torchrun's
+    variables).  Raises ``ValueError`` where the flags ask for more cards
+    than are visible or leave a multi-host world undefined."""
+    import torch
+
+    from .parallel.mesh import (
+        default_backend, free_init_method, world_devices,
+    )
+
+    env = os.environ if env is None else env
+    if args.multihost:
+        size = (args.num_processes if args.num_processes is not None
+                else env.get("WORLD_SIZE"))
+        rank = (args.process_id if args.process_id is not None
+                else env.get("RANK"))
+        init = (f"tcp://{args.coordinator}" if args.coordinator else
+                "env://" if "MASTER_ADDR" in env else None)
+        if size is None or rank is None or init is None:
+            raise ValueError(
+                "--multihost needs --coordinator, --num-processes and "
+                "--process-id, or torchrun's MASTER_ADDR, MASTER_PORT, "
+                "WORLD_SIZE and RANK")
+        size = int(size)
+        if args.devices not in (0, 1, size):
+            raise ValueError(f"--devices {args.devices} with --multihost: "
+                             f"the world has {size} processes, one card "
+                             f"each; pass --devices 0")
+        return WorldPlan(size, int(rank), init, default_backend(args.device))
+    size = world_devices(args.devices, args.device)
+    if size == 1:
+        return WorldPlan(1, 0, None, None)
+    if torch.device(args.device).index is not None:
+        raise ValueError(f"--devices {size} on the one card --device "
+                         f"{args.device}: each rank needs a card of its own; "
+                         "pass --device cuda")
+    return WorldPlan(size, None, free_init_method(),
+                     default_backend(args.device))
+
+
+def make_pipeline_config(args, game, world=None):
+    """The pipeline's configuration from the flags; with ``world`` (a
+    :class:`~alphatpu_torch.parallel.World`) on its size and the rank's
+    device."""
     from functools import partial
 
     import torch
@@ -146,45 +219,62 @@ def make_pipeline_config(args, game):
             args.ckpt_dir or f"Data{args.game}"),
         save_buffer=args.save_buffer,
         net_apply=net_apply,
-        devices=args.devices,
-        device=args.device,
+        devices=args.devices if world is None else world.size,
+        device=args.device if world is None else str(world.device),
     )
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    plan = resolve_world(args)
+    from .parallel.mesh import make_world, run_ranks
 
-    from .pipeline import MULTI_GPU
+    if plan.rank is None:
+        run_ranks(train, plan.size, args, device=args.device,
+                  backend=plan.backend, init_method=plan.init_method)
+        return 0
+    world = make_world(plan.size, args.device, rank=plan.rank,
+                       backend=plan.backend, init_method=plan.init_method)
+    import torch.distributed as dist
 
-    if args.multihost or args.coordinator or args.num_processes is not None \
-            or args.process_id is not None or args.devices != 1:
-        raise NotImplementedError(MULTI_GPU)
+    try:
+        return train(world, args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def train(world, args) -> int:
+    """The run of ``args`` on this process's rank of ``world``: rank 0
+    logs, writes the checkpoints and appends the stats file."""
     import torch
-
-    from . import resolve_device
-
-    device = resolve_device(args.device)
 
     from .games import make_game
     from .pipeline import init_pipeline, resume, run_generation
 
+    device = world.device
     game = make_game(args.game)
-    cfg = make_pipeline_config(args, game)
+    cfg = make_pipeline_config(args, game, world)
+    lead = world.rank == 0
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"alphatpu_torch: game={game.name} device={device} ({name})")
+    D = world.size
+    print(f"alphatpu_torch: game={game.name} device={device} ({name})"
+          + (f" rank {world.rank}  (dp mesh over {D})" if D > 1 else ""),
+          flush=True)
     state = init_pipeline(game, cfg)
 
     if args.resume and cfg.ckpt_dir and os.path.exists(
             os.path.join(cfg.ckpt_dir, "latest.json")):
         resume(game, state, cfg)
-        print(f"resumed at generation {state.generation}, elo {state.elo:.1f}")
+        if lead:
+            print(f"resumed at generation {state.generation}, "
+                  f"elo {state.elo:.1f}")
 
     t0 = time.time()
     first_gen = True
     while state.generation < cfg.generations:
-        if args.profile_dir and first_gen:
+        if args.profile_dir and first_gen and lead:
             from torch.profiler import ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU] + (
@@ -198,11 +288,12 @@ def main(argv=None) -> int:
         else:
             state, stats = run_generation(game, state, cfg)
         first_gen = False
-        if args.stats_file:
+        if args.stats_file and lead:
             with open(args.stats_file, "a") as f:
                 f.write(json.dumps(stats, default=float) + "\n")
     print(f"done: {cfg.generations} generations in {time.time() - t0:.0f}s; "
-          f"best generation {state.best_generation}, elo {state.elo:.1f}")
+          f"best generation {state.best_generation}, elo {state.elo:.1f}",
+          flush=True)
     return 0
 
 

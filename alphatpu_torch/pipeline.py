@@ -10,11 +10,19 @@ Counterpart of :mod:`alphatpu.pipeline`, with its protocol:
   each starter,
 * a checkpoint per generation, the same log lines and the same stats dict.
 
-One device only: ``devices != 1`` raises (multi-GPU is ROADMAP.md, queue 1,
-item 11).  Every random draw of a run comes from one ``torch.Generator`` on
-the run's device, seeded from ``seed`` (the continuous-selfplay carry gets
-a generator of its own, seeded from that stream), so a run with a given
+Every random draw of a run comes from one ``torch.Generator`` on the
+run's device, seeded from ``seed`` (the continuous-selfplay carry gets a
+generator of its own, seeded from that stream), so a run with a given
 seed is deterministic on a given device.
+
+Data-parallel (``devices`` D > 1, alphatpu/pipeline.py:145-210): the
+process is one rank of a world of D (:mod:`alphatpu_torch.parallel`,
+started by the CLI's ``--devices`` or ``--multihost``), and every rank runs
+the same generation on its own device through the sharded executors - 1/D
+of the selfplay lanes and duel games and its own buffer shard, with its
+own streams drawn from the shared one; the learner averages the gradients,
+so the nets stay replicated.  Rank 0 alone logs and writes the checkpoint
+(the reference's sharded layout, gathered from every rank).
 """
 from __future__ import annotations
 
@@ -29,14 +37,17 @@ from . import checkpoint as ckpt
 from .buffer import ReplayBuffer, create_buffer, global_buffer_size
 from .duel import DuelConfig, duel_network, elo_update
 from .nets.mlp import MLP, apply_inference, config_for_game
+from .parallel.mesh import (
+    World, barrier, rank_generator, world_devices, world_rank, world_size,
+)
+from .parallel.sharded import (
+    sharded_duel_network, sharded_selfplay_fn, sharded_train_fn,
+)
 from .selfplay import (
     EpisodeCarry, SelfplayConfig, make_carry, selfplay_continuous,
     selfplay_generation,
 )
 from .train import TrainConfig, adam_init, train_epoch
-
-MULTI_GPU = ("devices != 1: multi-GPU training is not ported yet "
-             "(ROADMAP.md, queue 1, item 11); run with --devices 1")
 
 
 @dataclass
@@ -53,14 +64,25 @@ class PipelineConfig:
     save_buffer: bool = False
     # (net, x) -> (logits, value): the in-search evaluation
     net_apply: Callable = apply_inference
+    # ranks of the data-parallel world: 0 = every visible card (one on the
+    # CPU); 1 = the single-device path
     devices: int = 1
-    device: str = "cuda"  # the device every tensor of the run lives on
+    device: str = "cuda"  # the device every tensor of this rank lives on
     log: Callable[[str], None] = print
 
     def num_devices(self) -> int:
-        if self.devices != 1:
-            raise NotImplementedError(MULTI_GPU)
-        return 1
+        return world_devices(self.devices, self.device)
+
+    def world(self) -> World:
+        """This process's rank in the world of ``num_devices()`` ranks,
+        which it must have joined."""
+        D = self.num_devices()
+        if world_size() != D:
+            raise ValueError(
+                f"devices={D}: this process is in a world of {world_size()} "
+                "rank(s); start one process per device (the CLI's --devices "
+                "or --multihost, or alphatpu_torch.parallel.run_ranks)")
+        return World(world_rank(), D, torch.device(self.device))
 
 
 @dataclass
@@ -80,8 +102,11 @@ class PipelineState:
 
 def init_pipeline(game, cfg: PipelineConfig) -> PipelineState:
     """Fresh nets (Glorot weights from numpy seed ``cfg.seed``), optimizer
-    state, buffer and generator on ``cfg.device``."""
-    cfg.num_devices()
+    state, buffer (this rank's shard) and generator on ``cfg.device``."""
+    D = cfg.world().size
+    if cfg.buffer_capacity % D:
+        raise ValueError(f"--buffer-capacity ({cfg.buffer_capacity}) must "
+                         f"divide the device count {D}")
     dev = torch.device(cfg.device)
     net_cfg = config_for_game(game, width=cfg.width, depth=cfg.depth)
     best = MLP.from_seed(net_cfg, cfg.seed, device=dev)
@@ -90,9 +115,27 @@ def init_pipeline(game, cfg: PipelineConfig) -> PipelineState:
         best_net=best,
         train_net=train,
         opt_state=adam_init(train),
-        buffer=create_buffer(game, cfg.buffer_capacity, device=dev),
+        buffer=create_buffer(game, cfg.buffer_capacity // D, device=dev),
         rng=torch.Generator(device=dev).manual_seed(cfg.seed),
     )
+
+
+def _sharded_exec(game, cfg: PipelineConfig, world: World):
+    """The (selfplay, train, duel) executors of a world of several ranks,
+    after the reference's divisibility checks."""
+    D = world.size
+    if cfg.selfplay.num_games % D:
+        raise ValueError(f"--samples ({cfg.selfplay.num_games}) must divide "
+                         f"the device count {D}")
+    if cfg.train.batch_size % D:
+        raise ValueError(f"--batchsize ({cfg.train.batch_size}) must divide "
+                         f"the device count {D}")
+    if cfg.duel.num_games % (2 * D):
+        raise ValueError(f"--duel-games ({cfg.duel.num_games}) must divide "
+                         f"2x the device count {D}")
+    return (sharded_selfplay_fn(game, cfg.net_apply, cfg.selfplay, world),
+            sharded_train_fn(game, cfg.train, world),
+            sharded_duel_network(game, cfg.net_apply, cfg.duel, world))
 
 
 def child_generator(gen: torch.Generator) -> torch.Generator:
@@ -102,16 +145,39 @@ def child_generator(gen: torch.Generator) -> torch.Generator:
     return torch.Generator(device=gen.device).manual_seed(seed)
 
 
+def _silent(line: str) -> None:
+    pass
+
+
 def run_generation(game, state: PipelineState, cfg: PipelineConfig):
-    """One generation.  Mutates and returns ``state`` plus a stats dict."""
-    cfg.num_devices()
-    log = cfg.log
+    """One generation.  Mutates and returns ``state`` plus a stats dict.
+    In a world of several ranks every rank calls it; the stats are the
+    world's."""
+    world = cfg.world()
+    D = world.size
+    log = cfg.log if world.rank == 0 else _silent
     gen = state.generation + 1
     dev = state.buffer.state.device
     best_apply = partial(cfg.net_apply, state.best_net)
+    if D > 1:
+        sp_fn, tr_fn, duel_fn = _sharded_exec(game, cfg, world)
+        # this rank's selfplay and train streams, and the duel's shared one
+        sp_gen = rank_generator(state.rng, world)
+        tr_gen = rank_generator(state.rng, world)
+        duel_gen = child_generator(state.rng)
 
     t0 = time.time()
-    if cfg.selfplay.continuous:
+    if D > 1:
+        if cfg.selfplay.continuous:
+            if state.sp_carry is None:
+                state.sp_carry = make_carry(game, cfg.selfplay.num_games // D,
+                                            None, dev)
+            state.buffer, sp_stats, state.sp_carry = sp_fn(
+                state.best_net, state.buffer, sp_gen, state.sp_carry)
+        else:
+            state.buffer, sp_stats = sp_fn(state.best_net, state.buffer,
+                                           sp_gen)
+    elif cfg.selfplay.continuous:
         if state.sp_carry is None:
             state.sp_carry = make_carry(game, cfg.selfplay.num_games,
                                         child_generator(state.rng), dev)
@@ -123,11 +189,13 @@ def run_generation(game, state: PipelineState, cfg: PipelineConfig):
             game, best_apply, state.buffer, state.rng, cfg.selfplay)
     sp_stats = {k: v.item() for k, v in sp_stats.items()}
     t_sp = time.time() - t0
+    # a collective: every rank takes it here, never inside a log argument
+    buffer_total = global_buffer_size(state.buffer)
     log(f"[gen {gen}] selfplay: {t_sp:.1f}s  "
         f"w/d/l={int(sp_stats['wins'])}/{int(sp_stats['draws'])}/"
         f"{int(sp_stats['losses'])}  "
         f"mean_len={float(sp_stats['mean_length']):.1f}  "
-        f"buffer={global_buffer_size(state.buffer)}")
+        f"buffer={buffer_total}")
     if int(sp_stats["illegal_moves"]):
         log(f"[gen {gen}] WARNING illegal moves: "
             f"{int(sp_stats['illegal_moves'])}")
@@ -138,17 +206,25 @@ def run_generation(game, state: PipelineState, cfg: PipelineConfig):
     t0 = time.time()
     loss = None
     for _ in range(cfg.train.epochs):
-        state.opt_state, loss = train_epoch(
-            state.train_net, state.opt_state, state.buffer, state.rng,
-            cfg.train)
+        if D > 1:
+            state.opt_state, loss = tr_fn(state.train_net, state.opt_state,
+                                          state.buffer, tr_gen)
+        else:
+            state.opt_state, loss = train_epoch(
+                state.train_net, state.opt_state, state.buffer, state.rng,
+                cfg.train)
     loss = float(loss)
     t_tr = time.time() - t0
     log(f"[gen {gen}] train: {t_tr:.1f}s  loss={loss:.4f}")
 
     t0 = time.time()
-    w, d, l, du_unfinished = duel_network(
-        game, partial(cfg.net_apply, state.train_net), best_apply,
-        state.rng, cfg.duel, dev)
+    if D > 1:
+        w, d, l, du_unfinished = duel_fn(state.train_net, state.best_net,
+                                         duel_gen)
+    else:
+        w, d, l, du_unfinished = duel_network(
+            game, partial(cfg.net_apply, state.train_net), best_apply,
+            state.rng, cfg.duel, dev)
     t_du = time.time() - t0
     new_elo = elo_update(w, d, l, state.elo)
     passed = new_elo > state.elo
@@ -165,17 +241,24 @@ def run_generation(game, state: PipelineState, cfg: PipelineConfig):
 
     state.generation = gen
     if cfg.ckpt_dir:
-        ckpt.save_checkpoint(
-            cfg.ckpt_dir, gen,
-            best_net=state.best_net,
-            train_net=state.train_net,
-            opt_state=state.opt_state,
-            elo=state.elo,
-            best_generation=state.best_generation,
-            rng=state.rng,
-            buffer=state.buffer if cfg.save_buffer else None,
-            sp_carry=state.sp_carry if cfg.save_buffer else None,
-        )
+        # every rank gathers (collectives), rank 0 writes
+        buffer = ckpt.gather_buffer(state.buffer) if cfg.save_buffer else None
+        carry = (ckpt.gather_carry(state.sp_carry)
+                 if cfg.save_buffer and state.sp_carry is not None else None)
+        if world.rank == 0:
+            ckpt.save_checkpoint(
+                cfg.ckpt_dir, gen,
+                best_net=state.best_net,
+                train_net=state.train_net,
+                opt_state=state.opt_state,
+                elo=state.elo,
+                best_generation=state.best_generation,
+                rng=state.rng,
+                buffer=buffer,
+                sp_carry=carry,
+            )
+        if D > 1:
+            barrier()  # the checkpoint is on disk when any rank returns
     stats = {
         "generation": gen,
         "selfplay_s": t_sp,
@@ -207,18 +290,20 @@ def run_training(game, cfg: PipelineConfig,
 def resume(game, state: PipelineState, cfg: PipelineConfig) -> Dict[str, Any]:
     """Load the latest checkpoint of ``cfg.ckpt_dir`` into ``state`` (in
     place; with ``cfg.save_buffer`` the buffer and, in continuous mode, the
-    carry too).  Returns the manifest.  A checkpoint of the reference
-    package has a JAX key where this package keeps a generator state; the
-    run then keeps the stream ``state`` was seeded with."""
+    carry too - this rank's shard of each, from a checkpoint of as many
+    ranks).  Returns the manifest.  A checkpoint of the reference package
+    has a JAX key where this package keeps a generator state; the run then
+    keeps the stream ``state`` was seeded with."""
+    world = cfg.world()
     carry_tmpl = None
     if cfg.selfplay.continuous and cfg.save_buffer:
-        carry_tmpl = make_carry(game, cfg.selfplay.num_games, None,
-                                state.buffer.state.device)
+        carry_tmpl = make_carry(game, cfg.selfplay.num_games // world.size,
+                                None, state.buffer.state.device)
     manifest, loaded = ckpt.load_checkpoint(
         cfg.ckpt_dir, best_net=state.best_net, train_net=state.train_net,
         opt_state=state.opt_state,
         buffer=state.buffer if cfg.save_buffer else None,
-        sp_carry=carry_tmpl)
+        sp_carry=carry_tmpl, world=world)
     state.best_net = loaded["best"]
     state.train_net = loaded["train"]
     state.opt_state = loaded["opt"]

@@ -11,7 +11,15 @@ Counterpart of :mod:`alphatpu.train`:
   ``p -= lr * mu_hat / (sqrt(nu_hat) + eps) + wd * p``, the decay not
   scaled by lr and applied to every parameter, biases included,
 * an epoch runs ``max(nsamples // batch - 1, 1)`` updates on batches drawn
-  uniformly with replacement, ``nsamples = min(size, max_samples)``.
+  uniformly with replacement, ``nsamples = min(size, max_samples)``,
+* in a world of D ranks (alphatpu/train.py:74-100, the ``axis_name``
+  path) each rank draws ``batch_size`` rows from its own buffer shard with
+  its own stream, ``nsamples`` is the sum over the shards and the global
+  batch ``batch_size * D``, so every rank runs the same updates; the
+  gradients and the loss are averaged over the ranks (the reference's
+  ``pmean``) by one all_reduce of the flattened bucket per update, and the
+  replicated parameters stay equal bit for bit.  The net is no DDP module:
+  the epoch takes ``torch.autograd.grad`` and the hand-written Adam step.
 
 The optimizer state is ``{"count": i32 0-d, "mu": {name: tensor}, "nu":
 {name: tensor}}``, the fields of optax's ``ScaleByAdamState``, so that a
@@ -25,6 +33,7 @@ import torch
 
 from .buffer import ReplayBuffer, global_buffer_size, sample_batch
 from .nets.mlp import MLP, PARAM_NAMES
+from .parallel.mesh import all_reduce, world_size
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam's defaults (eps_root 0)
 
@@ -78,15 +87,29 @@ def adam_update(net: MLP, grads: Dict[str, torch.Tensor], opt_state: Dict,
     return {"count": count, "mu": mu, "nu": nu}
 
 
+def mean_over_ranks(tensors: Sequence[torch.Tensor]) -> list:
+    """Each tensor averaged over the ranks: one all_reduce of them all,
+    flattened into one bucket, divided by the world size."""
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
+    flat = flat / world_size()
+    out, start = [], 0
+    for t in tensors:
+        out.append(flat[start:start + t.numel()].reshape(t.shape))
+        start += t.numel()
+    return out
+
+
 def train_epoch(net: MLP, opt_state: Dict, buffer: ReplayBuffer,
                 generator: torch.Generator | None, cfg: TrainConfig,
                 indices: Sequence[torch.Tensor] | None = None):
     """One epoch of SGD over the buffer: ``net`` (trainable) is updated in
     place.  ``indices[i]`` (i64[B]) replaces update i's draw.  Returns
     ``(opt_state, loss)`` with the mean loss of the updates (a 0-d
-    tensor)."""
+    tensor).  In a world of several ranks every rank calls it, with its
+    own shard, stream and per-rank ``cfg.batch_size``."""
+    D = world_size()
     nsamples = min(global_buffer_size(buffer), cfg.max_samples)
-    n_updates = max(nsamples // cfg.batch_size - 1, 1)
+    n_updates = max(nsamples // (cfg.batch_size * D) - 1, 1)
     params = [getattr(net, n) for n in PARAM_NAMES]
     loss_acc = torch.zeros((), dtype=torch.float32, device=net.base.device)
     for i in range(n_updates):
@@ -95,6 +118,8 @@ def train_epoch(net: MLP, opt_state: Dict, buffer: ReplayBuffer,
             None if indices is None else indices[i])
         loss = loss_fn(net, state, pi, z, fstate, cfg.feature_weight)
         grads = torch.autograd.grad(loss, params)
+        if D > 1:
+            *grads, loss = mean_over_ranks([*grads, loss.detach()])
         opt_state = adam_update(net, dict(zip(PARAM_NAMES, grads)), opt_state,
                                 cfg)
         loss_acc = loss_acc + loss.detach()

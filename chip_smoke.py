@@ -62,7 +62,23 @@ Phases, each fatal on failure:
    with its launches checked; kernels 1 and 2 against their plain versions
    on a tree grown at the probe games' positions (G=64) and at the
    engine's (G=1); the G=1 search on the card against the CPU path,
-13. a JSON line of the kernels (for the four walks also ``ms_device`` and
+13. data parallel on one card: two ranks share the card over gloo
+   (``alphatpu_torch.parallel``) and run one connect4 4x512 generation of
+   ``run_generation`` (8192 lanes, 4096 a rank, 12 continuous rounds, one
+   epoch at batch 8192, a 256-game duel at 8 rollouts cut to 8 moves, a
+   checkpoint with the buffer); each rank's launches checked, rank 0's
+   selfplay against a one-process run of its lanes on the same stream (at
+   most 2 diverged lanes), the averaged update against a one-process
+   emulation (rtol 2e-5), the ranks' parameters equal bit for bit, the
+   checkpoint reloaded into the world of two bit for bit; the gradient
+   bucket's all_reduce timed, over gloo and in a world of one NCCL rank.
+   Two ranks on one card measure no scaling,
+14. the net zoo at connect4's reference width (res2, norm, value_only,
+   recurrent at 4x512; the conv tower at 64 channels x 4): each a
+   64-rollout level-1 search of 8192 lanes (launches 64 and 1) and a
+   search on the card against the CPU path at 512 lanes; then 4 rounds of
+   continuous selfplay with res2,
+15. a JSON line of the kernels (for the four walks also ``ms_device`` and
    ``bound_ms_device``, at the device placement's shape), then the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -114,6 +130,16 @@ CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS = 16, 8
 PROBE_GAMES, PROBE_DEPTH = 64, 4
 PLAY_MOVES, PLAY_READOUT = 5, 128
 DUEL_CPUCT = 2.0  # DuelConfig's
+# phase 13: ranks sharing the card, continuous rounds of their generation,
+# its duel (games, rollouts, move bound), all_reduce repetitions timed and
+# the seconds the ranks may take
+DP_RANKS, DP_ROUNDS = 2, 12
+DP_DUEL = (256, 8, 8)
+DP_ALLREDUCE_REPS = 5
+DP_TIMEOUT = 600
+# phase 14: the zoo nets, and the rounds of res2's continuous selfplay
+ZOO_NETS = ("res2", "norm", "conv", "value_only", "recurrent")
+ZOO_ROUNDS = 4
 # (game, rollouts = tree nodes, lanes, cpuct, training) of phase 9
 PATH_SHAPES = (
     ("tictactoe", CLI_ROLLOUTS, CLI_GAMES, CPUCT, True),
@@ -1102,6 +1128,350 @@ def evaluation_and_play(K, dev, card: str) -> dict:
     return {k: r["err"] for k, r in errs.items()}
 
 
+def _dp_rank(world, ckpt_dir, card):
+    """Phase 13's rank: one connect4 generation of ``run_generation`` over
+    the world (2 ranks sharing the card over gloo), then this rank's side
+    of the checks.  Returns the launches, the stats, the parameters, the
+    time of the gradient bucket's all_reduce, whether the checkpoint
+    reloads into the world bit for bit and (rank 0) the lanes where its
+    selfplay differs from a one-process run of its lanes on the same
+    stream."""
+    from functools import partial
+
+    import torch
+
+    from alphatpu_torch.buffer import create_buffer
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.nets import MLP, PARAM_NAMES, apply_inference
+    from alphatpu_torch.parallel.mesh import all_reduce, rank_generator
+    from alphatpu_torch.pipeline import init_pipeline, resume, run_generation
+    from alphatpu_torch.selfplay import make_carry, selfplay_continuous
+
+    game, cfg = _dp_config(world, ckpt_dir)
+    marks = {}  # stage -> (time, launch counts) when rank 0 logged it
+
+    def log(line):
+        print(f"  rank 0: {line}", flush=True)
+        for stage in ("selfplay", "train", "duel"):
+            if line.startswith(f"[gen 1] {stage}:"):
+                marks[stage] = (time.perf_counter(), launch_counts(K))
+
+    cfg.log = log
+    state = init_pipeline(game, cfg)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, stats = run_generation(game, state, cfg)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = launch_counts(K)
+
+    # the gradient bucket's all_reduce, as train_epoch sends it
+    bucket = torch.cat([getattr(state.train_net, n).detach().reshape(-1)
+                        for n in PARAM_NAMES])
+    all_reduce(bucket)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(DP_ALLREDUCE_REPS):
+        all_reduce(bucket)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t1) / DP_ALLREDUCE_REPS * 1e3
+
+    # the checkpoint (gathered, written by rank 0) back into the world
+    fresh = init_pipeline(game, cfg)
+    resume(game, fresh, cfg)
+    pairs = [(getattr(fresh.best_net, n), getattr(state.best_net, n))
+             for n in PARAM_NAMES]
+    pairs += [(getattr(fresh.train_net, n), getattr(state.train_net, n))
+              for n in PARAM_NAMES]
+    pairs += [(fresh.opt_state[f][n], state.opt_state[f][n])
+              for f in ("mu", "nu") for n in PARAM_NAMES]
+    pairs += [(fresh.opt_state["count"], state.opt_state["count"]),
+              (fresh.rng.get_state(), state.rng.get_state())]
+    pairs += [(getattr(fresh.buffer, f), getattr(state.buffer, f))
+              for f in ("state", "policy", "player", "value", "fstate",
+                        "cursor", "total")]
+    pairs += [(a, b) for a, b in zip(fresh.sp_carry.positions,
+                                     state.sp_carry.positions)]
+    pairs += [(getattr(fresh.sp_carry, f), getattr(state.sp_carry, f))
+              for f in ("count", "enc", "pol", "player")]
+    reload_equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in pairs)
+
+    out = {"counts": counts, "stats": stats, "t_gen": t_end - t0,
+           "allreduce_ms": allreduce_ms, "bucket": bucket.numel(),
+           "reload_equal": reload_equal,
+           "total": int(state.buffer.total[0]),
+           "train": {n: getattr(state.train_net, n).detach().cpu().numpy()
+                     for n in PARAM_NAMES},
+           "best": {n: getattr(state.best_net, n).detach().cpu().numpy()
+                    for n in PARAM_NAMES}}
+    if world.rank == 0:
+        out["stages"] = {k: (v[0] - t0, v[1]) for k, v in marks.items()}
+        out["t_ckpt"] = t_end - marks["duel"][0]
+        # the same lanes in one process: the first draw of the run's
+        # stream is rank 0's selfplay stream
+        G = cfg.selfplay.num_games // world.size
+        net = MLP.from_seed(state.best_net.cfg, SEED, device=world.device)
+        sp_gen = rank_generator(
+            torch.Generator(device=world.device).manual_seed(SEED), world)
+        buf, _, carry = selfplay_continuous(
+            game, partial(apply_inference, net),
+            create_buffer(game, state.buffer.capacity, device=world.device),
+            None, cfg.selfplay._replace(num_games=G),
+            make_carry(game, G, sp_gen, world.device))
+        live, one = state.sp_carry, carry
+        leaves = list(zip(live.positions, one.positions)) + [
+            (getattr(live, f), getattr(one, f))
+            for f in ("count", "enc", "pol", "player")]
+        bad = torch.zeros((G,), dtype=torch.bool, device=world.device)
+        for a, b in leaves:
+            bad |= (a != b).reshape(G, -1).any(1)
+        out["diverged"] = int(bad.sum())
+        out["buffer_equal"] = all(torch.equal(getattr(buf, f),
+                                              getattr(state.buffer, f))
+                                  for f in ("state", "policy", "player",
+                                            "value", "fstate", "cursor",
+                                            "total"))
+        out["lanes"] = G
+    return out
+
+
+def _dp_config(world, ckpt_dir):
+    """Phase 13's generation: connect4 4x512 at LANES lanes over the
+    world, DP_ROUNDS continuous rounds, one epoch at the CLI's batch, a
+    duel cut to DP_DUEL and a checkpoint with the buffer."""
+    from alphatpu_torch.duel import DuelConfig
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.pipeline import PipelineConfig
+    from alphatpu_torch.selfplay import SelfplayConfig
+    from alphatpu_torch.train import TrainConfig
+
+    games, rollouts, moves = DP_DUEL
+    return make_game("connect4"), PipelineConfig(
+        selfplay=SelfplayConfig(num_games=LANES, rollouts=ROLLOUTS,
+                                cpuct=CPUCT, continuous=True,
+                                rounds=DP_ROUNDS),
+        train=TrainConfig(batch_size=8192),
+        duel=DuelConfig(num_games=games, rollouts=rollouts, max_moves=moves),
+        buffer_capacity=LANES * DP_ROUNDS, generations=1, seed=SEED,
+        ckpt_dir=ckpt_dir, save_buffer=True, devices=world.size,
+        device=str(world.device))
+
+
+def data_parallel(K, dev, card: str) -> None:
+    """Phase 13: data-parallel training on one card.  DP_RANKS processes
+    share ``dev`` over gloo and run one connect4 generation at full width
+    (LANES lanes in all); each rank's launches must be what it owes, rank
+    0's selfplay must equal a one-process run of its lanes on the same
+    stream (at most 2 diverged lanes), the averaged update must equal a
+    one-process emulation (rtol 2e-5), the ranks' parameters must be equal
+    bit for bit, and the checkpoint must reload into the world of
+    DP_RANKS bit for bit.  Then a world of one NCCL rank all_reduces the
+    gradient bucket on the card.  Two ranks on one card measure no
+    scaling."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from alphatpu_torch.buffer import ReplayBuffer
+    from alphatpu_torch.nets import MLP, PARAM_NAMES, config_for_game
+    from alphatpu_torch.parallel.mesh import (
+        World, all_reduce, free_init_method, make_world, rank_generator,
+        run_ranks,
+    )
+    from alphatpu_torch.train import (
+        TrainConfig, adam_init, adam_update, loss_fn,
+    )
+
+    t_phase = time.perf_counter()
+    D = DP_RANKS
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_ranks(_dp_rank, D, tmp, card, device=str(dev),
+                         backend="gloo", timeout=DP_TIMEOUT)
+        with np.load(os.path.join(tmp, "buffer.npz")) as z:
+            shards = {k[1:]: z[k] for k in z.files}
+    game, cfg = _dp_config(World(0, D, dev), None)
+    stats = outs[0]["stats"]
+    _, _, duel_moves = DP_DUEL
+    owed = {"select_apply_packed": DP_ROUNDS * ROLLOUTS
+            + 2 * duel_moves * cfg.duel.rollouts,
+            "backup": DP_ROUNDS + 2 * duel_moves}
+    for r, out in enumerate(outs):
+        want = {k: owed.get(k, 0) for k in KERNELS}
+        print(f"launches in rank {r}'s generation: {out['counts']}")
+        if out["counts"] != want:
+            raise AssertionError(f"rank {r}: launches {out['counts']}, owed "
+                                 f"{want}")
+        if not out["reload_equal"]:
+            raise AssertionError(f"rank {r}: the checkpoint does not reload "
+                                 "bit for bit")
+        for which in ("train", "best"):
+            for n in PARAM_NAMES:
+                if not np.array_equal(out[which][n], outs[0][which][n]):
+                    raise AssertionError(f"rank {r}: {which}/{n} differs "
+                                         "from rank 0's")
+    if stats["illegal_moves"] != 0:
+        raise AssertionError("data parallel: illegal moves")
+    first = outs[0]
+    stages = first["stages"]
+    for stage, start, kernel1, backups in (
+            ("selfplay", None, DP_ROUNDS * ROLLOUTS, DP_ROUNDS),
+            ("duel", "train", 2 * duel_moves * cfg.duel.rollouts,
+             2 * duel_moves)):
+        a = {k: 0 for k in KERNELS} if start is None else stages[start][1]
+        got = {k: stages[stage][1][k] - a[k] for k in KERNELS}
+        print(f"  rank 0's launches in the {stage}: {got}")
+        want = {k: 0 for k in KERNELS}
+        want.update(select_apply_packed=kernel1, backup=backups)
+        if got != want:
+            raise AssertionError(f"rank 0's {stage}: launches {got}, owed "
+                                 f"{want}")
+    if first["diverged"] > 2:
+        raise AssertionError(f"rank 0's selfplay: {first['diverged']} lanes "
+                             "differ from the one-process run")
+
+    # the averaged update, emulated in this process from the checkpoint's
+    # shards and the ranks' train streams
+    net_cfg = config_for_game(game)
+    net = MLP.from_seed(net_cfg, SEED, device=dev, trainable=True)
+    opt = adam_init(net)
+    local = TrainConfig(batch_size=cfg.train.batch_size // D)
+    cap = cfg.buffer_capacity // D
+    bufs, gens = [], []
+    for r in range(D):
+        bufs.append(ReplayBuffer(**{
+            f: torch.from_numpy(v[r:r + 1] if f in ("cursor", "total")
+                                else v[r * cap:(r + 1) * cap]).to(dev)
+            for f, v in shards.items()}))
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        rank_generator(g, World(r, D, dev))  # the selfplay stream
+        gens.append(rank_generator(g, World(r, D, dev)))
+    sizes = [min(int(b.total[0]), cap) for b in bufs]
+    n_updates = max(min(sum(sizes), local.max_samples)
+                    // cfg.train.batch_size - 1, 1)
+    params = [getattr(net, n) for n in PARAM_NAMES]
+    for _ in range(n_updates):
+        grads = []
+        for b, g, size in zip(bufs, gens, sizes):
+            idx = torch.randint(0, max(size, 1), (local.batch_size,),
+                                generator=g, device=dev)
+            batch = (b.state[idx].float(), b.policy[idx], b.value[idx],
+                     b.fstate[idx].float())
+            grads.append(torch.autograd.grad(
+                loss_fn(net, *batch, local.feature_weight), params))
+        mean = {n: sum(gs[i] for gs in grads) / D
+                for i, n in enumerate(PARAM_NAMES)}
+        opt = adam_update(net, mean, opt, local)
+    err = 0.0
+    for n in PARAM_NAMES:
+        got = torch.from_numpy(first["train"][n]).to(dev)
+        want = getattr(net, n).detach()
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+        err = max(err, float((got - want).abs().max()))
+
+    # one NCCL rank: the bucket's all_reduce on the card
+    world = make_world(1, dev, rank=0, backend="nccl",
+                       init_method=free_init_method())
+    try:
+        bucket = torch.cat([p.detach().reshape(-1) for p in params])
+        want = bucket.clone()  # the sum over a world of one rank
+        all_reduce(bucket)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_ALLREDUCE_REPS):
+            all_reduce(bucket)
+        torch.cuda.synchronize()
+        nccl_ms = (time.perf_counter() - t0) / DP_ALLREDUCE_REPS * 1e3
+        if dist.get_backend() != "nccl" or not torch.equal(bucket, want):
+            raise AssertionError("the NCCL world's all_reduce")
+    finally:
+        dist.destroy_process_group()
+    print(f"data parallel: connect4 {net_cfg.depth}x{net_cfg.width}, {D} "
+          f"gloo ranks on one card, {LANES} lanes ({first['lanes']} a rank) "
+          f"x {ROLLOUTS} rollouts, {DP_ROUNDS} continuous rounds: selfplay "
+          f"{stats['selfplay_s']:.3f} s (illegal moves "
+          f"{stats['illegal_moves']}, samples {stats['samples_written']}, "
+          f"rank totals {[o['total'] for o in outs]}); train "
+          f"{stats['train_s']:.3f} s ({n_updates} update(s) at batch "
+          f"{cfg.train.batch_size}, loss {stats['loss']:.4f}); duel "
+          f"{stats['duel_s']:.3f} s ({cfg.duel.num_games} games x "
+          f"{cfg.duel.rollouts} rollouts, {duel_moves} moves: w/d/l "
+          f"{stats['duel']}, unfinished {stats['duel_unfinished']}); "
+          f"checkpoint {first['t_ckpt']:.3f} s; generation "
+          f"{first['t_gen']:.3f} s (rank 1 {outs[1]['t_gen']:.3f} s)  "
+          f"[{card}]")
+    print(f"  rank 0's selfplay vs one process on the same stream: "
+          f"diverged lanes {first['diverged']}/{first['lanes']}, buffer "
+          f"equal {first['buffer_equal']}; averaged update vs the "
+          f"one-process emulation: max abs err {err:.3g}; ranks' parameters "
+          f"equal bit for bit; checkpoint reloaded into the world of {D} "
+          f"bit for bit")
+    print(f"  gradient bucket all_reduce ({first['bucket']} float32): gloo "
+          f"through the host, 2 ranks {first['allreduce_ms']:.3f} ms / "
+          f"{outs[1]['allreduce_ms']:.3f} ms; NCCL, one rank "
+          f"{nccl_ms:.3f} ms  [{card}]")
+    print(f"data parallel: {time.perf_counter() - t_phase:.3f} s  [{card}]")
+
+
+def zoo_searches(K, dev, card: str) -> None:
+    """Phase 14: each zoo net at connect4's reference width (512, depth 4;
+    the conv tower at 64 channels, depth 4): a 64-rollout level-1 search
+    of LANES lanes (launches 64 and 1), then a search on the card against
+    the CPU path at SMALL_G lanes (at most 2 diverged); then ZOO_ROUNDS
+    rounds of continuous selfplay with res2."""
+    import torch
+
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import config_for_game
+    from alphatpu_torch.nets.zoo import make_conv_net, make_net
+
+    t_phase = time.perf_counter()
+    game = make_game("connect4")
+    cfg = config_for_game(game)
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rates = {}
+    for name in ZOO_NETS:
+        if name == "conv":
+            nets = [make_conv_net(game, 64, 4, SEED, device=d)
+                    for d in (dev, cpu)]
+            shape = "64 channels x 4"
+        else:
+            nets = [make_net(name, cfg, SEED, device=d) for d in (dev, cpu)]
+            shape = f"{cfg.depth}x{cfg.width}"
+        tree = init_tree(game, game.initial(LANES, dev), ROLLOUTS)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, pi = run_mcts(game, nets[0], tree, rollouts=ROLLOUTS,
+                         cpuct=CPUCT, training=True, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_launches(K, f"the {name} search",
+                        {"select_apply_packed": ROLLOUTS, "backup": 1})
+        root = tree.visits[:, 0, :].sum(0)
+        if not bool((root == ROLLOUTS - 1).all()) or not bool(
+                torch.isfinite(pi).all()):
+            raise AssertionError(f"zoo {name}: root visits or policy")
+        rates[name] = LANES / wall
+        print(f"zoo {name} ({shape}): level-1 search, {LANES} lanes x "
+              f"{ROLLOUTS} rollouts: {wall:.3f} s, {rates[name]:.1f} "
+              f"env-steps/s  [{card}]")
+        del tree
+        search_vs_cpu(game, nets[0], nets[1], dev, ROLLOUTS, SMALL_G, 1)
+    res2 = make_net("res2", cfg, SEED, device=dev)
+    selfplay_run(K, game, res2, dev, "zoo res2", {}, 1,
+                 "select_apply_packed", card, chunk_rounds=ZOO_ROUNDS)
+    print("zoo search env-steps/s in this run: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()) + f"  [{card}]")
+    print(f"zoo: {time.perf_counter() - t_phase:.3f} s  [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1174,7 +1544,7 @@ def ptxas_lines(log: str) -> list:
 
 
 def smoke(dev, card: str, kind: str) -> int:
-    """Phases 3-13 on the device ``dev``; ``card`` is the nvidia-smi line
+    """Phases 3-15 on the device ``dev``; ``card`` is the nvidia-smi line
     printed beside every time, ``kind`` the device name."""
     import torch
 
@@ -1334,7 +1704,14 @@ def smoke(dev, card: str, kind: str) -> int:
     for k, e in evaluation_and_play(K, dev, card).items():
         errs[k] = max(errs[k], e)
 
-    # ---- 13. result ----
+    # ---- 13. data parallel on one card ----
+    data_parallel(K, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 14. the net zoo ----
+    zoo_searches(K, dev, card)
+
+    # ---- 15. result ----
     def row(name, src, line):
         r, w = results[name], wide_results[name]
         d = device_results.get(name)

@@ -283,16 +283,80 @@ def test_cli_parser_matches_reference_flags():
     assert default_samples("reversi8x8") == 16384
 
 
+TORCHRUN = {"WORLD_SIZE": "2", "RANK": "1", "LOCAL_RANK": "1",
+            "MASTER_ADDR": "localhost", "MASTER_PORT": "29500"}
+
+
 @pytest.mark.parametrize("argv", [
     ["--devices", "2"], ["--devices", "0"], ["--multihost"],
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--process-id", "0"],
 ])
-def test_cli_refuses_multi_gpu(argv):
-    from alphatpu_torch.cli import main
+def test_cli_refuses_multi_gpu(argv, monkeypatch):
+    """Each multi-device flag resolves to its world - (size, rank, init
+    method, backend), rank None where the CLI spawns the ranks - and no
+    rank is launched.  On the CPU ``--devices 2`` is two gloo ranks at a
+    free tcp://localhost port and ``--devices 0`` one rank; ``--multihost``
+    joins the world of torchrun's variables or of its three companions,
+    which alone are ignored, as the reference ignores them.  On cards
+    (torch.cuda patched) ``--devices 2`` with one visible card is refused
+    with ValueError, and ``--devices 0`` takes every visible card with
+    NCCL."""
+    from alphatpu_torch.cli import build_parser, resolve_world
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        main(argv + ["--device", "cpu"])
+    def world(extra=(), env=None, device="cpu"):
+        args = build_parser().parse_args(argv + list(extra)
+                                         + ["--device", device])
+        plan = resolve_world(args, env={} if env is None else env)
+        if plan.init_method and plan.init_method.startswith(
+                "tcp://localhost:") and plan.rank is None:
+            port = int(plan.init_method.rsplit(":", 1)[1])
+            assert 0 < port < 65536
+            plan = plan._replace(init_method="tcp://localhost:<free>")
+        return tuple(plan)
+
+    def cards(n):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+        monkeypatch.setattr(torch.cuda, "get_device_name",
+                            lambda i=0: "NVIDIA H100 80GB HBM3")
+
+    one = (1, 0, None, None)
+    flag = argv[0]
+    if flag == "--devices" and argv[1] == "2":
+        assert world() == (2, None, "tcp://localhost:<free>", "gloo")
+        cards(1)
+        with pytest.raises(ValueError, match="--devices 2 requested but "
+                                             "only 1 CUDA device"):
+            world(device="cuda")
+        with pytest.raises(ValueError, match="a card of its own"):
+            world(device="cuda:0")
+        cards(2)
+        assert world(device="cuda") == (2, None, "tcp://localhost:<free>",
+                                        "nccl")
+    elif flag == "--devices":
+        assert world() == one
+        cards(4)
+        assert world(device="cuda") == (4, None, "tcp://localhost:<free>",
+                                        "nccl")
+    elif flag == "--multihost":
+        assert world(env=TORCHRUN) == (2, 1, "env://", "gloo")
+        assert world(env=TORCHRUN, device="cuda") == (2, 1, "env://", "nccl")
+        with pytest.raises(ValueError, match="--multihost needs"):
+            world()
+    elif flag == "--coordinator":
+        assert world() == one
+        assert world(["--multihost", "--num-processes", "2", "--process-id",
+                      "1"]) == (2, 1, "tcp://localhost:1234", "gloo")
+    elif flag == "--num-processes":
+        assert world() == one
+        assert world(["--multihost", "--coordinator", "host0:5",
+                      "--process-id", "0"]) == (2, 0, "tcp://host0:5",
+                                                "gloo")
+    else:
+        assert world() == one
+        assert world(["--multihost"], env=TORCHRUN) == (2, 0, "env://",
+                                                        "gloo")
 
 
 def test_cli_never_falls_back_to_the_cpu(monkeypatch):

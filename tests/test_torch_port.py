@@ -30,7 +30,9 @@ MODULES = (
     "alphatpu_torch.cli", "alphatpu_torch._build", "alphatpu_torch.probe",
     "alphatpu_torch.eval", "alphatpu_torch.oracles",
     "alphatpu_torch.cpu_mcts", "alphatpu_torch.render",
-    "alphatpu_torch.interactive",
+    "alphatpu_torch.interactive", "alphatpu_torch.nets.zoo",
+    "alphatpu_torch.parallel", "alphatpu_torch.parallel.mesh",
+    "alphatpu_torch.parallel.sharded", "alphatpu_torch.parallel.dryrun",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more
