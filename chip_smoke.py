@@ -78,7 +78,14 @@ Phases, each fatal on failure:
    64-rollout level-1 search of 8192 lanes (launches 64 and 1) and a
    search on the card against the CPU path at 512 lanes; then 4 rounds of
    continuous selfplay with res2,
-15. a JSON line of the kernels (for the four walks also ``ms_device`` and
+15. the bench (``python -m alphatpu_torch.bench``'s ``measure``) on
+   connect4 at 8192 lanes, 8 rounds in chained chunks of 4, at levels 1
+   and 2 and with a bf16 tower - each a warm-up and three timed
+   generations, its launches as owed, no illegal move, the repeats'
+   identical work, every lane deciding every round; one JSON line each -
+   then the rollout ablation's full and select-only variants at 8192
+   lanes (``select`` and ``backup`` launched once a rollout as owed),
+16. a JSON line of the kernels (for the four walks also ``ms_device`` and
    ``bound_ms_device``, at the device placement's shape), then the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -104,6 +111,7 @@ for backup, the device time of two ``index_put_(accumulate=True)`` calls
 that compute the same adds (a yardstick the port never calls).
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -140,6 +148,11 @@ DP_TIMEOUT = 600
 # phase 14: the zoo nets, and the rounds of res2's continuous selfplay
 ZOO_NETS = ("res2", "norm", "conv", "value_only", "recurrent")
 ZOO_ROUNDS = 4
+# phase 15: the bench's cut rounds and chunk, its runs (measure's keyword
+# arguments), and the ablation's variants
+BENCH_ROUNDS, BENCH_CHUNK = 8, 4
+BENCH_RUNS = ({"pack_level": 1}, {"pack_level": 2}, {"bf16": True})
+ABLATE_VARIANTS = ("full", "select-only")
 # (game, rollouts = tree nodes, lanes, cpuct, training) of phase 9
 PATH_SHAPES = (
     ("tictactoe", CLI_ROLLOUTS, CLI_GAMES, CPUCT, True),
@@ -1472,6 +1485,40 @@ def zoo_searches(K, dev, card: str) -> None:
     print(f"zoo: {time.perf_counter() - t_phase:.3f} s  [{card}]")
 
 
+def bench_runs(card: str) -> None:
+    """Phase 15: the bench's ``measure`` on connect4 (LANES lanes,
+    BENCH_ROUNDS rounds in chunks of BENCH_CHUNK) for each of BENCH_RUNS,
+    one JSON line each; then the ablation's ABLATE_VARIANTS at LANES
+    lanes.  ``measure`` and the ablation raise on launches that differ
+    from what is owed; ``measure`` on an illegal move or repeats that
+    differ."""
+    from alphatpu_torch import bench
+    from alphatpu_torch.benchmarks import ablate_rollout
+
+    t_phase = time.perf_counter()
+    for kw in BENCH_RUNS:
+        t0 = time.perf_counter()
+        r = bench.measure("connect4", games=LANES, rollouts=ROLLOUTS,
+                          rounds=BENCH_ROUNDS, chunk=BENCH_CHUNK, seed=SEED,
+                          **kw)
+        ex = r["extra"]
+        if (ex["launches"] != ex["launches_owed"] or ex["illegal_moves"]
+                or ex["env_steps"] != LANES * BENCH_ROUNDS
+                or not math.isfinite(r["value"]) or r["value"] <= 0):
+            raise AssertionError(f"bench {kw}: {json.dumps(r)}")
+        print(json.dumps(r))
+        print(f"bench {kw}: {time.perf_counter() - t0:.3f} s with the "
+              f"warm-up; spread {ex['spread']:.4f}  [{card}]")
+    out = ablate_rollout.ablate("connect4", LANES, ROLLOUTS,
+                                names=ABLATE_VARIANTS, device="cuda",
+                                log=lambda line: print(f"ablate {line}"))
+    for name, v in out.items():
+        print(f"ablate {name}: launches in the timed moves {v['launches']}  "
+              f"[{card}]")
+    print(f"bench and ablation: {time.perf_counter() - t_phase:.3f} s  "
+          f"[{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1710,8 +1757,12 @@ def smoke(dev, card: str, kind: str) -> int:
 
     # ---- 14. the net zoo ----
     zoo_searches(K, dev, card)
+    torch.cuda.empty_cache()
 
-    # ---- 15. result ----
+    # ---- 15. the bench and the rollout ablation ----
+    bench_runs(card)
+
+    # ---- 16. result ----
     def row(name, src, line):
         r, w = results[name], wide_results[name]
         d = device_results.get(name)

@@ -33,6 +33,9 @@ MODULES = (
     "alphatpu_torch.interactive", "alphatpu_torch.nets.zoo",
     "alphatpu_torch.parallel", "alphatpu_torch.parallel.mesh",
     "alphatpu_torch.parallel.sharded", "alphatpu_torch.parallel.dryrun",
+    "alphatpu_torch.bench", "alphatpu_torch.benchmarks",
+    "alphatpu_torch.benchmarks.matrix",
+    "alphatpu_torch.benchmarks.ablate_rollout",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more
@@ -570,3 +573,21 @@ def test_evaluation_and_play_on_the_card(cuda):
         assert bool(game.legal_mask(pos)[0, action])
         pos = game.play(pos, torch.tensor([action], device=cuda))
     assert (K.select_apply_packed.launches, K.backup.launches) == (3 * 16, 3)
+
+
+@pytest.mark.cuda
+def test_bench_on_the_card(cuda):
+    """``bench.measure`` on the card: the launches each timed generation
+    owes (measure raises otherwise), no illegal move, the device's own
+    numbers."""
+    from alphatpu_torch import bench
+
+    r = bench.measure("tictactoe", games=1024, rounds=4, device="cuda")
+    ex = r["extra"]
+    assert ex["launches"] == ex["launches_owed"] == bench.owed_launches(
+        1, 64, 4, 1)
+    assert ex["illegal_moves"] == 0
+    assert ex["env_steps"] == 1024 * 4
+    assert ex["device"]["type"] == "cuda" and ex["device"]["count"] >= 1
+    assert ex["peak_mem_bytes"] > 0 and ex["nn_mfu"] > 0
+    assert r["metric"] == "torch_selfplay_env_steps_per_s_tictactoe_g1024_r64"
