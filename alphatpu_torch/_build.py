@@ -56,6 +56,10 @@ _SIGNATURES = {
     # pointers x 6, A, V, G, D, threads, blocks, stream
     "launch_backup": [_P] * 6 + [_I] * 6 + [_P],
 }
+# the bf16 instantiations of the three-plane kernels take what their f32
+# entries take
+_SIGNATURES.update({name + "_bf16": _SIGNATURES[name] for name in (
+    "launch_select_apply", "launch_select", "launch_backup")})
 
 # what the last build in this process printed (ptxas's register, stack
 # and spill report); empty when the library was already built

@@ -27,9 +27,14 @@ no illegal move; on the card, each timed generation launched every kernel
 exactly as often as :func:`owed_launches` says (the launch counters move
 only on CUDA tensors, so on the CPU the plain versions run and the check is
 skipped).  The engine level is pinned for the run (``ALPHATPU_PACK``,
-``ALPHATPU_NO_PACK``; the caller's values are restored).
+``ALPHATPU_NO_PACK``; the caller's values are restored): level 1 unless
+the caller asks for 0 (``select_apply`` on three f32 planes, what bench.py
+runs under ``ALPHATPU_NO_PACK=1``) or 2.  Under ``ALPHATPU_BF16_STATS``
+the search stores its stats as bf16 planes (``tree.stat_dtype_for``) and
+runs level 0 whatever is asked, as bench.py does; the metric name then
+ends in ``_bf16stats`` (``_bf16`` names the bf16 tower).
 
-Fields beyond bench.py's: ``pack_level``, ``rounds_played``,
+Fields beyond bench.py's: ``pack_level``, ``stat_dtype``, ``rounds_played``,
 ``wall_s_all``, ``spread``, ``illegal_moves``, ``launches`` and
 ``launches_owed`` (per kernel wrapper, one timed generation),
 ``peak_mem_bytes`` (over the timed generations), ``device``, ``nn_mfu``
@@ -63,6 +68,7 @@ from .games import make_game
 from .mcts import kernels as K
 from .nets import MLP, apply_inference, config_for_game
 from .profile_generation import card_line
+from .mcts.tree import stat_dtype_for
 from .selfplay import SelfplayConfig, make_carry, selfplay_continuous
 
 BUFFER_CAPACITY = 2_000_000
@@ -76,7 +82,8 @@ PEAKS = {
     True: (989e12, "H100 SXM bfloat16 tensor cores, dense"),
 }
 ENGINE_SWITCHES = ("ALPHATPU_PACK", "ALPHATPU_NO_PACK")
-WALK_OF_LEVEL = {1: "select_apply_packed", 2: "select_apply_packed1"}
+WALK_OF_LEVEL = {0: "select_apply", 1: "select_apply_packed",
+                 2: "select_apply_packed1"}
 
 
 def schedule(game, games: int, rounds: int = 0, chunk: int = 0,
@@ -99,8 +106,8 @@ def owed_launches(pack_level: int, rollouts: int, rounds_played: int,
     superblock searches ``rollouts`` walks of its level's kernel and one
     ``backup`` flush."""
     if pack_level not in WALK_OF_LEVEL:
-        raise ValueError(f"pack_level {pack_level}: the bench runs level 1 "
-                         "or 2")
+        raise ValueError(f"pack_level {pack_level}: the bench runs level 0, "
+                         "1 or 2")
     owed = {k.__name__: 0 for k in K.KERNELS}
     owed[WALK_OF_LEVEL[pack_level]] = rollouts * rounds_played * superblocks
     owed["backup"] = rounds_played * superblocks
@@ -150,8 +157,12 @@ def generation(game, net_apply, buffer, cfg: SelfplayConfig, seed: int,
 def _pinned_engine(level: int):
     """The engine switches set for ``level``; the caller's restored after."""
     saved = {k: os.environ.get(k) for k in ENGINE_SWITCHES}
-    os.environ.pop("ALPHATPU_NO_PACK", None)
-    os.environ["ALPHATPU_PACK"] = str(level)
+    for k in ENGINE_SWITCHES:
+        os.environ.pop(k, None)
+    if level:
+        os.environ["ALPHATPU_PACK"] = str(level)
+    else:
+        os.environ["ALPHATPU_NO_PACK"] = "1"
     try:
         yield
     finally:
@@ -173,10 +184,16 @@ def measure(game_name="connect4", games=8192, rollouts=64, bf16=False,
             rounds=0, seed=0, chunk=0, superblock=0, pack_level=1,
             device="cuda"):
     """Three timed continuous-selfplay generations after a warm-up; returns
-    the result dict (module doc).  ``device="cuda"`` raises where torch
-    finds no card; a kernel that fails to build or launch raises too."""
+    the result dict (module doc).  ``pack_level`` 0, 1 or 2 picks the
+    engine; bf16 stats (``ALPHATPU_BF16_STATS``) run level 0 whatever it
+    says.  ``device="cuda"`` raises where torch finds no card; a kernel
+    that fails to build or launch raises too."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
+    stat_dtype = stat_dtype_for(rollouts)
+    bf16_stats = stat_dtype == torch.bfloat16
+    if bf16_stats:
+        pack_level = 0
     game = make_game(game_name)
     rounds, chunk, n_chunks, sb, n_sb = schedule(game, games, rounds, chunk,
                                                  superblock)
@@ -239,7 +256,8 @@ def measure(game_name="connect4", games=8192, rollouts=64, bf16=False,
 
     metric = (f"torch_selfplay_env_steps_per_s_{game_name}_g{games}"
               f"_r{rollouts}" + ("_bf16" if bf16 else "")
-              + (f"_l{pack_level}" if pack_level != 1 else "")
+              + ("_bf16stats" if bf16_stats else
+                 f"_l{pack_level}" if pack_level != 1 else "")
               + ("" if cuda else "_cpu"))
     return {
         "metric": metric,
@@ -271,6 +289,7 @@ def measure(game_name="connect4", games=8192, rollouts=64, bf16=False,
             "superblock_lanes": sb,
             "superblocks": n_sb,
             "pack_level": pack_level,
+            "stat_dtype": str(stat_dtype).removeprefix("torch."),
             "launches": counted,
             "launches_owed": owed,
             "peak_mem_bytes": peak_mem,

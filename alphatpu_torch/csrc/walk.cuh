@@ -10,13 +10,13 @@
 // template on a row loader: ``rows.load(i, &p, &w, &n)`` returns the prior,
 // value sum and visit count of the edge at flat index ``i`` of the
 // [A, V, G] planes as floats.  Each loader is exact (integer fields times a
-// power of two), so the walk's arithmetic is the same operation for
-// operation whatever the storage.  At each depth: the regularized policy of
-// the node (the latched Newton solve, or the raw prior on a node with no
-// visits), a CDF sample against probs[d], and the child lookup through
-// parent/action_from.  It stops at an unexpanded node or a missing child,
-// and records the path, the leaf, the leaf action, needs_alloc and the
-// depth-0 policy.
+// power of two, or a bf16 widened to f32), so the walk's arithmetic is the
+// same operation for operation whatever the storage.  At each depth: the
+// regularized policy of the node (the latched Newton solve, or the raw
+// prior on a node with no visits), a CDF sample against probs[d], and the
+// child lookup through parent/action_from.  It stops at an unexpanded node
+// or a missing child, and records the path, the leaf, the leaf action,
+// needs_alloc and the depth-0 policy.
 //
 // One walk, walk_group: K lanes of a warp per game, for all four kernels,
 // launched through one <K, S> dispatch, launch_group.
@@ -31,6 +31,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -43,19 +44,45 @@ constexpr float kAlphaFloor = 1e-4f;
 
 // Row loaders, one per storage of the edge stats.
 
-// Three f32 planes (select_apply.cu, select.cu).  Visit counts are whole
-// numbers below 2^24, as walk_group's integer reduction needs.
-struct F32Rows {
-  const float* prior;
-  const float* wsum;
-  const float* visits;
+// The storage types of the three-plane kernels (select_apply.cu, select.cu,
+// backup.cu): f32, or bf16 under ALPHATPU_BF16_STATS.  A load widens to
+// f32 exactly; a store rounds an f32 once, to nearest even, as torch's
+// .to(torch.bfloat16) and the reference's .astype(bfloat16) round.  For
+// f32 both are the identity, so the f32 instantiations keep their
+// instruction stream.
+__device__ __forceinline__ float stat_to_f32(float x) { return x; }
+__device__ __forceinline__ float stat_to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <class T>
+__device__ __forceinline__ T stat_from_f32(float x);
+template <>
+__device__ __forceinline__ float stat_from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 stat_from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Three planes of one storage type T.  Visit counts are whole numbers
+// below 2^24, as walk_group's integer reduction needs: bf16 holds them
+// exactly up to 256, where stat_dtype_for stops.
+template <class T>
+struct StatRows {
+  const T* prior;
+  const T* wsum;
+  const T* visits;
   __device__ __forceinline__ void load(size_t i, float* p, float* w,
                                        float* n) const {
-    *p = prior[i];
-    *w = wsum[i];
-    *n = visits[i];
+    *p = stat_to_f32(prior[i]);
+    *w = stat_to_f32(wsum[i]);
+    *n = stat_to_f32(visits[i]);
   }
 };
+using F32Rows = StatRows<float>;
+using Bf16Rows = StatRows<__nv_bfloat16>;
 
 // f32 prior plane + the packed [wsum * S u16 | visits u16] word
 // (select_apply_packed.cu).

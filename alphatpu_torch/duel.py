@@ -22,7 +22,7 @@ import torch
 from .games.base import where_games
 from .mcts.newton import cdf_sample, row_sum
 from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree
+from .mcts.tree import init_tree, reset_tree, stat_dtype_for
 from .selfplay import SelfplayUniforms, broadcast_initial
 
 
@@ -45,7 +45,8 @@ def duel_half(game, net_first: Callable, net_second: Callable,
     nets = (net_first, net_second)
     positions = broadcast_initial(game, G, device)
     dev = positions.player.device
-    tree = init_tree(game, positions, cfg.rollouts)
+    tree = init_tree(game, positions, cfg.rollouts,
+                     stat_dtype=stat_dtype_for(cfg.rollouts))
     done = torch.zeros((G,), dtype=torch.bool, device=dev)
     result = torch.zeros((G,), dtype=torch.int8, device=dev)
     for t in range(T):

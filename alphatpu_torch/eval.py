@@ -25,7 +25,7 @@ from .duel import DuelConfig, duel_network
 from .games.base import where_games
 from .mcts.newton import cdf_sample
 from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree
+from .mcts.tree import init_tree, reset_tree, stat_dtype_for
 from .selfplay import SelfplayUniforms, broadcast_initial
 
 
@@ -50,7 +50,8 @@ def _vs_random_half(game, net, generator, positions0, cfg: EvalConfig,
     T = cfg.max_moves or game.max_game_length
     dev = positions0.player.device
     positions = positions0
-    tree = init_tree(game, positions, cfg.rollouts)
+    tree = init_tree(game, positions, cfg.rollouts,
+                     stat_dtype=stat_dtype_for(cfg.rollouts))
     done = torch.zeros((G,), dtype=torch.bool, device=dev)
     result = torch.zeros((G,), dtype=torch.int8, device=dev)
     for t in range(T):

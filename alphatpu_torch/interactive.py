@@ -71,13 +71,14 @@ def make_engine(game, net, rollouts: int, cpuct: float):
     The node pool is allocated once per session (first call) and only
     ``reset_tree``-zeroed for each later move."""
     from .mcts.search import run_mcts
-    from .mcts.tree import init_tree, reset_tree
+    from .mcts.tree import init_tree, reset_tree, stat_dtype_for
 
     pool = []
 
     def choose(pos, generator=None):
         if not pool:
-            pool.append(init_tree(game, pos, rollouts))
+            pool.append(init_tree(game, pos, rollouts,
+                                  stat_dtype=stat_dtype_for(rollouts)))
         tree = reset_tree(pool[0], pos)
         _, pol = run_mcts(game, net, tree, rollouts=rollouts, cpuct=cpuct,
                           training=False, generator=generator)

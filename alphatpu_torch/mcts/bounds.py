@@ -11,16 +11,17 @@ from the kernel and from its plain version).
 
 What a walk must move, per game: the parent and action_from columns (V x
 8 B) if it looks up a child; one ``expanded`` flag per node it reaches;
-the stats row (A words of each stat plane) of each node whose policy it
-needs - the nodes it records, or the root when it records none; one
+the stats row (A elements of each stat plane: 4 B words, or 2 B for bf16
+planes) of each node whose policy it needs - the nodes it records, or the
+root when it records none; one
 uniform per recorded depth; and its outputs (the [D, G] path, leaf, leaf
 action, needs_alloc, the [A, G] root policy).  The apply phase of a
 select_apply kernel reads the pending flags and leaves, the [D, G] pending
 path, the length and value of each game with a pending edge, and for each
-pending edge its action and its stat words (read and written); each
-writing lane reads its new prior row and writes one word per action.  A
-word the apply phase writes and the walk then reads counts twice: a few
-words per game.
+pending edge its action and its stat elements (read and written); each
+writing lane reads its new f32 prior row and writes one element per
+action.  An element the apply phase writes and the walk then reads counts
+twice: a few per game.
 
 Operations are a lower bound: 9 f32 operations per action of each row a
 walk reads (one Newton evaluation - subtract, divide, two multiplies, two
@@ -39,13 +40,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # HBM3
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 
-# kernel -> (bytes of one edge's stats in a row read, bytes read and
-# written per pending edge, bytes of one prior-row word written)
+# kernel -> (stat elements of one edge in a row read, elements read and
+# written per pending edge, elements of one prior-row entry written), each
+# element of the planes' itemsize: 4 B for the packed kernels, 4 or 2 B
+# (f32 or bf16) for the three-plane kernels
 _STORAGE = {
-    "select_apply_packed": (8, 8, 4),  # f32 prior + the packed word
-    "select_apply_packed1": (4, 8, 4),  # the 1-plane word
-    "select_apply": (12, 16, 4),  # three f32 planes
-    "select": (12, 0, 0),
+    "select_apply_packed": (2, 2, 1),  # f32 prior + the packed word
+    "select_apply_packed1": (1, 2, 1),  # the 1-plane word
+    "select_apply": (3, 4, 1),  # three stat planes
+    "select": (3, 0, 0),
 }
 OPS_PER_ACTION = 9
 OPS_PER_EDGE = 3
@@ -74,11 +77,13 @@ class Cost(NamedTuple):
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
 
 
-def walk_cost(kernel: str, V: int, sel, pend=None) -> Cost:
+def walk_cost(kernel: str, V: int, sel, pend=None, itemsize: int = 4) -> Cost:
     """One call of the walk kernel ``kernel`` (a name of ``_STORAGE``) on a
     tree of V nodes that returned ``sel``, with the pending update
-    ``pend`` (select_apply kernels) applied first."""
-    row_bytes, edge_bytes, word_bytes = _STORAGE[kernel]
+    ``pend`` (select_apply kernels) applied first, on stat planes of
+    ``itemsize`` bytes an element (2 for bf16)."""
+    row_bytes, edge_bytes, word_bytes = (n * itemsize
+                                         for n in _STORAGE[kernel])
     A, G = sel.root_pi.shape
     D = sel.nodes.shape[0]
     recorded = (sel.nodes >= 0).sum(0)
@@ -101,12 +106,13 @@ def walk_cost(kernel: str, V: int, sel, pend=None) -> Cost:
     return Cost(nbytes, ops)
 
 
-def backup_cost(nodes) -> Cost:
+def backup_cost(nodes, itemsize: int = 4) -> Cost:
     """One backup call on the path ``nodes`` [D, G]: the whole path read,
     each game with an edge reads its length and value, each edge its
-    action and two f32 read-modify-writes."""
+    action and two read-modify-writes of ``itemsize`` bytes (4 for f32
+    planes, 2 for bf16)."""
     D, G = nodes.shape
     valid = nodes >= 0
     edges = int(valid.sum())
-    return Cost(D * G * 4 + int(valid.any(0).sum()) * 8 + edges * (4 + 16),
-                edges * OPS_PER_EDGE)
+    return Cost(D * G * 4 + int(valid.any(0).sum()) * 8
+                + edges * (4 + 4 * itemsize), edges * OPS_PER_EDGE)

@@ -11,12 +11,23 @@ written by hand in CUDA C++ for Hopper (``alphatpu_torch/csrc/``):
 * :func:`select_apply_packed1` - the level-2 engine: the same on the
   1-plane ``(prior | wsum | visits)`` word (replaces
   ``pallas_kernels.select_apply_packed1``),
-* :func:`select_apply` - the level-0 engine: the same on three f32 planes,
-  with unquantized values (replaces ``pallas_kernels.select_apply_pallas``),
-* :func:`select` - the read-only walk over three f32 planes, behind the
+* :func:`select_apply` - the level-0 engine: the same on three stat
+  planes, with unquantized values (replaces
+  ``pallas_kernels.select_apply_pallas``),
+* :func:`select` - the read-only walk over three stat planes, behind the
   per-phase search API (replaces ``pallas_kernels.select_pallas``),
-* :func:`backup` - the f32 backup adds of a recorded path: the flush after
+* :func:`backup` - the backup adds of a recorded path: the flush after
   every engine's rollout loop (replaces ``pallas_kernels.backup_pallas``).
+
+The three-plane kernels (:func:`select_apply`, :func:`select`,
+:func:`backup`) take f32 planes or, under ``ALPHATPU_BF16_STATS``
+(``tree.stat_dtype_for``), bf16 planes - one instantiation of each kernel
+per storage dtype, as the reference sized its blocks by the planes'
+itemsize.  Rows are read as f32; each backup add runs in f32 and is
+rounded once to the storage dtype, and so is each entry of a written
+prior row (round to nearest even); an untouched element round-trips
+exactly.  ``launches`` counts a wrapper's launches of either dtype,
+``launches_bf16`` those on bf16 planes.
 
 The four walks share one CUDA header (``csrc/walk.cuh``) and one plain
 walk (:func:`_walk_plain`); they differ in how a node's row is loaded.
@@ -27,7 +38,7 @@ not fit); :func:`backup` runs one thread per path depth and game
 (:func:`backup_geometry`).  Each
 wrapper runs its plain torch version (``*_plain``) when - and only when -
 its tensors lie on the CPU; on CUDA tensors it launches the kernel or
-raises.  ``launches`` on each wrapper counts the kernel launches.
+raises.
 
 Packed plane (level 1): one int32 word per edge, ``[round(wsum * S) u16 |
 visits u16]`` with ``S = value_scale(R)``.  1-plane word (level 2):
@@ -264,11 +275,12 @@ def _walk_plain(load_rows, parent, action_from, expanded, probs,
 
 def _write_rows(plane, pend: PendingUpdate, rows) -> None:
     """The pending prior-row write: ``rows`` [A, G] at each writing lane's
-    leaf, in place; leaf == V means a full tree: nothing to write."""
+    leaf, in place, rounded once to the plane's dtype; leaf == V means a
+    full tree: nothing to write."""
     V, G = plane.shape[1], plane.shape[2]
     g = torch.arange(G, device=plane.device)
     w = pend.write & (pend.leaf < V)
-    plane[:, pend.leaf.long()[w], g[w]] = rows[:, w]
+    plane[:, pend.leaf.long()[w], g[w]] = rows[:, w].to(plane.dtype)
 
 
 def _add_paths_packed(packed, pend: PendingUpdate, scale: int,
@@ -323,7 +335,7 @@ def select_apply_packed1_plain(packed, parent, action_from, expanded, probs,
 def select_apply_plain(prior, wsum, visits, parent, action_from, expanded,
                        probs, pend: PendingUpdate, cpuct: float) -> Selection:
     """Plain torch version of :func:`select_apply`: f32 adds of the
-    unquantized value, one per edge."""
+    unquantized value, one per edge, each rounded to the planes' dtype."""
     _write_rows(prior, pend, pend.newp)
     backup_plain(wsum, visits, pend.nodes, pend.actions, pend.length,
                  pend.value)
@@ -333,22 +345,26 @@ def select_apply_plain(prior, wsum, visits, parent, action_from, expanded,
 
 def select_plain(prior, wsum, visits, parent, action_from, expanded, probs,
                  cpuct: float) -> Selection:
-    """Plain torch version of :func:`select`: the read-only walk."""
+    """Plain torch version of :func:`select`: the read-only walk, on rows
+    read as f32."""
     return _walk_plain(
-        lambda n, g: (prior[:, n, g], wsum[:, n, g], visits[:, n, g]),
+        lambda n, g: (prior[:, n, g].float(), wsum[:, n, g].float(),
+                      visits[:, n, g].float()),
         parent, action_from, expanded, probs, cpuct)
 
 
 def backup_plain(wsum, visits, nodes, actions, length, value) -> None:
     """Plain torch version of :func:`backup`: per recorded path edge,
-    ``wsum += contrib`` and ``visits += 1`` in f32, in place."""
+    ``wsum += contrib`` and ``visits += 1`` in f32, each rounded once to
+    the planes' dtype, in place."""
     G = wsum.shape[2]
     g = torch.arange(G, device=wsum.device)
     for d in range(nodes.shape[0]):
         valid = nodes[d] >= 0
         idx = (actions[d].long()[valid], nodes[d].long()[valid], g[valid])
-        wsum[idx] = wsum[idx] + _path_contrib(length, value, d)[valid]
-        visits[idx] = visits[idx] + 1.0
+        contrib = _path_contrib(length, value, d)[valid]
+        wsum[idx] = (wsum[idx].float() + contrib).to(wsum.dtype)
+        visits[idx] = (visits[idx].float() + 1.0).to(visits.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +516,26 @@ def _selection_out(A, G, D, dev) -> Selection:
     )
 
 
+# the storage dtypes of the three-plane kernels -> their entry's suffix
+STAT_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def stat_dtype(kernel: str, *planes: torch.Tensor) -> torch.dtype:
+    """The one dtype of a three-plane kernel's stat planes, f32 or bf16;
+    mixed or other dtypes raise."""
+    dtypes = {t.dtype for t in planes}
+    if len(dtypes) != 1 or not dtypes <= STAT_DTYPES.keys():
+        raise ValueError(f"{kernel}: stat planes of dtypes "
+                         f"{sorted(map(str, dtypes))}: expected all f32 or "
+                         "all bf16")
+    return dtypes.pop()
+
+
+def _count(kernel, dtype: torch.dtype) -> None:
+    kernel.launches += 1
+    kernel.launches_bf16 += dtype == torch.bfloat16
+
+
 def _on_cuda(kernel: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor (the plain version
     runs); any other device raises."""
@@ -561,71 +597,72 @@ def select_apply_packed1(packed, parent, action_from, expanded, probs,
 
 def select_apply(prior, wsum, visits, parent, action_from, expanded, probs,
                  pend: PendingUpdate, cpuct: float) -> Selection:
-    """:func:`select_apply_packed` on three f32 planes ``prior``, ``wsum``
-    and ``visits`` [A, V, G] (updated in place), with the pending value
-    backed up as it is (no quantization)."""
+    """:func:`select_apply_packed` on three stat planes ``prior``, ``wsum``
+    and ``visits`` [A, V, G], all f32 or all bf16 (updated in place), with
+    the pending value backed up as it is (no quantization)."""
+    dt = stat_dtype("select_apply", prior, wsum, visits)
     if not _on_cuda("select_apply", prior):
         return select_apply_plain(prior, wsum, visits, parent, action_from,
                                   expanded, probs, pend, cpuct)
-    f32 = torch.float32
     A, V, G, D = _check_walk(
-        "select_apply", (("prior", prior, f32), ("wsum", wsum, f32),
-                         ("visits", visits, f32)),
+        "select_apply", (("prior", prior, dt), ("wsum", wsum, dt),
+                         ("visits", visits, dt)),
         parent, action_from, expanded, probs, pend)
     geometry = walk_geometry(A, G, V)
     out = _selection_out(A, G, D, prior.device)
-    _launch("launch_select_apply", prior.device, prior, wsum, visits, parent,
-            action_from, expanded, probs, *pend, *out, A, V, G, D,
-            ctypes.c_float(cpuct), *geometry)
-    select_apply.launches += 1
+    _launch("launch_select_apply" + STAT_DTYPES[dt], prior.device, prior,
+            wsum, visits, parent, action_from, expanded, probs, *pend, *out,
+            A, V, G, D, ctypes.c_float(cpuct), *geometry)
+    _count(select_apply, dt)
     return out
 
 
 def select(prior, wsum, visits, parent, action_from, expanded, probs,
            cpuct: float) -> Selection:
-    """The read-only walk over three f32 planes [A, V, G]: every game from
-    its root to a leaf."""
+    """The read-only walk over three stat planes [A, V, G], all f32 or all
+    bf16: every game from its root to a leaf."""
+    dt = stat_dtype("select", prior, wsum, visits)
     if not _on_cuda("select", prior):
         return select_plain(prior, wsum, visits, parent, action_from,
                             expanded, probs, cpuct)
-    f32 = torch.float32
     A, V, G, D = _check_walk(
-        "select", (("prior", prior, f32), ("wsum", wsum, f32),
-                   ("visits", visits, f32)),
+        "select", (("prior", prior, dt), ("wsum", wsum, dt),
+                   ("visits", visits, dt)),
         parent, action_from, expanded, probs)
     geometry = walk_geometry(A, G, V)
     out = _selection_out(A, G, D, prior.device)
-    _launch("launch_select", prior.device, prior, wsum, visits, parent,
-            action_from, expanded, probs, *out, A, V, G, D,
+    _launch("launch_select" + STAT_DTYPES[dt], prior.device, prior, wsum,
+            visits, parent, action_from, expanded, probs, *out, A, V, G, D,
             ctypes.c_float(cpuct), *geometry)
-    select.launches += 1
+    _count(select, dt)
     return out
 
 
 def backup(wsum, visits, nodes, actions, length, value) -> None:
     """Per recorded path edge, ``wsum += parity-flipped value`` and
-    ``visits += 1`` (f32, in place).  wsum/visits f32[A, V, G], nodes and
-    actions i32[D, G] (node -1 = nothing recorded), length i32[G], value
-    f32[G]."""
+    ``visits += 1`` (in f32, rounded once to the planes' dtype, in place).
+    wsum/visits [A, V, G], both f32 or both bf16; nodes and actions
+    i32[D, G] (node -1 = nothing recorded), length i32[G], value f32[G]."""
+    dt = stat_dtype("backup", wsum, visits)
     if not _on_cuda("backup", wsum):
         return backup_plain(wsum, visits, nodes, actions, length, value)
     A, V, G = wsum.shape
     D = nodes.shape[0]
     dev = wsum.device
-    for name, t, dt, shape in (
-        ("wsum", wsum, torch.float32, (A, V, G)),
-        ("visits", visits, torch.float32, (A, V, G)),
+    for name, t, want, shape in (
+        ("wsum", wsum, dt, (A, V, G)),
+        ("visits", visits, dt, (A, V, G)),
         ("nodes", nodes, torch.int32, (D, G)),
         ("actions", actions, torch.int32, (D, G)),
         ("length", length, torch.int32, (G,)),
         ("value", value, torch.float32, (G,)),
     ):
-        _check(f"backup: {name}", t, dt, shape, dev)
+        _check(f"backup: {name}", t, want, shape, dev)
     if D > 65535:
         raise ValueError(f"backup: D={D} exceeds the grid's 65535 depths")
-    _launch("launch_backup", dev, wsum, visits, nodes, actions, length, value,
-            A, V, G, D, *backup_geometry(G))
-    backup.launches += 1
+    _launch("launch_backup" + STAT_DTYPES[dt], dev, wsum, visits, nodes,
+            actions, length, value, A, V, G, D, *backup_geometry(G))
+    _count(backup, dt)
 
 
 KERNELS = (select_apply_packed, select_apply_packed1, select_apply, select,
@@ -635,6 +672,7 @@ KERNELS = (select_apply_packed, select_apply_packed1, select_apply, select,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.launches_bf16 = 0
 
 
 reset_launch_counts()

@@ -28,6 +28,13 @@ The engines (:func:`engine_level`):
   pre-grown tree, ``segment_rollouts=False``): ``select_apply`` on three
   f32 planes, values unquantized.
 
+A tree of bf16 stat planes (``ALPHATPU_BF16_STATS``,
+:func:`~alphatpu_torch.mcts.tree.stat_dtype_for`) always runs level 0, on
+the bf16 instantiations of ``select_apply`` and ``backup``; a level asked
+for is ignored, as in the reference.  Every policy reads the rows as f32,
+and a stored value is rounded once to bf16 where the reference rounds it:
+at each backup add and at each prior-row write.
+
 The tree is updated in place throughout; the reference rebuilt its arrays.
 """
 from __future__ import annotations
@@ -44,9 +51,11 @@ from .tree import Tree, gather_states, scatter_states
 
 
 def node_policy(prior_row, wsum_row, visits_row, cpuct):
-    """Regularized policy for gathered node rows ([A, G] each), with the
-    fresh-node shortcut: a node whose edges have no visits returns its
-    stored prior."""
+    """Regularized policy for gathered node rows ([A, G] each, read as
+    f32), with the fresh-node shortcut: a node whose edges have no visits
+    returns its stored prior."""
+    prior_row, wsum_row, visits_row = (
+        x.float() for x in (prior_row, wsum_row, visits_row))
     q_row = torch.where(visits_row > 0,
                         wsum_row / torch.clamp_min(visits_row, 1.0), 0.0)
     pi = regularized_policy(prior_row, q_row, visits_row, cpuct)
@@ -71,9 +80,11 @@ def expand(game, tree: Tree, node, leaf_action, needs_alloc, leaf_states,
     ``0.75 * p + 0.25 * uniform`` over the legal moves (the reference's
     hard-coded exploration mix); zero on terminal leaves.
 
-    ``prior_nn``: [A, G].  Returns ``(leaf, done, result, newp)``.  With
-    ``write_prior=False`` the prior plane is left untouched and the caller
-    owes the write (the rollout loop defers it into the next kernel)."""
+    ``prior_nn``: [A, G].  Returns ``(leaf, done, result, newp)``, newp
+    in f32; the row written into the tree is rounded to the prior plane's
+    dtype.  With ``write_prior=False`` the prior plane is left untouched
+    and the caller owes the write (the rollout loop defers it into the
+    next kernel)."""
     V = tree.num_nodes
     G = tree.num_games
     g = torch.arange(G, device=tree.device)
@@ -103,7 +114,8 @@ def expand(game, tree: Tree, node, leaf_action, needs_alloc, leaf_states,
     inside = leaf < V
     tree.expanded[leaf.long()[inside], g[inside]] = ~done[inside]
     if write_prior:
-        tree.prior[:, leaf.long()[inside], g[inside]] = newp[:, inside]
+        tree.prior[:, leaf.long()[inside], g[inside]] = newp[:, inside].to(
+            tree.prior.dtype)
     return leaf, done, result, newp
 
 
@@ -168,22 +180,27 @@ def backup(tree: Tree, path: Path, leaf_player, value_nn, done, result,
 
 
 def backup_flush(tree: Tree, pend: K.PendingUpdate) -> None:
-    """Apply a pending update's backup adds to the f32 stats, in place
-    (the flush after the rollout loop; one kernel launch)."""
+    """Apply a pending update's backup adds to the stats, in place (the
+    flush after the rollout loop; one kernel launch)."""
     K.backup(tree.wsum, tree.visits, pend.nodes, pend.actions, pend.length,
              pend.value)
 
 
-def engine_level(packed_stats, segment_rollouts: bool) -> int:
-    """The engine ``run_mcts`` runs: 0 (f32), 1 (packed) or 2 (1-plane).
+def engine_level(packed_stats, segment_rollouts: bool,
+                 stat_dtype: torch.dtype = torch.float32) -> int:
+    """The engine ``run_mcts`` runs: 0 (three planes), 1 (packed) or 2
+    (1-plane).
 
     ``packed_stats=None`` picks ``ALPHATPU_PACK`` (default 1) on a fresh
-    tree, and the f32 engine under ``ALPHATPU_NO_PACK`` or on a pre-grown
-    tree (``segment_rollouts=False``); both switches are read at each call.
-    An explicit level >= 1 on a pre-grown tree raises: the packed fields
-    bound one fresh search's stats only."""
+    tree, and level 0 under ``ALPHATPU_NO_PACK`` or on a pre-grown tree
+    (``segment_rollouts=False``); both switches are read at each call.  An
+    explicit level >= 1 on a pre-grown tree raises: the packed fields bound
+    one fresh search's stats only.  bf16 stats (``stat_dtype``) always run
+    level 0: the packed planes are an f32-storage design, so the switches
+    and an explicit level on a fresh tree are ignored there."""
+    bf16 = stat_dtype == torch.bfloat16
     if packed_stats is None:
-        if not segment_rollouts or os.environ.get("ALPHATPU_NO_PACK"):
+        if not segment_rollouts or os.environ.get("ALPHATPU_NO_PACK") or bf16:
             return 0
         level = int(os.environ.get("ALPHATPU_PACK") or 1)
     else:
@@ -194,6 +211,8 @@ def engine_level(packed_stats, segment_rollouts: bool) -> int:
                 "(segment_rollouts=True): the packed fields bound a single "
                 "search's visits and wsum only.  Search a pre-grown tree "
                 "with packed_stats=False (the f32 engine).")
+        if bf16:
+            return 0
     if level not in (0, 1, 2):
         raise ValueError(f"stat engine level {level}: expected 0, 1 or 2")
     return level
@@ -228,17 +247,13 @@ def run_mcts(
     the policy recomputed from the final stats.
 
     ``segment_rollouts=False`` declares a pre-grown tree, and
-    ``packed_stats`` picks the engine (:func:`engine_level`).  The stats
-    must be f32.  The reference's ``vseg`` node-span segmentation is
-    dropped: it bounded the TPU's HBM stream of each rollout and never
-    changed a result.
+    ``packed_stats`` picks the engine (:func:`engine_level`).  The three
+    stat planes must be all f32 or all bf16 (bf16: level 0 always).  The
+    reference's ``vseg`` node-span segmentation is dropped: it bounded the
+    TPU's HBM stream of each rollout and never changed a result.
     """
-    level = engine_level(packed_stats, segment_rollouts)
-    for name in ("prior", "wsum", "visits"):
-        if getattr(tree, name).dtype != torch.float32:
-            raise ValueError(f"{name} stats of dtype "
-                             f"{getattr(tree, name).dtype}: only f32 stats "
-                             "are supported")
+    level = engine_level(packed_stats, segment_rollouts, K.stat_dtype(
+        "run_mcts", tree.prior, tree.wsum, tree.visits))
     G, A, V = tree.num_games, tree.num_actions, tree.num_nodes
     dev = tree.device
     depth_cap = min(game.max_game_length, V)
@@ -305,7 +320,8 @@ def run_mcts(
     # rollout's writes; packed values are on the 1/scale grid, so the f32
     # adds equal the fixed-point adds the kernel would have made.  The
     # prior write is gated on pend.write: a rollouts == 0 search leaves the
-    # root row of a pre-grown tree alone.
+    # root row of a pre-grown tree alone; on bf16 planes it rounds the row
+    # once, as the flush's backup rounds each add.
     row = pend.newp
     if level == 2:
         tree.prior.copy_(K.unpack1_prior(plane, layout))
@@ -317,7 +333,8 @@ def run_mcts(
         tree.visits.copy_(K.unpack_visits(plane))
     w = pend.write & (pend.leaf < V)
     g = torch.arange(G, device=dev)
-    tree.prior[:, pend.leaf.long()[w], g[w]] = row[:, w]
+    tree.prior[:, pend.leaf.long()[w], g[w]] = row[:, w].to(
+        tree.prior.dtype)
     backup_flush(tree, pend)
     if final_root_policy:
         root_pi = node_policy(tree.prior[:, 0, :], tree.wsum[:, 0, :],

@@ -10,10 +10,14 @@ The reference selects and updates nodes with one-hot masked reduces (its
 hardware has no fast gather); here they are indexed gathers and scatters.
 Arrays are updated in place where the reference rebuilt them:
 :func:`reset_tree` refills the pool it is given.
+
+The stat planes are f32, or bf16 under ``ALPHATPU_BF16_STATS``
+(:func:`stat_dtype_for`); all policy math reads them as f32.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import torch
@@ -25,9 +29,9 @@ class Tree:
     action_from: torch.Tensor  # i32[V, G]
     expanded: torch.Tensor  # bool[V, G]
     states: Any  # game-state NamedTuple, leaves [V, *S, G]
-    prior: torch.Tensor  # f32[A, V, G]
-    wsum: torch.Tensor  # f32[A, V, G] - per-edge backed-up value sum
-    visits: torch.Tensor  # f32[A, V, G]
+    prior: torch.Tensor  # f32 or bf16 [A, V, G]
+    wsum: torch.Tensor  # [A, V, G], prior's dtype - per-edge value sum
+    visits: torch.Tensor  # [A, V, G], prior's dtype
     next_idx: torch.Tensor  # i32[G] - next free node slot
 
     @property
@@ -58,9 +62,24 @@ def _node_major(tree_leaf: torch.Tensor) -> torch.Tensor:
     return torch.movedim(tree_leaf, -1, 1)
 
 
-def init_tree(game, positions, num_nodes: int) -> Tree:
+def stat_dtype_for(rollouts: int) -> torch.dtype:
+    """The storage dtype of the stat planes of a search of ``rollouts``
+    nodes: bf16 when ``ALPHATPU_BF16_STATS`` is set and every stored
+    visit count stays a whole number bf16 holds exactly (at most 256),
+    with ``rollouts`` a multiple of 16 (the reference's bf16 tile); f32
+    otherwise.  Opt-in, as in the reference: the default engine packs the
+    stats instead."""
+    if os.environ.get("ALPHATPU_BF16_STATS") and (
+            rollouts <= 256 and rollouts % 16 == 0):
+        return torch.bfloat16
+    return torch.float32
+
+
+def init_tree(game, positions, num_nodes: int,
+              stat_dtype: torch.dtype = torch.float32) -> Tree:
     """A pool of ``num_nodes`` nodes per game with ``positions`` (leaves
-    leading with G) installed as the roots, on the positions' device."""
+    leading with G) installed as the roots, on the positions' device, with
+    stat planes of ``stat_dtype`` (:func:`stat_dtype_for`)."""
     G = positions.player.shape[0]
     V = num_nodes
     A = game.max_actions
@@ -77,16 +96,17 @@ def init_tree(game, positions, num_nodes: int) -> Tree:
         action_from=torch.zeros((V, G), dtype=torch.int32, device=dev),
         expanded=torch.zeros((V, G), dtype=torch.bool, device=dev),
         states=type(positions)(*(alloc_state(x) for x in positions)),
-        prior=torch.zeros((A, V, G), dtype=torch.float32, device=dev),
-        wsum=torch.zeros((A, V, G), dtype=torch.float32, device=dev),
-        visits=torch.zeros((A, V, G), dtype=torch.float32, device=dev),
+        prior=torch.zeros((A, V, G), dtype=stat_dtype, device=dev),
+        wsum=torch.zeros((A, V, G), dtype=stat_dtype, device=dev),
+        visits=torch.zeros((A, V, G), dtype=stat_dtype, device=dev),
         next_idx=torch.ones((G,), dtype=torch.int32, device=dev),
     )
 
 
 def reset_tree(tree: Tree, positions) -> Tree:
-    """Recycle the pool for the next move, in place: zero all stats,
-    install the new roots, mark everything unexpanded."""
+    """Recycle the pool for the next move, in place: zero all stats
+    (their dtype kept), install the new roots, mark everything
+    unexpanded."""
     tree.parent.fill_(-1)
     tree.action_from.zero_()
     tree.expanded.zero_()

@@ -572,7 +572,7 @@ def eval_vs_probe(game, net, generator=None, probe=None, *,
     from .games.base import where_games
     from .mcts.newton import cdf_sample
     from .mcts.search import run_mcts
-    from .mcts.tree import init_tree, reset_tree
+    from .mcts.tree import init_tree, reset_tree, stat_dtype_for
     from .selfplay import broadcast_initial
 
     dev = resolve_device(device)
@@ -582,7 +582,8 @@ def eval_vs_probe(game, net, generator=None, probe=None, *,
     host_rngs = [np.random.default_rng(seed * 100003 + i) for i in range(G)]
 
     positions = broadcast_initial(game, G, dev)
-    tree = init_tree(game, positions, rollouts)
+    tree = init_tree(game, positions, rollouts,
+                     stat_dtype=stat_dtype_for(rollouts))
     done = np.zeros(G, bool)
     result = np.zeros(G, np.int8)
     enc = game.encode(positions).cpu().numpy()

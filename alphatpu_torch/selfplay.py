@@ -36,7 +36,7 @@ from .buffer import ReplayBuffer, write_samples
 from .games.base import where_games
 from .mcts.newton import cdf_sample, row_sum
 from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree
+from .mcts.tree import init_tree, reset_tree, stat_dtype_for
 
 
 class SelfplayConfig(NamedTuple):
@@ -140,7 +140,8 @@ def selfplay_generation(game, net, buffer: ReplayBuffer,
     A = game.max_actions
     dev = buffer.state.device
     positions = broadcast_initial(game, G, dev)
-    tree = init_tree(game, positions, cfg.rollouts)
+    tree = init_tree(game, positions, cfg.rollouts,
+                     stat_dtype=stat_dtype_for(cfg.rollouts))
     done = torch.zeros((G,), dtype=torch.bool, device=dev)
     result = torch.zeros((G,), dtype=torch.int8, device=dev)
     fin_t = torch.zeros((G,), dtype=torch.int32, device=dev)
@@ -223,7 +224,8 @@ def selfplay_continuous(game, net, buffer: ReplayBuffer,
     gen = carry.rng
     g = torch.arange(G, device=dev)
     fresh = broadcast_initial(game, G, dev)
-    tree = init_tree(game, carry.positions, cfg.rollouts)
+    tree = init_tree(game, carry.positions, cfg.rollouts,
+                     stat_dtype=stat_dtype_for(cfg.rollouts))
 
     positions = carry.positions
     eid = torch.zeros((G,), dtype=torch.int32, device=dev)

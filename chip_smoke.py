@@ -20,7 +20,11 @@ Phases, each fatal on failure:
    where ``select_apply_packed``'s time goes (``walk_breakdown``); and
    the four walks on a synthetic tree whose parent and action_from columns
    do not fit a block's shared memory (A=7, V=8000, G=512: the device
-   placement), timed beside their bounds,
+   placement), timed beside their bounds; then the bf16 instantiations of
+   ``select_apply``, ``select`` and ``backup`` (``ALPHATPU_BF16_STATS``)
+   against their plain versions, bit for bit and timed, on a connect4 tree
+   grown on bf16 planes, on the A=169 tree and (the two walks) in the
+   device placement, both rounded to bf16,
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
@@ -54,7 +58,9 @@ Phases, each fatal on failure:
    stage,
 11. the CLI end to end, in process (``alphatpu_torch.cli.main``): two
    tictactoe generations at 1024 games, then a third resumed from the
-   checkpoint,
+   checkpoint; then the loss replay
+   (``alphatpu_torch.benchmarks.ttt_loss_replay``) of the third
+   checkpoint against the perfect player, with its verdict counts,
 12. evaluation and play: ``eval_vs_probe`` on connect4 (4x512, 64 games,
    64 rollouts, against a depth-4 ``LineProbe``), ``eval_vs_random`` on
    tictactoe (6x128, 256 games, 64 rollouts) and five moves of the
@@ -80,14 +86,23 @@ Phases, each fatal on failure:
    continuous selfplay with res2,
 15. the bench (``python -m alphatpu_torch.bench``'s ``measure``) on
    connect4 at 8192 lanes, 8 rounds in chained chunks of 4, at levels 1
-   and 2 and with a bf16 tower - each a warm-up and three timed
+   and 2, with a bf16 tower, and at level 0 - each a warm-up and three timed
    generations, its launches as owed, no illegal move, the repeats'
    identical work, every lane deciding every round; one JSON line each -
    then the rollout ablation's full and select-only variants at 8192
    lanes (``select`` and ``backup`` launched once a rollout as owed),
-16. a JSON line of the kernels (for the four walks also ``ms_device`` and
-   ``bound_ms_device``, at the device placement's shape), then the result
-   line ``{"ok": true, "device": {...}}``.
+16. the bf16 stat storage end to end, under ``ALPHATPU_BF16_STATS=1``:
+   a connect4 search on bf16 planes on the card against the CPU path (512
+   lanes), the per-phase API on bf16 planes against ``run_mcts`` (8192
+   lanes, bit for bit), the bench's ``measure`` at 8192 lanes (8 rounds in
+   chunks of 4; ``select_apply`` 64 launches a round and ``backup`` 1, the
+   packed kernels none, no illegal move), a 512-lane duel half and a short
+   ``eval_vs_probe`` on connect4 - every launch of the three kernels on
+   bf16 planes,
+17. a JSON line of the kernels (for the four walks also ``ms_device`` and
+   ``bound_ms_device``, at the device placement's shape; a row for each
+   bf16 instantiation, ``<name>_bf16``), then the result line
+   ``{"ok": true, "device": {...}}``.
 
 Launch counts: before each path every count is set to 0, and after it the
 counts must be exactly what the path owes (launches made for the parity
@@ -97,7 +112,8 @@ plies, ``eval_vs_random`` 2 x 9 x 64 and 2 x 9, the interactive engine
 128 and 1 a move.  The kernels line reports, for
 ``select_apply_packed`` and ``backup``, the launches of the CLI run (the
 main path, phase 11); for the other three kernels those of the path that
-runs each (phases 6 and 7).
+runs each (phases 6 and 7); for the bf16 instantiations those of phase
+16's bench generation and (``select``) its per-phase search.
 
 Kernel parity: each walk kernel and its plain version sum in the same
 order and round each operation alike, so the stat planes after the apply
@@ -151,7 +167,14 @@ ZOO_ROUNDS = 4
 # phase 15: the bench's cut rounds and chunk, its runs (measure's keyword
 # arguments), and the ablation's variants
 BENCH_ROUNDS, BENCH_CHUNK = 8, 4
-BENCH_RUNS = ({"pack_level": 1}, {"pack_level": 2}, {"bf16": True})
+BENCH_RUNS = ({"pack_level": 1}, {"pack_level": 2}, {"bf16": True},
+              {"pack_level": 0})
+# phase 11: the loss replay's sampling plies (the probe protocol's)
+REPLAY_TEMP_MOVES = 8
+# phase 16: the duel half (games, rollouts, move bound) and the
+# eval_vs_probe (games, probe depth) under ALPHATPU_BF16_STATS
+BF16_DUEL = (512, 32, 12)
+BF16_PROBE = (16, 2)
 ABLATE_VARIANTS = ("full", "select-only")
 # (game, rollouts = tree nodes, lanes, cpuct, training) of phase 9
 PATH_SHAPES = (
@@ -184,6 +207,9 @@ KERNELS = {
     "select": ("select.cu", "640"),
     "backup": ("backup.cu", "1349"),
 }
+# the kernels with a bf16 instantiation (ALPHATPU_BF16_STATS): its row in
+# the kernels line is the name + "_bf16"
+BF16_KERNELS = ("select_apply", "select", "backup")
 
 
 def card_line() -> str:
@@ -363,6 +389,17 @@ def synthetic_tree_on(dev, A, V, G, scale, seed):
                 next_idx=next_idx)
 
 
+def as_bf16(tree):
+    """``tree`` with its stat planes rounded to bf16 (the rest shared)."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(
+        tree, **{f: getattr(tree, f).to(torch.bfloat16)
+                 for f in ("prior", "wsum", "visits")})
+
+
 def backup_yardstick(wsum, visits, nodes, actions, length, value):
     """The backup as two ``index_put_(accumulate=True)`` calls on flat
     indices: returns ``fn(wsum, visits)`` that adds in place, with the
@@ -374,7 +411,10 @@ def backup_yardstick(wsum, visits, nodes, actions, length, value):
     d, g = (nodes >= 0).nonzero(as_tuple=True)
     flat = (actions[d, g].long() * V + nodes[d, g].long()) * G + g
     k = length[g] - 1 - d
-    contrib = torch.where(k % 2 == 0, 1.0 - value[g], value[g])
+    # on bf16 planes index_put_ adds bf16 values: the contribution is
+    # rounded before the add, the kernel rounds once after it
+    contrib = torch.where(k % 2 == 0, 1.0 - value[g], value[g]).to(
+        wsum.dtype)
     ones = torch.ones_like(contrib)
 
     def fn(w, n):
@@ -398,7 +438,9 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
     a level-1 ``scale``, ``D`` depths), or of those named in ``kernels``:
     each kernel against its plain version with an
     empty and with a real pending update, and select against
-    select_apply's walk bit for bit.  With ``timed``, each kernel's device
+    select_apply's walk bit for bit.  On a tree of bf16 stat planes the
+    three-plane kernels (``BF16_KERNELS``) run their bf16 instantiations.
+    With ``timed``, each kernel's device
     time, its bound on this call's inputs (``alphatpu_torch.mcts.bounds``),
     its plain version's wall time and, for backup, the library yardstick's
     device time.  Returns {name: {"err", "ms", "plain_ms", "cost",
@@ -408,6 +450,7 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
     from alphatpu_torch.mcts.bounds import backup_cost, walk_cost
 
     prior, wsum, visits = tree.prior, tree.wsum, tree.visits
+    itemsize = prior.element_size()
     A, V, G = prior.shape
     dev = prior.device
     walk = (tree.parent, tree.action_from, tree.expanded)
@@ -452,7 +495,8 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
         depth = float((sel.nodes >= 0).sum(0).float().mean())
         longest = int((sel2.nodes >= 0).sum(0).max())  # of the timed walk
         r = out[name] = {"err": max(e1, e2), "ms": None, "plain_ms": None,
-                         "cost": walk_cost(name, V, sel2, pend),
+                         "cost": walk_cost(name, V, sel2, pend,
+                                           itemsize=planes[0].element_size()),
                          "library_ms": None}
         if timed:
             reps = 20
@@ -485,7 +529,8 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
             if not all(torch.equal(x, y) for x, y in zip(sk, s4)):
                 raise AssertionError("select differs from select_apply's walk")
         r = out[name] = {"err": max(errs), "ms": None, "plain_ms": None,
-                         "cost": walk_cost(name, V, sk), "library_ms": None}
+                         "cost": walk_cost(name, V, sk, itemsize=itemsize),
+                         "library_ms": None}
         if timed:
             # a copy of the planes per launch, as for the other kernels: the
             # three planes fit the 50 MB L2, and a search finds them cold
@@ -506,8 +551,8 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
     if "backup" not in kernels:
         return out
 
-    # backup: the flush of a pending update onto the f32 stats (the path
-    # of the last engine's walk above)
+    # backup: the flush of a pending update onto the stats (the path of
+    # the last engine's walk above)
     name = "backup"
     value = torch.rand((G,), generator=gen, device=dev)
     path = (sel.nodes, sel.actions, pend.length, value)
@@ -518,10 +563,13 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
     torch.cuda.synchronize()
     if not torch.equal(bk[1], bp[1]):
         raise AssertionError("backup: visits differ")
+    if itemsize == 2 and not torch.equal(bk[0], bp[0]):
+        raise AssertionError("backup: bf16 wsum differs")
     torch.testing.assert_close(bk[0], bp[0], rtol=1e-6, atol=0.0)
     err = float(max((bk[0] - bp[0]).abs().max(), (bk[1] - bp[1]).abs().max()))
     r = out[name] = {"err": err, "ms": None, "plain_ms": None,
-                     "cost": backup_cost(sel.nodes), "library_ms": None}
+                     "cost": backup_cost(sel.nodes, itemsize),
+                     "library_ms": None}
     if timed:
         reps = 20
         copies = [(wsum.clone(), visits.clone()) for _ in range(reps + 1)]
@@ -529,9 +577,12 @@ def parity(K, tree, D, gen, cpuct, scale, label, timed, kernels=KERNELS):
         library = backup_yardstick(wsum, visits, *path)
         copies = [(wsum.clone(), visits.clone()) for _ in range(reps + 1)]
         r["library_ms"] = device_ms(lambda i: library(*copies[i]), reps)
-        # copies[1] took one call (device_ms runs fn(0) twice)
-        if not (torch.equal(copies[1][0], bk[0])
-                and torch.equal(copies[1][1], bk[1])):
+        # copies[1] took one call (device_ms runs fn(0) twice); on bf16
+        # planes its double rounding may put wsum one bf16 step away
+        lib_w, lib_n = copies[1]
+        step = (lib_w.float() - bk[0].float()).abs() <= (
+            bk[0].float().abs() * 2.0 ** -7 if itemsize == 2 else 0.0)
+        if not (bool(step.all()) and torch.equal(lib_n, bk[1])):
             raise AssertionError("backup: the index_put_ yardstick differs")
         copies = [(wsum.clone(), visits.clone()) for _ in range(4)]
         r["plain_ms"] = wall_ms(lambda i: K.backup_plain(*copies[i], *path),
@@ -585,14 +636,17 @@ def walk_breakdown(K, tree, D, gen, scale, card):
 
 
 def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
-                  training=True, rollouts=None):
+                  training=True, rollouts=None, stat_dtype=None):
     """``run_mcts`` at one engine level on the card and on the CPU, from
     the same uniforms, ``rollouts`` of them (default V) on trees of V
     nodes.  Exact: the tree structure, visits and (packed
     levels) wsum; the level-2 prior to one step of its 1/2048 grid, other
     floats to rtol 1e-4 (the net's matmuls round differently on the two
     devices, and a leaf value or prior that lands on the other side of a
-    grid point changes a lane; those lanes count as diverged)."""
+    grid point changes a lane; those lanes count as diverged).  On bf16
+    stat planes (``stat_dtype``; level 0 whatever ``level`` says) a stored
+    value rounds once more, so prior, wsum and the root policy may lie one
+    bf16 step (2^-7 relative) apart."""
     import torch
 
     from alphatpu_torch.mcts.search import run_mcts
@@ -602,12 +656,15 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
     R = V if rollouts is None else rollouts
     D = min(game.max_game_length, V)
     probs = torch.rand((R, D, G), generator=torch.Generator().manual_seed(1))
+    dtype = stat_dtype or torch.float32
     searched = []
     for d, n in ((dev, net), (cpu, net_cpu)):
-        t = init_tree(game, game.initial(G, d), V)
+        t = init_tree(game, game.initial(G, d), V, stat_dtype=dtype)
         _, pi = run_mcts(game, n, t, rollouts=R, cpuct=cpuct,
                          training=training, probs=probs.to(d),
                          packed_stats=level)
+        if {x.dtype for x in (t.prior, t.wsum, t.visits)} != {dtype}:
+            raise AssertionError(f"search: stat planes not {dtype}")
         searched.append((t, pi))
     (tg, pig), (tc, pic) = searched
     fields = ["parent", "action_from", "expanded", "next_idx", "visits"]
@@ -621,15 +678,17 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
                              "diverged lanes")
     ok = ~bad
     grid = 1.0 / 2048 if level == 2 else 0.0
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(tg.prior.cpu()[..., ok], tc.prior[..., ok],
-                               rtol=1e-4, atol=1e-6 + grid)
+                               rtol=rtol, atol=1e-6 + grid)
     torch.testing.assert_close(tg.wsum.cpu()[..., ok], tc.wsum[..., ok],
-                               rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(pig.cpu()[:, ok], pic[:, ok], rtol=1e-4,
+                               rtol=rtol, atol=1e-5)
+    torch.testing.assert_close(pig.cpu()[:, ok], pic[:, ok], rtol=rtol,
                                atol=1e-6 + grid)
     print(f"search on the card vs the CPU path, {game.name}, level {level} "
-          f"(G={G}, R={R}, V={V}, cpuct {cpuct}, training={training}): "
-          f"diverged lanes {n_bad}/{G}")
+          f"(G={G}, R={R}, V={V}, cpuct {cpuct}, training={training}"
+          + (", bf16 stat planes" if dtype == torch.bfloat16 else "")
+          + f"): diverged lanes {n_bad}/{G}")
 
 
 def big_tree_searches(K, game, net, net_cpu, dev, card) -> None:
@@ -965,11 +1024,14 @@ class Tee:
 def cli_run(K, dev, card: str) -> dict:
     """Phase 11: ``alphatpu_torch.cli.main`` in process on ``dev`` - two
     tictactoe generations at CLI_GAMES games, then a third resumed from the
-    checkpoint.  Returns the launches of the three runs."""
+    checkpoint; then the loss replay of the third checkpoint (64 probe
+    games against the perfect player, REPLAY_TEMP_MOVES sampled plies).
+    Returns the launches of the three CLI runs."""
     import contextlib
     import io
     import tempfile
 
+    from alphatpu_torch.benchmarks import ttt_loss_replay
     from alphatpu_torch.cli import main as cli_main
 
     T, R, duel_r = 9, CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS  # T: the move bound
@@ -996,6 +1058,13 @@ def cli_run(K, dev, card: str) -> dict:
         files = sorted(os.listdir(ck))
         with open(stats_file) as f:
             lines = [json.loads(x) for x in f]
+        # the loss replay on the last checkpoint: its probe games against
+        # the perfect player, each loss attributed
+        t0 = time.perf_counter()
+        replay = ttt_loss_replay.analyze(
+            os.path.join(ck, "net3.npz"), REPLAY_TEMP_MOVES, SEED,
+            device=dev, quiet=True)
+        replay_wall = time.perf_counter() - t0
     if rcs != (0, 0):
         raise AssertionError(f"CLI exit codes {rcs}")
     if "resumed at generation 2" not in out.getvalue():
@@ -1010,6 +1079,22 @@ def cli_run(K, dev, card: str) -> dict:
             raise AssertionError(f"CLI: generation {x['generation']}: {x}")
     print(f"CLI: tictactoe 6x128, 2 generations + 1 resumed, {wall:.3f} s; "
           f"illegal moves 0 in every generation; files {files}  [{card}]")
+    losses = replay["losses"]
+    counts = {
+        "sampling_induced": sum(bool(v.get("sampling_induced"))
+                                for v in losses),
+        "search_error": sum(v.get("sampling_induced") is False
+                            for v in losses),
+        "no_blunder_found": sum("note" in v for v in losses),
+    }
+    if sum(replay["score"]) != 64 or len(losses) != replay["score"][2] or \
+            sum(counts.values()) != len(losses):
+        raise AssertionError(f"loss replay: {json.dumps(replay)}")
+    print(f"loss replay (python -m alphatpu_torch.benchmarks."
+          f"ttt_loss_replay): net3 vs the perfect player, temp_moves "
+          f"{REPLAY_TEMP_MOVES}, seed {SEED}: net W/D/L "
+          f"{'/'.join(map(str, replay['score']))}; verdicts {counts}; "
+          f"{replay_wall:.3f} s  [{card}]")
     return launches
 
 
@@ -1519,6 +1604,162 @@ def bench_runs(card: str) -> None:
           f"[{card}]")
 
 
+def expect_bf16(K, what: str) -> None:
+    """Every launch of the three-plane kernels since the last reset was
+    of their bf16 instantiation: the search ran on bf16 stat planes."""
+    got = {name: (getattr(K, name).launches, getattr(K, name).launches_bf16)
+           for name in BF16_KERNELS}
+    print(f"bf16 launches in {what}: " + ", ".join(
+        f"{name} {b} of {n}" for name, (n, b) in got.items()))
+    if any(n != b for n, b in got.values()):
+        raise AssertionError(f"{what}: launches on f32 planes {got}")
+
+
+def bf16_stats_path(K, dev, card: str) -> dict:
+    """Phase 16: the slice end to end under ALPHATPU_BF16_STATS=1, every
+    search storing prior, wsum and visits as bf16 planes and running the
+    f32 family's engine on them (select_apply, backup).  A search on the
+    card against the CPU path (connect4, SMALL_G lanes); the per-phase API
+    on bf16 planes against run_mcts (LANES lanes, bit for bit); the bench's
+    measure at full width (connect4 4x512, LANES lanes, ROLLOUTS rollouts,
+    BENCH_ROUNDS rounds in chunks of BENCH_CHUNK) with its launches as owed
+    (select_apply ROLLOUTS a round, backup 1, the packed kernels 0) and no
+    illegal move; a BF16_DUEL duel half; a short eval_vs_probe on
+    connect4.  Each path's
+    launches are all bf16 launches.  Returns the launches of the bench's
+    last timed generation, and select's of the per-phase search."""
+    import torch
+
+    from alphatpu_torch import bench
+    from alphatpu_torch.duel import DuelConfig, duel_half
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree, stat_dtype_for
+    from alphatpu_torch.nets import MLP, config_for_game
+    from alphatpu_torch.probe import eval_vs_probe, probe_for_game
+
+    t_phase = time.perf_counter()
+    saved = os.environ.get("ALPHATPU_BF16_STATS")
+    os.environ["ALPHATPU_BF16_STATS"] = "1"
+    try:
+        game = make_game("connect4")
+        cfg = config_for_game(game)
+        net = MLP.from_seed(cfg, SEED, device=dev)
+        net_cpu = MLP.from_seed(cfg, SEED, device=torch.device("cpu"))
+        bf16 = torch.bfloat16
+        if stat_dtype_for(ROLLOUTS) != bf16:
+            raise AssertionError("ALPHATPU_BF16_STATS: stat_dtype_for")
+
+        K.reset_launch_counts()
+        search_vs_cpu(game, net, net_cpu, dev, ROLLOUTS, SMALL_G, 0,
+                      stat_dtype=bf16)
+        expect_launches(K, "the bf16 search on the card",
+                        {"select_apply": ROLLOUTS, "backup": 1})
+        expect_bf16(K, "the bf16 search on the card")
+
+        # the per-phase API on bf16 planes against the engine's run_mcts
+        # on the same uniforms, bit for bit (phase 6 on bf16)
+        V, G = ROLLOUTS, LANES
+        D = min(game.max_game_length, V)
+        probs = torch.rand((V, D, G), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 19))
+        tree = init_tree(game, game.initial(G, dev), V, stat_dtype=bf16)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        pi = phase_search(game, net, tree, probs, CPUCT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phase_launches = expect_launches(
+            K, "the per-phase search on bf16 planes",
+            {"select": V, "backup": V})
+        expect_bf16(K, "the per-phase search on bf16 planes")
+        ref = init_tree(game, game.initial(G, dev), V, stat_dtype=bf16)
+        _, ref_pi = run_mcts(game, net, ref, rollouts=V, cpuct=CPUCT,
+                             training=True, probs=probs)
+        fields = ("parent", "action_from", "expanded", "next_idx", "prior",
+                  "wsum", "visits")
+        bad = diverged_lanes(
+            tuple(getattr(tree, f) for f in fields) + (pi,),
+            tuple(getattr(ref, f) for f in fields) + (ref_pi,))
+        print(f"per-phase search on bf16 planes: {G} lanes, {V} rollouts in "
+              f"{wall:.3f} s; lanes that differ from run_mcts on bf16 "
+              f"planes: {int(bad.sum())}/{G}  [{card}]")
+        if int(bad.sum()) != 0:
+            raise AssertionError("per-phase search on bf16 != run_mcts")
+        del tree, ref, probs
+
+        t0 = time.perf_counter()
+        r = bench.measure("connect4", games=LANES, rollouts=ROLLOUTS,
+                          rounds=BENCH_ROUNDS, chunk=BENCH_CHUNK, seed=SEED)
+        ex = r["extra"]
+        owed = {"select_apply": ROLLOUTS * BENCH_ROUNDS,
+                "backup": BENCH_ROUNDS}
+        print(json.dumps(r))
+        if (ex["launches"] != ex["launches_owed"]
+                or ex["launches"] != {n: owed.get(n, 0) for n in KERNELS}
+                or ex["illegal_moves"] or ex["stat_dtype"] != "bfloat16"
+                or ex["pack_level"] != 0
+                or not r["metric"].endswith("_bf16stats")
+                or ex["env_steps"] != LANES * BENCH_ROUNDS
+                or not math.isfinite(r["value"]) or r["value"] <= 0):
+            raise AssertionError(f"bench with bf16 stats: {json.dumps(r)}")
+        # measure resets the counts before each generation: these are the
+        # last timed one's
+        expect_bf16(K, "the bench's last timed generation")
+        launches = dict(launch_counts(K), select=phase_launches["select"])
+        print(f"bench with bf16 stats: {r['value']} env-steps/s, "
+              f"{time.perf_counter() - t0:.3f} s with the warm-up; spread "
+              f"{ex['spread']:.4f}; illegal moves 0  [{card}]")
+
+        games, rollouts, moves = BF16_DUEL
+        duel_cfg = DuelConfig(num_games=games, rollouts=rollouts,
+                              max_moves=moves)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        first, draws, second, unfinished = (
+            int(x) for x in duel_half(game, net, net, gen, duel_cfg, dev))
+        wall = time.perf_counter() - t0
+        expect_launches(K, "the bf16 duel half",
+                        {"select_apply": moves * rollouts, "backup": moves})
+        expect_bf16(K, "the bf16 duel half")
+        if first + draws + second + unfinished != games:
+            raise AssertionError("bf16 duel half: games lost")
+        print(f"duel half with bf16 stats: connect4, {games} lanes, "
+              f"{rollouts} rollouts, {moves} moves: first/draws/second/"
+              f"unfinished {first}/{draws}/{second}/{unfinished}, "
+              f"{wall:.3f} s  [{card}]")
+
+        probe = probe_for_game(game, BF16_PROBE[1])
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        w, d, l, trace = eval_vs_probe(
+            game, net, gen, probe, num_games=BF16_PROBE[0],
+            rollouts=ROLLOUTS, cpuct=CPUCT, seed=SEED, trace=True,
+            device=dev)
+        wall = time.perf_counter() - t0
+        plies = len(trace["records"])
+        expect_launches(K, f"eval_vs_probe with bf16 stats ({plies} plies)",
+                        {"select_apply": plies * ROLLOUTS, "backup": plies})
+        expect_bf16(K, "eval_vs_probe with bf16 stats")
+        if w + d + l != BF16_PROBE[0]:
+            raise AssertionError(f"eval_vs_probe, bf16 stats: {w}/{d}/{l}")
+        print(f"eval_vs_probe with bf16 stats: connect4 vs LineProbe depth "
+              f"{probe.depth}, {BF16_PROBE[0]} games x {ROLLOUTS} rollouts: "
+              f"net W/D/L {w}/{d}/{l}, {plies} plies, {wall:.3f} s  [{card}]")
+    finally:
+        if saved is None:
+            os.environ.pop("ALPHATPU_BF16_STATS", None)
+        else:
+            os.environ["ALPHATPU_BF16_STATS"] = saved
+    print(f"bf16 stat storage: {time.perf_counter() - t_phase:.3f} s  "
+          f"[{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1560,21 +1801,36 @@ def ptxas_lines(log: str) -> list:
     import re
 
     def demangle(mangled):
-        # _ZN <length><identifier>... [ILi<K>ELi<S>E[N4walk<length><view>E]]:
-        # the last identifier is the function, after its (possibly hashed)
-        # namespaces; the packed kernels' third argument is their view
+        # _ZN <length><identifier>... [I<template arguments>E]: the last
+        # identifier is the function, after its (possibly hashed)
+        # namespaces; the arguments are ints (Li<n>E: lanes, slots), the
+        # packed kernels' column view (N4walk<length><view>E) and the
+        # three-plane kernels' storage type (f, or <length>__nv_bfloat16)
         rest, ident = re.sub(r"^_ZN?", "", mangled), mangled
         while (n := re.match(r"\d+", rest)):
             size = int(n.group())
             ident = rest[len(n.group()):len(n.group()) + size]
             rest = rest[len(n.group()) + size:]
-        t = re.match(r"ILi(\d+)ELi(\d+)E(?:N4walk(\d+))?", rest)
-        if not t:
+        if not rest.startswith("I"):
             return ident
-        args = [t.group(1), t.group(2)]
-        if t.group(3):
-            args.append(rest[t.end():t.end() + int(t.group(3))])
-        return f"{ident}<{', '.join(args)}>"
+        rest, args = rest[1:], []
+        while True:
+            if (m := re.match(r"Li(\d+)E", rest)):
+                args.append(m.group(1))
+            elif (m := re.match(r"N4walk(\d+)", rest)):
+                end = m.end() + int(m.group(1))
+                args.append(rest[m.end():end])
+                m = re.match(r".{%d}E" % end, rest)
+            elif (m := re.match(r"f", rest)):
+                args.append("float")
+            elif (m := re.match(r"(\d+)", rest)):
+                end = m.end() + int(m.group(1))
+                args.append(rest[m.end():end])
+                m = re.match(r".{%d}" % end, rest)
+            else:
+                break
+            rest = rest[m.end():]
+        return f"{ident}<{', '.join(args)}>" if args else ident
 
     lines, name, frame = [], None, ""
     for line in log.splitlines():
@@ -1591,7 +1847,7 @@ def ptxas_lines(log: str) -> list:
 
 
 def smoke(dev, card: str, kind: str) -> int:
-    """Phases 3-15 on the device ``dev``; ``card`` is the nvidia-smi line
+    """Phases 3-17 on the device ``dev``; ``card`` is the nvidia-smi line
     printed beside every time, ``kind`` the device name."""
     import torch
 
@@ -1643,6 +1899,34 @@ def smoke(dev, card: str, kind: str) -> int:
     print(f"  [{card}]")
     for k, r in device_results.items():
         errs[k] = max(errs[k], r["err"])
+
+    # the bf16 instantiations of the three-plane kernels, at the same
+    # three shapes: a connect4 tree grown on bf16 planes (by the level-0
+    # engine on them), and the two synthetic trees rounded to bf16 (their
+    # own generators: the later phases draw as before)
+    bf16 = torch.bfloat16
+    gen16 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    tree16 = init_tree(game, game.initial(G, dev), V, stat_dtype=bf16)
+    run_mcts(game, net, tree16, rollouts=V - 2, cpuct=CPUCT, training=True,
+             generator=gen16)
+    bf16_results = parity(K, tree16, D, gen16, CPUCT, scale,
+                          f"bf16 planes, connect4 A={A} V={V} G={G} D={D}",
+                          True, kernels=BF16_KERNELS)
+    del tree16
+    wide = as_bf16(synthetic_tree_on(dev, Aw, Vw, Gw, scale, SEED + 1))
+    bf16_wide = parity(K, wide, min(Aw, Vw), gen16, CPUCT, scale,
+                       f"bf16 planes, synthetic A={Aw} V={Vw} G={Gw}", True,
+                       kernels=BF16_KERNELS)
+    del wide
+    big = as_bf16(big)
+    bf16_device = parity(
+        K, big, Dd, torch.Generator(device=dev).manual_seed(SEED + 2), CPUCT,
+        scale, f"bf16 planes, synthetic A={Ad} V={Vd} G={Gd} D={Dd}, "
+        "columns in device memory", True, kernels=("select_apply", "select"))
+    print(f"  [{card}]")
+    bf16_errs = {k: max(r[k]["err"] for r in (bf16_results, bf16_wide,
+                                               bf16_device) if k in r)
+                 for k in BF16_KERNELS}
     del big
 
     # ---- 4. the search on the card against the CPU path ----
@@ -1762,13 +2046,14 @@ def smoke(dev, card: str, kind: str) -> int:
     # ---- 15. the bench and the rollout ablation ----
     bench_runs(card)
 
-    # ---- 16. result ----
-    def row(name, src, line):
-        r, w = results[name], wide_results[name]
-        d = device_results.get(name)
+    # ---- 16. the bf16 stat storage end to end ----
+    bf16_launches = bf16_stats_path(K, dev, card)
+
+    # ---- 17. result ----
+    def row(name, src, line, count, err, r, w, d):
         return {"name": name, "route": "cuda", "source": CSRC + src,
-                "replaces": PALLAS + line, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": r["ms"],
+                "replaces": PALLAS + line, "launches": count,
+                "max_abs_err": err, "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["cost"].bound_ms,
                 "bound_by": r["cost"].bound_by,
                 "library_ms": r["library_ms"], "ms_wide": w["ms"],
@@ -1778,8 +2063,16 @@ def smoke(dev, card: str, kind: str) -> int:
                 "ms_device": d and d["ms"],
                 "bound_ms_device": d and d["cost"].bound_ms}
 
-    print(json.dumps({"kernels": [row(name, src, line) for name, (src, line)
-                                  in KERNELS.items()]}))
+    rows = [row(name, src, line, launches[name], errs[name], results[name],
+                wide_results[name], device_results.get(name))
+            for name, (src, line) in KERNELS.items()]
+    # the bf16 instantiations: launches of phase 16's bench generation
+    # (select_apply, backup) and of its per-phase search (select)
+    rows += [row(name + "_bf16", *KERNELS[name], bf16_launches[name],
+                 bf16_errs[name], bf16_results[name], bf16_wide[name],
+                 bf16_device.get(name))
+             for name in BF16_KERNELS]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

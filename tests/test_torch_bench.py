@@ -54,8 +54,8 @@ torch.set_num_threads(1)
 # ``device`` after measure returns)
 PORT_FIELDS = {
     "wall_s_all", "spread", "nn_mfu", "peak_flops", "peak", "illegal_moves",
-    "rounds_played", "pack_level", "launches", "launches_owed",
-    "peak_mem_bytes", "device",
+    "rounds_played", "pack_level", "stat_dtype", "launches",
+    "launches_owed", "peak_mem_bytes", "device",
 }
 SMOKE = dict(games=128, rollouts=8, rounds=12)
 
@@ -224,12 +224,14 @@ def test_schedule_follows_bench_py(game_name, games, rounds, chunk,
 
 @pytest.mark.parametrize("level,rounds_played,superblocks", [
     (1, 168, 1), (1, 168, 4), (1, 12, 2), (2, 168, 1), (2, 352, 1),
-    (2, 12, 4)])
+    (2, 12, 4), (0, 168, 1), (0, 12, 4)])
 def test_owed_launches(level, rounds_played, superblocks):
     """A round owes ``rollouts`` walks of its level's kernel and one
-    flush, per superblock; chunks change nothing."""
+    flush, per superblock; chunks change nothing.  Level 0 (f32 planes
+    under ALPHATPU_NO_PACK, every bf16 search) walks with select_apply."""
     owed = bench.owed_launches(level, 64, rounds_played, superblocks)
-    walk = {1: "select_apply_packed", 2: "select_apply_packed1"}[level]
+    walk = {0: "select_apply", 1: "select_apply_packed",
+            2: "select_apply_packed1"}[level]
     assert owed == {"select_apply_packed": 0, "select_apply_packed1": 0,
                     "select_apply": 0, "select": 0,
                     walk: 64 * rounds_played * superblocks,
@@ -246,8 +248,8 @@ def test_measure_pins_the_engine_and_restores_the_switches(monkeypatch):
     seen = []
     real = search.engine_level
 
-    def spy(packed_stats, segment_rollouts):
-        seen.append(real(packed_stats, segment_rollouts))
+    def spy(*args):
+        seen.append(real(*args))
         return seen[-1]
 
     monkeypatch.setattr(search, "engine_level", spy)
@@ -258,9 +260,52 @@ def test_measure_pins_the_engine_and_restores_the_switches(monkeypatch):
     assert r["extra"]["launches_owed"]["select_apply_packed1"] == 8 * 2
     assert os.environ["ALPHATPU_NO_PACK"] == "1"
     assert "ALPHATPU_PACK" not in os.environ
-    with pytest.raises(ValueError, match="level 1 or 2"):
+    with pytest.raises(ValueError, match="level 0, 1 or 2"):
         bench.measure("tictactoe", games=16, rollouts=8, rounds=2,
-                      pack_level=0, device="cpu")
+                      pack_level=3, device="cpu")
+
+
+@pytest.mark.parametrize("bf16_stats", [False, True])
+def test_measure_level_0_and_bf16_stats(bf16_stats, monkeypatch):
+    """``pack_level=0`` runs select_apply on f32 planes under a metric
+    ending in ``_l0`` (bench.py under ALPHATPU_NO_PACK=1); under
+    ALPHATPU_BF16_STATS the searches store bf16 planes and run level 0
+    whatever level is asked, and the metric ends in ``_bf16stats``.  The
+    caller's switches come back afterwards."""
+    from alphatpu_torch.mcts import search
+
+    monkeypatch.delenv("ALPHATPU_NO_PACK", raising=False)
+    monkeypatch.setenv("ALPHATPU_PACK", "2")
+    if bf16_stats:
+        monkeypatch.setenv("ALPHATPU_BF16_STATS", "1")
+    else:
+        monkeypatch.delenv("ALPHATPU_BF16_STATS", raising=False)
+    seen = set()
+    real = search.run_mcts
+
+    def spy(game, net, tree, **kw):
+        seen.add((tree.prior.dtype,
+                  search.engine_level(kw.get("packed_stats"),
+                                      kw.get("segment_rollouts", True),
+                                      tree.prior.dtype)))
+        return real(game, net, tree, **kw)
+
+    monkeypatch.setattr(search, "run_mcts", spy)
+    monkeypatch.setattr("alphatpu_torch.selfplay.run_mcts", spy)
+    r = bench.measure("tictactoe", games=16, rollouts=16, rounds=2,
+                      pack_level=1 if bf16_stats else 0, device="cpu")
+    dtype = torch.bfloat16 if bf16_stats else torch.float32
+    assert seen == {(dtype, 0)}
+    ex = r["extra"]
+    assert ex["pack_level"] == 0
+    assert ex["stat_dtype"] == ("bfloat16" if bf16_stats else "float32")
+    assert r["metric"] == ("torch_selfplay_env_steps_per_s_tictactoe_g16_r16"
+                           + ("_bf16stats" if bf16_stats else "_l0")
+                           + "_cpu")
+    assert ex["launches_owed"] == bench.owed_launches(0, 16, 2, 1)
+    assert ex["launches_owed"]["select_apply"] == 16 * 2
+    assert os.environ["ALPHATPU_PACK"] == "2"
+    assert "ALPHATPU_NO_PACK" not in os.environ
 
 
 def test_measure_on_cuda_raises_without_a_card(monkeypatch):

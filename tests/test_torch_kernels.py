@@ -8,8 +8,13 @@ Both get the same trees, pending updates and uniforms, made from numpy
 seeds, at connect4 (A = 7) and hex5 (A = 25, the wide-board path of the
 Pallas kernels).
 
+The three-plane kernels (``select_apply_pallas``, ``select_pallas``,
+``backup_pallas``) also run on bf16 planes (``ALPHATPU_BF16_STATS``): the
+same grown tree rounded to bf16 goes to both packages.
+
 Tolerances: the stat planes after the apply phase are exactly equal
-(integer adds, copies, and one f32 add per edge).  Paths, leaves and
+(integer adds, copies, and one f32 add per edge - rounded once to bf16 on
+bf16 planes, in both packages).  Paths, leaves and
 needs_alloc are exactly equal except on a lane whose CDF sample lands on a
 prefix-sum tie: the Pallas kernel sums prefixes in Hillis-Steele order and
 the port in action order, so such a lane may pick another action
@@ -218,18 +223,43 @@ def test_select_apply_packed1_matches_pallas(game_name, G, V, monkeypatch):
     assert (sel2.nodes.numpy()[1] >= 0).mean() > 0.5
 
 
-def _f32_planes(tree):
-    return tuple(_t(x) for x in (tree.prior, tree.wsum, tree.visits))
+# (game, G, V, stat dtype): the f32 cases keep their ids, bf16 adds one
+_STAT_CASES = [
+    pytest.param(game, 128, 16, dtype,
+                 id=f"{game}-128-16" + ("-bf16" if dtype == "bfloat16"
+                                        else ""))
+    for dtype in ("float32", "bfloat16") for game in ("connect4", "hex5")]
 
 
-@pytest.mark.parametrize("game_name,G,V", [
-    ("connect4", 128, 16),
-    ("hex5", 128, 16),
-])
-def test_select_apply_matches_pallas(game_name, G, V, monkeypatch):
+def _stat_t(x, dtype):
+    """A (numpy, JAX or bf16) stat plane as a new torch tensor of
+    ``dtype``: bf16 round-trips exactly through f32."""
+    return torch.from_numpy(np.array(x, np.float32)).to(getattr(torch, dtype))
+
+
+def _stat_j(x, dtype):
+    return jnp.asarray(np.asarray(x, np.float32), getattr(jnp, dtype))
+
+
+def _f32(x):
+    """A stat plane of either package and dtype as f32 numpy (exact)."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def _f32_planes(tree, dtype="float32"):
+    return tuple(_stat_t(x, dtype) for x in (tree.prior, tree.wsum,
+                                             tree.visits))
+
+
+@pytest.mark.parametrize("game_name,G,V,dtype", _STAT_CASES)
+def test_select_apply_matches_pallas(game_name, G, V, dtype, monkeypatch):
     """Three f32 planes, unquantized values: one f32 add per edge, so the
     planes are exactly equal, and with an empty pending update the read-only
-    select returns the same walk bit for bit."""
+    select returns the same walk bit for bit.  On bf16 planes every add and
+    every prior-row entry is rounded once to bf16, in both packages: the
+    planes are still equal bit for bit."""
     game, tree = _grown_tree(game_name, G, V, monkeypatch, seed=2)
     A = game.max_actions
     D = min(game.max_game_length, V)
@@ -238,12 +268,12 @@ def test_select_apply_matches_pallas(game_name, G, V, monkeypatch):
 
     def run_both(probs, pend):
         j = jax.device_get(PK.select_apply_pallas(
-            jnp.asarray(tree.prior), jnp.asarray(tree.wsum),
-            jnp.asarray(tree.visits), jnp.asarray(tree.parent),
+            _stat_j(tree.prior, dtype), _stat_j(tree.wsum, dtype),
+            _stat_j(tree.visits, dtype), jnp.asarray(tree.parent),
             jnp.asarray(tree.action_from), jnp.asarray(tree.expanded),
             jnp.asarray(probs), *(jnp.asarray(x) for x in pend), CPUCT,
             interpret=True))
-        planes = _f32_planes(tree)
+        planes = _f32_planes(tree, dtype)
         sel = K.select_apply(
             *planes, _t(tree.parent), _t(tree.action_from),
             _t(tree.expanded), _t(probs),
@@ -257,38 +287,47 @@ def test_select_apply_matches_pallas(game_name, G, V, monkeypatch):
 
     assert K.select_apply.launches == before
     for got, ref in zip(planes, j2[:3]):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    # the unquantized values left wsum off every coarse grid
-    assert ((planes[1].numpy() * 512) % 1.0 != 0).any()
+        assert got.dtype == getattr(torch, dtype)
+        assert np.asarray(ref).dtype == jnp.dtype(dtype)
+        np.testing.assert_array_equal(_f32(got), _f32(ref))
+    if dtype == "float32":
+        # the unquantized values left wsum off every coarse grid
+        assert ((planes[1].numpy() * 512) % 1.0 != 0).any()
+    else:
+        # rounding happened: the f32 planes after the same apply differ
+        f32_planes = _f32_planes(tree)
+        K.select_apply(*f32_planes, _t(tree.parent), _t(tree.action_from),
+                       _t(tree.expanded), _t(probs),
+                       K.PendingUpdate(*(_t(x) for x in pend)), CPUCT)
+        for got, ref in zip(planes[:2], f32_planes[:2]):
+            assert not torch.equal(got.float(), ref)
     for jj, ss in ((j, sel), (j2, sel2)):
         _assert_walks_match(game_name, G, jj[3:], ss)
-    walk = K.select(*_f32_planes(tree), _t(tree.parent),
+    walk = K.select(*_f32_planes(tree, dtype), _t(tree.parent),
                     _t(tree.action_from), _t(tree.expanded), _t(probs), CPUCT)
     for x, y in zip(walk, sel):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("game_name,G,V", [
-    ("connect4", 128, 16),
-    ("hex5", 128, 16),
-])
-def test_select_matches_pallas(game_name, G, V, monkeypatch):
+@pytest.mark.parametrize("game_name,G,V,dtype", _STAT_CASES)
+def test_select_matches_pallas(game_name, G, V, dtype, monkeypatch):
     """The read-only walk, on a grown tree and on the same tree after one
-    f32 backup of a walk's path, through the per-phase API
-    (search.select) and the kernel wrapper."""
+    backup of a walk's path, through the per-phase API (search.select) and
+    the kernel wrapper; on f32 planes and on the tree rounded to bf16."""
     game, tree = _grown_tree(game_name, G, V, monkeypatch, seed=4)
     D = min(game.max_game_length, V)
     rng = np.random.default_rng(14)
     before = K.select.launches
+    prior, wsum, visits = _f32_planes(tree, dtype)
     ptree = Tree(parent=_t(tree.parent), action_from=_t(tree.action_from),
                  expanded=_t(tree.expanded), states=None,
-                 prior=_t(tree.prior), wsum=_t(tree.wsum),
-                 visits=_t(tree.visits), next_idx=_t(tree.next_idx))
+                 prior=prior, wsum=wsum, visits=visits,
+                 next_idx=_t(tree.next_idx))
     for _ in range(2):
         probs = rng.random((D, G), dtype=np.float32)
         j = jax.device_get(PK.select_pallas(
-            jnp.asarray(tree.prior), jnp.asarray(tree.wsum),
-            jnp.asarray(tree.visits), jnp.asarray(tree.parent),
+            _stat_j(tree.prior, dtype), _stat_j(tree.wsum, dtype),
+            _stat_j(tree.visits, dtype), jnp.asarray(tree.parent),
             jnp.asarray(tree.action_from), jnp.asarray(tree.expanded),
             jnp.asarray(probs), CPUCT, interpret=True))
         path, node, laction, alloc, root_pi = port_select(
@@ -306,19 +345,19 @@ def test_select_matches_pallas(game_name, G, V, monkeypatch):
         # next: the tree after backing up this walk's path
         value = rng.random(G, dtype=np.float32)
         w, v = jax.device_get(PK.backup_pallas(
-            jnp.asarray(tree.wsum), jnp.asarray(tree.visits), j[0], j[1],
-            (j[0] >= 0).sum(0).astype(np.int32), jnp.asarray(value),
+            _stat_j(tree.wsum, dtype), _stat_j(tree.visits, dtype), j[0],
+            j[1], (j[0] >= 0).sum(0).astype(np.int32), jnp.asarray(value),
             interpret=True))
-        tree = tree._replace(wsum=np.asarray(w), visits=np.asarray(v))
-        ptree.wsum, ptree.visits = _t(tree.wsum), _t(tree.visits)
+        tree = tree._replace(wsum=_f32(w), visits=_f32(v))
+        ptree.wsum, ptree.visits = (_stat_t(tree.wsum, dtype),
+                                    _stat_t(tree.visits, dtype))
     assert K.select.launches == before
 
 
-@pytest.mark.parametrize("game_name,G,V", [
-    ("connect4", 128, 16),
-    ("hex5", 128, 16),
-])
-def test_backup_matches_pallas(game_name, G, V, monkeypatch):
+@pytest.mark.parametrize("game_name,G,V,dtype", _STAT_CASES)
+def test_backup_matches_pallas(game_name, G, V, dtype, monkeypatch):
+    """One backup of a walk's path; on bf16 planes each add is rounded
+    once to bf16 in both packages, and the planes are equal bit for bit."""
     game, tree = _grown_tree(game_name, G, V, monkeypatch, seed=3)
     D = min(game.max_game_length, V)
     rng = np.random.default_rng(5)
@@ -327,17 +366,21 @@ def test_backup_matches_pallas(game_name, G, V, monkeypatch):
     value = rng.random(G, dtype=np.float32)
 
     jw, jv = jax.device_get(PK.backup_pallas(
-        jnp.asarray(tree.wsum), jnp.asarray(tree.visits), path.nodes,
+        _stat_j(tree.wsum, dtype), _stat_j(tree.visits, dtype), path.nodes,
         path.actions, path.length, jnp.asarray(value), interpret=True))
-    wsum, visits = _t(tree.wsum), _t(tree.visits)
+    wsum, visits = _stat_t(tree.wsum, dtype), _stat_t(tree.visits, dtype)
     before = K.backup.launches
     K.backup(wsum, visits, _t(path.nodes), _t(path.actions),
              _t(path.length), _t(value))
     assert K.backup.launches == before
-    np.testing.assert_array_equal(visits.numpy(), np.asarray(jv))
-    np.testing.assert_allclose(wsum.numpy(), np.asarray(jw), rtol=1e-6,
-                               atol=1e-7)
-    assert (visits.numpy() != np.asarray(tree.visits)).sum() > G
+    assert wsum.dtype == visits.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(_f32(visits), _f32(jv))
+    if dtype == "float32":
+        np.testing.assert_allclose(wsum.numpy(), np.asarray(jw), rtol=1e-6,
+                                   atol=1e-7)
+    else:
+        np.testing.assert_array_equal(_f32(wsum), _f32(jw))
+    assert (_f32(visits) != _f32(_stat_t(tree.visits, dtype))).sum() > G
 
 
 @pytest.mark.parametrize("value_scale", [None, 128])
@@ -680,6 +723,12 @@ _HAND_BYTES = {
     # the whole path D x G x 4 = 24, one game's length and value = 8,
     # 2 edges x (4 for the action + 16 for two f32 read-modify-writes)
     "backup": (24 + 8 + 2 * (4 + 16), None),
+    # bf16 planes: 2 B an element - rows of 3 x 2 B, the prior row's
+    # elements written 2 B each, two 2 B read-modify-writes per edge
+    "select_apply_bf16": (32 + 3 + 3 * 3 * 6 + 8 + 48 + 18 + 24,
+                          10 + 3 * (4 + 2) + 24 + 8 + 2 * (4 + 8)),
+    "select_bf16": (32 + 3 + 3 * 3 * 6 + 8 + 48 + 18 + 24, None),
+    "backup_bf16": (24 + 8 + 2 * (4 + 8), None),
 }
 
 
@@ -687,10 +736,16 @@ _HAND_BYTES = {
 def test_bound_counts_the_bytes_of_a_hand_built_tree(kernel):
     """The bound of each kernel on a tree whose walk is known, against the
     byte count written out above; the operations' lower bound (9 per
-    action of each row, 3 per edge) leaves every kernel bound by bytes."""
+    action of each row, 3 per edge) leaves every kernel bound by bytes.
+    ``<name>_bf16``: the kernel on bf16 planes, counted at 2 B an
+    element."""
     from alphatpu_torch.mcts import bounds as B
 
     prior, parent, action_from, expanded, pend = _hand_tree()
+    itemsize = 4
+    if kernel.endswith("_bf16"):
+        kernel, itemsize = kernel.removesuffix("_bf16"), 2
+        prior = prior.to(torch.bfloat16)
     A, V, G = prior.shape
     D = pend.nodes.shape[0]
     zeros = torch.zeros_like(prior)
@@ -707,22 +762,24 @@ def test_bound_counts_the_bytes_of_a_hand_built_tree(kernel):
             prior.clone(), zeros.clone(), zeros.clone(), *walk, pend, CPUCT),
         "select": lambda: K.select(prior, zeros, zeros, *walk, CPUCT),
     }
-    walk_bytes, apply_bytes = _HAND_BYTES[kernel]
+    walk_bytes, apply_bytes = _HAND_BYTES[kernel + (
+        "_bf16" if itemsize == 2 else "")]
     if kernel == "backup":
-        cost = B.backup_cost(pend.nodes)
+        cost = B.backup_cost(pend.nodes, itemsize)
         assert cost == (walk_bytes, 2 * 3)
     else:
         sel = calls[kernel]()
         assert sel.nodes.tolist() == [[0, -1], [1, -1], [-1, -1]]
         assert sel.needs_alloc.tolist() == [True, False]
-        assert B.walk_cost(kernel, V, sel) == (walk_bytes, 3 * A * 9)
+        assert B.walk_cost(kernel, V, sel, itemsize=itemsize) == (
+            walk_bytes, 3 * A * 9)
         if apply_bytes is not None:
-            assert B.walk_cost(kernel, V, sel, pend) == (
+            assert B.walk_cost(kernel, V, sel, pend, itemsize) == (
                 walk_bytes + apply_bytes, 3 * A * 9 + 2 * 3)
         else:
             with pytest.raises(ValueError, match="no apply phase"):
-                B.walk_cost(kernel, V, sel, pend)
-        cost = B.walk_cost(kernel, V, sel)
+                B.walk_cost(kernel, V, sel, pend, itemsize)
+        cost = B.walk_cost(kernel, V, sel, itemsize=itemsize)
     assert cost.bound_by == "bytes"
     assert cost.bound_ms == pytest.approx(cost.nbytes / 3.35e12 * 1e3)
 

@@ -36,6 +36,7 @@ MODULES = (
     "alphatpu_torch.bench", "alphatpu_torch.benchmarks",
     "alphatpu_torch.benchmarks.matrix",
     "alphatpu_torch.benchmarks.ablate_rollout",
+    "alphatpu_torch.benchmarks.ttt_loss_replay",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more
@@ -108,7 +109,8 @@ def test_signatures_name_every_c_entry_point():
 
 @pytest.mark.parametrize("entry", [
     "launch_select_apply_packed", "launch_select_apply_packed1",
-    "launch_select_apply", "launch_select", "launch_backup"])
+    "launch_select_apply", "launch_select", "launch_backup",
+    "launch_select_apply_bf16", "launch_select_bf16", "launch_backup_bf16"])
 def test_signatures_match_the_c_declarations(entry):
     """ctypes passes what ``_SIGNATURES`` declares: a mismatch with the C
     parameters would show only on the card, as a wrong argument."""
@@ -280,6 +282,56 @@ def test_select_apply_and_select_kernels_match_plain(cuda):
                                                             before[1] + 1)
     for x, y in zip(tuple(a) + tuple(sk), tuple(b) + tuple(sq)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 200, 1024])
+def test_bf16_kernels_match_plain(G, cuda):
+    """The bf16 instantiations of select_apply, select and backup on a
+    connect4 tree grown on bf16 planes (the level-0 engine, itself on
+    them), each against its plain version bit for bit; their launches are
+    counted under the kernels' names and as bf16."""
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import MLP, config_for_game
+
+    game = make_game("connect4")
+    A, V = game.max_actions, 32
+    D = min(game.max_game_length, V)
+    net = MLP.from_seed(config_for_game(game, width=64, depth=2), 5,
+                        device=cuda)
+    tree = init_tree(game, game.initial(G, cuda), V,
+                     stat_dtype=torch.bfloat16)
+    K.reset_launch_counts()
+    run_mcts(game, net, tree, rollouts=V - 2, cpuct=1.5, training=True,
+             generator=torch.Generator(device=cuda).manual_seed(5))
+    assert (K.select_apply.launches, K.select_apply.launches_bf16,
+            K.backup.launches, K.backup.launches_bf16) == (V - 2, V - 2, 1, 1)
+    walk = (tree.parent, tree.action_from, tree.expanded)
+    planes = (tree.prior, tree.wsum, tree.visits)
+    assert {p.dtype for p in planes} == {torch.bfloat16}
+    probs = torch.rand((D, G), device=cuda)
+    s5 = K.select(*planes, *walk, probs, 1.5)
+    sp = K.select_plain(*planes, *walk, probs, 1.5)
+    pend = _pending(s5, tree.next_idx, A)
+    a = [p.clone() for p in planes]
+    b = [p.clone() for p in planes]
+    sk = K.select_apply(*a, *walk, probs, pend, 1.5)
+    sq = K.select_apply_plain(*b, *walk, probs, pend, 1.5)
+    bk = [p.clone() for p in planes[1:]]
+    bp = [p.clone() for p in planes[1:]]
+    K.backup(*bk, s5.nodes, s5.actions, pend.length, pend.value)
+    K.backup_plain(*bp, s5.nodes, s5.actions, pend.length, pend.value)
+    torch.cuda.synchronize()
+    assert K.select.launches == K.select.launches_bf16 == 1
+    for x, y in zip(s5, sp):
+        assert torch.equal(x, y)
+    for x, y in zip(tuple(a) + tuple(sk) + tuple(bk),
+                    tuple(b) + tuple(sq) + tuple(bp)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert not torch.equal(a[1], tree.wsum)  # the apply phase wrote
 
 
 def _synthetic_tree(A, V, G, scale, device, seed):

@@ -156,10 +156,12 @@ def test_selfplay_continuous_matches_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("env", [{"ALPHATPU_PACK": "2"},
-                                 {"ALPHATPU_NO_PACK": "1"}])
+                                 {"ALPHATPU_NO_PACK": "1"},
+                                 {"ALPHATPU_BF16_STATS": "1"}])
 def test_selfplay_engines_match_reference(env, monkeypatch):
     """The same switch picks the same engine in both packages: level 2
-    (the 1-plane word) and the f32 engine."""
+    (the 1-plane word), the f32 engine, and bf16 stat planes under the
+    f32 family's engine (16 rollouts: stat_dtype_for takes bf16)."""
     _selfplay_matches_reference(monkeypatch, T=8, env=env)
 
 
