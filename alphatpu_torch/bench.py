@@ -17,9 +17,10 @@ the reference's JAX initializer cannot be reproduced without JAX, and the
 weights do not change the work.
 
 Timing: one warm-up generation from ``seed + 1`` (it also builds the
-kernels), then three timed generations, each from a fresh generator seeded
-``seed + 2`` (identical work), each timed on the host clock up to a
-``torch.cuda.synchronize``.  ``value`` is the median; ``extra.wall_s_all``
+kernels and, on the card, captures the round that every later round
+replays: :mod:`alphatpu_torch.graphs`), then three timed generations,
+each from a fresh generator seeded ``seed + 2`` (identical work), each
+timed on the host clock up to a ``torch.cuda.synchronize``.  ``value`` is the median; ``extra.wall_s_all``
 holds the three walls and ``extra.spread`` ``(max - min) / median``.
 
 Checks, each raising: the three repeats wrote and carried the same rows;
@@ -37,6 +38,10 @@ ends in ``_bf16stats`` (``_bf16`` names the bf16 tower).
 Fields beyond bench.py's: ``pack_level``, ``stat_dtype``, ``rounds_played``,
 ``wall_s_all``, ``spread``, ``illegal_moves``, ``launches`` and
 ``launches_owed`` (per kernel wrapper, one timed generation),
+``captured``, ``graph_replays`` and ``graph_captures`` (one timed
+generation: every round a replay on the card), ``warmup_graph_captures``,
+``capture_s``, ``graph_nodes`` and ``graph_pool_bytes`` (the warm-up's
+captures: seconds, nodes, device memory reserved while capturing),
 ``peak_mem_bytes`` (over the timed generations), ``device``, ``nn_mfu``
 against ``peak_flops`` (the published H100 SXM peak of the tower's dtype,
 named in ``peak``; null on the CPU).  bench.py's ``nn_mfu_vs_bf16_peak``
@@ -62,7 +67,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import graphs, resolve_device
 from .buffer import create_buffer
 from .games import make_game
 from .mcts import kernels as K
@@ -122,7 +127,8 @@ def superblock_generator(seed: int, s: int, device) -> torch.Generator:
 
 
 def generation(game, net_apply, buffer, cfg: SelfplayConfig, seed: int,
-               n_sb: int, n_chunks: int, uniforms=None) -> dict:
+               n_sb: int, n_chunks: int, uniforms=None,
+               captured: bool | None = None) -> dict:
     """One generation over all lanes: ``n_sb`` superblocks of
     ``cfg.num_games`` lanes one after another, each ``n_chunks`` chained
     ``selfplay_continuous`` calls of ``cfg.rounds`` rounds with a carry of
@@ -133,7 +139,9 @@ def generation(game, net_apply, buffer, cfg: SelfplayConfig, seed: int,
     in place of ``mean_length``, and ``carried`` the sum of each
     superblock's last snapshot.  ``uniforms(s, c)`` gives superblock ``s``'s
     chunk ``c`` its draws (:class:`~alphatpu_torch.selfplay.SelfplayUniforms`)
-    - the tests' injection point."""
+    - the tests' injection point.  ``captured``: as
+    :func:`~alphatpu_torch.selfplay.selfplay_continuous` takes it (by
+    default the rounds replay CUDA graphs on the card)."""
     dev = buffer.state.device
     totals, carried = None, 0
     for s in range(n_sb):
@@ -142,7 +150,8 @@ def generation(game, net_apply, buffer, cfg: SelfplayConfig, seed: int,
         for c in range(n_chunks):
             _, stats, carry = selfplay_continuous(
                 game, net_apply, buffer, None, cfg, carry,
-                uniforms=None if uniforms is None else uniforms(s, c))
+                uniforms=None if uniforms is None else uniforms(s, c),
+                captured=captured)
             stats["length_sum"] = stats.pop("mean_length") * stats[
                 "games_finished"]
             sb_carried = stats.pop("carried")  # a snapshot, not additive
@@ -182,14 +191,17 @@ def _device_info(dev: torch.device) -> dict:
 
 def measure(game_name="connect4", games=8192, rollouts=64, bf16=False,
             rounds=0, seed=0, chunk=0, superblock=0, pack_level=1,
-            device="cuda"):
+            device="cuda", captured: bool | None = None):
     """Three timed continuous-selfplay generations after a warm-up; returns
     the result dict (module doc).  ``pack_level`` 0, 1 or 2 picks the
     engine; bf16 stats (``ALPHATPU_BF16_STATS``) run level 0 whatever it
     says.  ``device="cuda"`` raises where torch finds no card; a kernel
-    that fails to build or launch raises too."""
+    that fails to build or launch raises too.  ``captured`` (default: on
+    the card) replays every round from a CUDA graph, captured in the
+    warm-up; ``captured=False`` runs the rounds eagerly."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
+    captured = graphs.use_graphs(captured, dev)
     stat_dtype = stat_dtype_for(rollouts)
     bf16_stats = stat_dtype == torch.bfloat16
     if bf16_stats:
@@ -216,32 +228,36 @@ def measure(game_name="connect4", games=8192, rollouts=64, bf16=False,
         if cuda:
             torch.cuda.synchronize(dev)
         K.reset_launch_counts()
+        graphs.reset_counts()
         t0 = time.perf_counter()
         stats = generation(game, net_apply, buf, cfg, gen_seed, n_sb,
-                           n_chunks)
+                           n_chunks, captured=captured)
         if cuda:
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         counted = {k.__name__: k.launches for k in K.KERNELS}
         if cuda and counted != owed:
             raise RuntimeError(f"launches {counted}, owed {owed}")
-        return wall, {k: v.item() for k, v in stats.items()}, counted
+        return (wall, {k: v.item() for k, v in stats.items()}, counted,
+                dict(graphs.counts))
 
     with _pinned_engine(pack_level):
-        run(seed + 1)  # warm-up: builds the kernels, excluded from timing
+        # warm-up: builds the kernels and captures the round, excluded
+        # from timing
+        warm = run(seed + 1)[3]
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         reps = [run(seed + 2) for _ in range(REPEATS)]
     peak_mem = torch.cuda.max_memory_allocated(dev) if cuda else None
 
-    walls = [w for w, _, _ in reps]
+    walls = [w for w, _, _, _ in reps]
     for key in ("samples_written", "carried"):
-        seen = [st[key] for _, st, _ in reps]
+        seen = [st[key] for _, st, _, _ in reps]
         if len(set(seen)) != 1:
             raise RuntimeError(f"repeats differ in {key}: {seen} (identical "
                                "seeds must give identical work)")
-    stats, counted = reps[0][1], reps[-1][2]
-    illegal = sum(int(st["illegal_moves"]) for _, st, _ in reps)
+    stats, counted, replayed = reps[0][1], reps[-1][2], reps[-1][3]
+    illegal = sum(int(st["illegal_moves"]) for _, st, _, _ in reps)
     if illegal:
         raise RuntimeError(f"{illegal} illegal moves in the timed runs")
     dt = statistics.median(walls)
@@ -292,6 +308,13 @@ def measure(game_name="connect4", games=8192, rollouts=64, bf16=False,
             "stat_dtype": str(stat_dtype).removeprefix("torch."),
             "launches": counted,
             "launches_owed": owed,
+            "captured": captured,
+            "graph_replays": replayed["replays"],
+            "graph_captures": replayed["captures"],
+            "warmup_graph_captures": warm["captures"],
+            "capture_s": warm["capture_s"],
+            "graph_nodes": warm["capture_nodes"],
+            "graph_pool_bytes": warm["capture_pool_bytes"],
             "peak_mem_bytes": peak_mem,
             "device": _device_info(dev),
         },

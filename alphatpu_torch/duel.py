@@ -1,7 +1,8 @@
 """Arena: two-net duels with gating and incremental Elo.
 
 Counterpart of :mod:`alphatpu.duel`: the actor is chosen by round parity
-(``nets[t % 2]``; the module is picked, nothing is copied), each half of a
+(``nets[t % 2]``; the module is picked, nothing is copied - on the card,
+the graph captured of that net's round is replayed), each half of a
 duel starts a different net, the search runs with ``training=False`` (no
 root noise) and cpuct 2.0, and exactly ``T = max_moves or
 max_game_length`` rounds are played.  A game still running at the bound is
@@ -19,11 +20,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import graphs
 from .games.base import where_games
 from .mcts.newton import cdf_sample, row_sum
 from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree, stat_dtype_for
-from .selfplay import SelfplayUniforms, broadcast_initial
+from .mcts.tree import reset_tree
+from .selfplay import SearchRounds, SelfplayUniforms
 
 
 class DuelConfig(NamedTuple):
@@ -34,37 +36,68 @@ class DuelConfig(NamedTuple):
     max_moves: int | None = None
 
 
-def duel_half(game, net_first: Callable, net_second: Callable,
-              generator: torch.Generator | None, cfg: DuelConfig,
-              device=None, uniforms: SelfplayUniforms | None = None):
-    """All ``cfg.num_games`` games with ``net_first`` moving first, on
-    ``device``.  Returns ``(wins_first, draws, wins_second, unfinished)``
-    as 0-d tensors."""
-    G = cfg.num_games
-    T = cfg.max_moves or game.max_game_length
-    nets = (net_first, net_second)
-    positions = broadcast_initial(game, G, device)
-    dev = positions.player.device
-    tree = init_tree(game, positions, cfg.rollouts,
-                     stat_dtype=stat_dtype_for(cfg.rollouts))
-    done = torch.zeros((G,), dtype=torch.bool, device=dev)
-    result = torch.zeros((G,), dtype=torch.int8, device=dev)
-    for t in range(T):
-        reset_tree(tree, positions)
+class DuelRounds(SearchRounds):
+    """The static state of :func:`duel_half`'s rounds on
+    ``cfg.num_games`` lanes; :meth:`start` sets the starting positions,
+    each :meth:`round` plays one round of the net it is given, in place."""
+
+    def __init__(self, game, cfg: DuelConfig, device,
+                 injected: bool = False):
+        super().__init__(game, cfg, device, injected)
+        G, dev = cfg.num_games, self.device
+        self.done = torch.zeros((G,), dtype=torch.bool, device=dev)
+        self.result = torch.zeros((G,), dtype=torch.int8, device=dev)
+
+    def start(self) -> None:
+        graphs.assign(self.positions, self.initial)
+        for x in (self.t, self.done, self.result):
+            x.zero_()
+
+    def round(self, net) -> None:
+        game, cfg, positions = self.game, self.cfg, self.positions
+        reset_tree(self.tree, positions)
         _, pol = run_mcts(
-            game, nets[t % 2], tree, rollouts=cfg.rollouts, cpuct=cfg.cpuct,
-            training=False, generator=generator,
-            probs=None if uniforms is None else uniforms.probs[t])
-        u = (torch.rand((G,), generator=generator, device=dev)
-             if uniforms is None else uniforms.move[t])
+            game, net, self.tree, rollouts=cfg.rollouts, cpuct=cfg.cpuct,
+            training=False, generator=self.generator, probs=self.probs)
+        u = (torch.rand((cfg.num_games,), generator=self.generator,
+                        device=self.device)
+             if self.move is None else self.move)
         sampled = cdf_sample(pol, u * row_sum(pol))
         greedy = torch.argmax(pol, dim=0).to(torch.int32)
-        action = sampled if t < cfg.temp_moves else greedy
-        alive = ~done
-        positions = where_games(alive, game.play(positions, action), positions)
+        action = torch.where(self.t < cfg.temp_moves, sampled, greedy)
+        alive = ~self.done
+        graphs.assign(positions, where_games(
+            alive, game.play(positions, action), positions))
         f, r = game.is_over(positions)
-        result = torch.where(alive & f, r, result)
-        done = done | f
+        self.result.copy_(torch.where(alive & f, r, self.result))
+        self.done |= f
+        self.t += 1
+
+
+def duel_half(game, net_first: Callable, net_second: Callable,
+              generator: torch.Generator | None, cfg: DuelConfig,
+              device=None, uniforms: SelfplayUniforms | None = None,
+              captured: bool | None = None):
+    """All ``cfg.num_games`` games with ``net_first`` moving first, on
+    ``device``.  ``captured`` (default: on a CUDA device) replays the
+    rounds from CUDA graphs, one per net, which the two halves of a duel
+    share (:mod:`alphatpu_torch.graphs`); ``captured=False`` runs them
+    eagerly.  Returns ``(wins_first, draws, wins_second, unfinished)`` as
+    0-d tensors."""
+    T = cfg.max_moves or game.max_game_length
+    nets = (net_first, net_second)
+    dev = torch.empty(0, device=device).device
+    captured = graphs.use_graphs(captured, dev)
+
+    def make():
+        return DuelRounds(game, cfg, dev, uniforms is not None)
+
+    key = DuelRounds.key("duel", game, cfg, uniforms, dev)
+    st = graphs.rounds_for(key, nets, make) if captured else make()
+    st.start()
+    graphs.play(st, T, lambda t: nets[t % 2], generator,
+                st.feeder(uniforms), captured)
+    result, done = st.result, st.done
     return (((result == 1) & done).sum(), ((result == 0) & done).sum(),
             ((result == -1) & done).sum(), (~done).sum())
 

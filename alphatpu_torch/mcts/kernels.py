@@ -27,7 +27,8 @@ itemsize.  Rows are read as f32; each backup add runs in f32 and is
 rounded once to the storage dtype, and so is each entry of a written
 prior row (round to nearest even); an untouched element round-trips
 exactly.  ``launches`` counts a wrapper's launches of either dtype,
-``launches_bf16`` those on bf16 planes.
+``launches_bf16`` those on bf16 planes; a replayed CUDA graph adds the
+launches its capture recorded (:mod:`alphatpu_torch.graphs`).
 
 The four walks share one CUDA header (``csrc/walk.cuh``) and one plain
 walk (:func:`_walk_plain`); they differ in how a node's row is loaded.
@@ -673,6 +674,28 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.launches_bf16 = 0
+
+
+def launch_counts() -> dict:
+    """Every wrapper's ``(launches, launches_bf16)``, by name."""
+    return {k.__name__: (k.launches, k.launches_bf16) for k in KERNELS}
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set the counters to ``counts`` (as :func:`launch_counts` gives
+    them): after a CUDA graph capture, which called the wrappers but
+    launched nothing, the counts from before it."""
+    for k in KERNELS:
+        k.launches, k.launches_bf16 = counts[k.__name__]
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` to the counters: a graph replay launches the kernels
+    its capture recorded without calling a wrapper."""
+    for k in KERNELS:
+        n, n16 = counts[k.__name__]
+        k.launches += n
+        k.launches_bf16 += n16
 
 
 reset_launch_counts()

@@ -31,13 +31,16 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def solve_alpha(top, q, alpha, conv):
+def solve_alpha(top, q, alpha, conv, early_exit: bool = True):
     """Latched Newton iterations from ``alpha`` ([G]); lanes with ``conv``
-    set never move.  Returns the final alpha."""
+    set never move.  Returns the final alpha.  ``early_exit`` stops
+    between chunks once every lane has converged, which asks the device;
+    without it all chunks run (the same alpha: a converged lane never
+    moves), so nothing waits for the device."""
     prev_err = torch.full_like(alpha, float("inf"))
     conv = conv.clone()
     for _ in range(NEWTON_MAX_CHUNKS):
-        if bool(conv.all()):
+        if early_exit and bool(conv.all()):
             break
         for _ in range(NEWTON_CHUNK):
             r = 1.0 / (alpha[None, :] - q)
@@ -54,13 +57,16 @@ def solve_alpha(top, q, alpha, conv):
 
 def regularized_policy(prior, q, visits, cpuct):
     """prior/q/visits: f32[A, G] -> pi: f32[A, G] (not normalized exactly:
-    the solve stops at tolerance)."""
+    the solve stops at tolerance).  Nothing here waits for the device: the
+    solve runs all its chunks."""
     n = 1.0 + row_sum(visits)
     num_actions = (prior > 0).sum(0).to(torch.float32)
     lam = cpuct * torch.sqrt(n) / (num_actions + n)
     top = lam[None, :] * prior
     alpha0 = torch.amax(q + torch.clamp_min(top, ALPHA_FLOOR), dim=0)
-    alpha = solve_alpha(top, q, alpha0, torch.zeros_like(alpha0, dtype=torch.bool))
+    alpha = solve_alpha(top, q, alpha0,
+                        torch.zeros_like(alpha0, dtype=torch.bool),
+                        early_exit=False)
     return top / (alpha[None, :] - q)
 
 

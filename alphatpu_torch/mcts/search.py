@@ -36,6 +36,9 @@ and a stored value is rounded once to bf16 where the reference rounds it:
 at each backup add and at each prior-row write.
 
 The tree is updated in place throughout; the reference rebuilt its arrays.
+Every write is fixed-shape (``tree.write_where``) and nothing in
+:func:`run_mcts` waits for the device, so a round that searches can be
+captured as one CUDA graph (:mod:`alphatpu_torch.graphs`).
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ import torch
 from ..games.base import where_games
 from . import kernels as K
 from .newton import regularized_policy
-from .tree import Tree, gather_states, scatter_states
+from .tree import Tree, gather_states, scatter_states, write_where
 
 
 def node_policy(prior_row, wsum_row, visits_row, cpuct):
@@ -86,13 +89,11 @@ def expand(game, tree: Tree, node, leaf_action, needs_alloc, leaf_states,
     and the caller owes the write (the rollout loop defers it into the
     next kernel)."""
     V = tree.num_nodes
-    G = tree.num_games
-    g = torch.arange(G, device=tree.device)
 
     new = tree.next_idx.clone()
     alloc = needs_alloc & (new < V)
-    tree.parent[new.long()[alloc], g[alloc]] = node[alloc]
-    tree.action_from[new.long()[alloc], g[alloc]] = leaf_action[alloc]
+    write_where(tree.parent, new, alloc, node)
+    write_where(tree.action_from, new, alloc, leaf_action)
     scatter_states(tree.states, new, leaf_states, needs_alloc)
     tree.next_idx += needs_alloc.to(torch.int32)
     leaf = torch.where(needs_alloc, new, node)
@@ -112,11 +113,15 @@ def expand(game, tree: Tree, node, leaf_action, needs_alloc, leaf_states,
     newp = torch.where(done[None, :], 0.0, newp)
 
     inside = leaf < V
-    tree.expanded[leaf.long()[inside], g[inside]] = ~done[inside]
+    write_where(tree.expanded, leaf, inside, ~done)
     if write_prior:
-        tree.prior[:, leaf.long()[inside], g[inside]] = newp[:, inside].to(
-            tree.prior.dtype)
+        write_where(_node_rows(tree.prior), leaf, inside, newp.T)
     return leaf, done, result, newp
+
+
+def _node_rows(plane: torch.Tensor) -> torch.Tensor:
+    """A stat plane [A, V, G] viewed as [V, G, A] (writes land in it)."""
+    return plane.permute(1, 2, 0)
 
 
 def leaf_value_of(leaf_player, value_nn, done, result):
@@ -331,10 +336,8 @@ def run_mcts(
     elif level == 1:
         tree.wsum.copy_(K.unpack_wsum(plane, scale))
         tree.visits.copy_(K.unpack_visits(plane))
-    w = pend.write & (pend.leaf < V)
-    g = torch.arange(G, device=dev)
-    tree.prior[:, pend.leaf.long()[w], g[w]] = row[:, w].to(
-        tree.prior.dtype)
+    write_where(_node_rows(tree.prior), pend.leaf,
+                pend.write & (pend.leaf < V), row.T)
     backup_flush(tree, pend)
     if final_root_policy:
         root_pi = node_policy(tree.prior[:, 0, :], tree.wsum[:, 0, :],

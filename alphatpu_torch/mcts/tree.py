@@ -138,12 +138,25 @@ def gather_states(states, node: torch.Tensor):
     return type(states)(*(_node_major(leaf)[node.long(), g] for leaf in states))
 
 
+def write_where(plane: torch.Tensor, row: torch.Tensor, mask: torch.Tensor,
+                value: torch.Tensor) -> None:
+    """``plane[row[g], g] = value[g]`` where ``mask[g]``, in place, in one
+    fixed-shape write: ``plane`` is [N, G, ...] (a view writes through),
+    ``row`` [G] and ``value`` [G, ...].  Every game writes its own column
+    at ``clamp(row, 0, N - 1)``; a masked lane writes back the value that
+    is there, so the result equals the masked write bit for bit and no
+    shape depends on the mask (nothing waits for the device).  The caller
+    masks the rows outside ``[0, N)``."""
+    g = torch.arange(row.shape[0], device=row.device)
+    r = torch.clamp(row.long(), 0, plane.shape[0] - 1)
+    old = plane[r, g]
+    keep = mask.reshape(mask.shape + (1,) * (old.dim() - 1))
+    plane[r, g] = torch.where(keep, value.to(plane.dtype), old)
+
+
 def scatter_states(states, node: torch.Tensor, new_states, mask: torch.Tensor):
     """Write batch-layout states [G, *S] into the tree at each game's
     ``node`` where ``mask`` (and ``node < V``) holds, in place."""
-    V = states[0].shape[0]
-    sel = mask & (node < V)
-    g = torch.arange(node.shape[0], device=node.device)[sel]
-    n = node.long()[sel]
+    sel = mask & (node < states[0].shape[0])
     for leaf, new in zip(states, new_states):
-        _node_major(leaf)[n, g] = new[sel]
+        write_where(_node_major(leaf), node, sel, new)

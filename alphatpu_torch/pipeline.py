@@ -5,7 +5,10 @@ Counterpart of :mod:`alphatpu.pipeline`, with its protocol:
 
 * the *best* net plays selfplay (either mode),
 * the *train* net keeps training from itself across generations, and
-  replaces the best one only when the duel raises the Elo (from -1000),
+  replaces the best one only when the duel raises the Elo (from -1000):
+  its parameters are copied into the best net in place, so the graphs
+  captured of the best net's rounds (:mod:`alphatpu_torch.graphs`) serve
+  every generation,
 * the duel plays the train net against the best one, half the games with
   each starter,
 * a checkpoint per generation, the same log lines and the same stats dict.
@@ -236,7 +239,11 @@ def run_generation(game, state: PipelineState, cfg: PipelineConfig):
             f"move bound (excluded from the tally)")
     if passed:
         state.elo = new_elo
-        state.best_net = state.train_net.copy(trainable=False)
+        # in place: the captured selfplay and duel rounds read the best
+        # net's parameters by address, so they replay with the new ones
+        with torch.no_grad():
+            for name, p in state.best_net.named_parameters():
+                p.copy_(getattr(state.train_net, name))
         state.best_generation = gen
 
     state.generation = gen

@@ -4,7 +4,9 @@
 
 Builds the best net and the learner's copy from seed 0, runs the whole
 generation-mode selfplay stage unprofiled (its wall time, and the buffer
-the train window reads), then profiles one window of each stage:
+the train window reads), runs the selfplay and duel windows' calls once
+unprofiled (on the card this captures their rounds: the windows replay
+them), then profiles one window of each stage:
 
 * selfplay: the first ``--rounds`` rounds of ``selfplay_generation``,
 * train: one ``train_epoch`` over that buffer,
@@ -14,8 +16,11 @@ the train window reads), then profiles one window of each stage:
 Per window it prints (and writes to ``--out``) one JSON object: wall time,
 device busy time (the sum of the device kernels' time), the idle share
 ``1 - busy / wall``, device kernel launches (and per rollout for the
-search windows), host copy and sync calls, and the top device kernels.
-On the CPU (``--device cpu``) it gives the wall times only.
+search windows), the CUDA graphs replayed and captured in the window
+(:mod:`alphatpu_torch.graphs`) and the device kernels per replay, host
+copy and sync calls, and the top device kernels.  ``--eager`` runs the
+rounds eagerly instead (``captured=False``), for comparison.  On the CPU
+(``--device cpu``) it gives the wall times only.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import time
 import torch
 
 from . import checkpoint as ckpt
-from . import resolve_device
+from . import graphs, resolve_device
 from .buffer import create_buffer
 from .duel import DuelConfig, duel_half
 from .games import make_game
@@ -65,11 +70,13 @@ def window(name: str, fn, device: torch.device, rollouts: int | None = None):
             torch.cuda.synchronize(device)
 
     sync()
+    graphs.reset_counts()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    replays, captures = graphs.counts["replays"], graphs.counts["captures"]
     events = prof.events()
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -77,13 +84,16 @@ def window(name: str, fn, device: torch.device, rollouts: int | None = None):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     busy_ms = sum(by_name.values())
-    rec = {"window": name, "wall_ms": wall_ms}
+    rec = {"window": name, "wall_ms": wall_ms, "graph_replays": replays,
+           "graph_captures": captures}
     if cuda:  # no device metric exists on a CPU run
         rec.update({
             "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "kernel_launches": len(kernels),
             "launches_per_rollout": (len(kernels) / rollouts if rollouts
                                      else None),
+            "launches_per_replay": (len(kernels) / replays if replays
+                                    else None),
             "host_copy_or_sync_calls": sum(1 for e in events
                                            if e.name in HOST_SYNCS),
             "top_kernels_ms": [(k[:80], v) for k, v in sorted(
@@ -105,10 +115,13 @@ def main(argv=None) -> int:
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--depth", type=int, default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--eager", action="store_true",
+                   help="run the rounds eagerly, not from CUDA graphs")
     p.add_argument("--out", default=None, help="write the windows as JSON")
     args = p.parse_args(argv)
 
     dev = resolve_device(args.device)
+    captured = graphs.use_graphs(False if args.eager else None, dev)
     game = make_game(args.game)
     kw = {k: v for k, v in (("width", args.width), ("depth", args.depth))
           if v is not None}
@@ -122,34 +135,46 @@ def main(argv=None) -> int:
     card = card_line()
     print(card)
 
-    # warm-up (allocator, cuBLAS handles), unprofiled
-    selfplay_generation(game, best, create_buffer(game, G, device=dev), gen,
-                        sp_cfg._replace(max_moves=1))
-    duel_half(game, learner, best, gen, duel._replace(max_moves=1), dev)
-    # the whole selfplay stage, unprofiled: its wall, and the buffer the
-    # train window reads
+    k = args.rounds
+
+    def selfplay_window():
+        selfplay_generation(game, best, create_buffer(game, G * k, device=dev),
+                            gen, sp_cfg._replace(max_moves=k),
+                            captured=captured)
+
+    def duel_window():
+        duel_half(game, learner, best, gen, duel._replace(max_moves=k), dev,
+                  captured=captured)
+
+    # the whole selfplay stage, unprofiled: its wall (a capture included),
+    # and the buffer the train window reads
     buf = create_buffer(game, G * T, device=dev)
+    graphs.reset_counts()
     t0 = time.perf_counter()
-    _, stats = selfplay_generation(game, best, buf, gen, sp_cfg)
+    _, stats = selfplay_generation(game, best, buf, gen, sp_cfg,
+                                   captured=captured)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     full = {"full_selfplay_s": time.perf_counter() - t0,
-            "samples_written": int(stats["samples_written"])}
+            "samples_written": int(stats["samples_written"]),
+            "captured": captured, **graphs.counts}
     print(json.dumps(full))
+    # warm-up (allocator, cuBLAS handles, and the windows' captures),
+    # unprofiled
+    graphs.reset_counts()
+    selfplay_window()
+    duel_window()
+    warm = dict(graphs.counts)
+    print(json.dumps({"warm_up": warm}))
 
-    k = args.rounds
     windows = [
-        window(f"selfplay, rounds 1-{k} of {T}, {G} games",
-               lambda: selfplay_generation(
-                   game, best, create_buffer(game, G * k, device=dev), gen,
-                   sp_cfg._replace(max_moves=k)), dev, k * R),
+        window(f"selfplay, rounds 1-{k} of {T}, {G} games", selfplay_window,
+               dev, k * R),
         window("train, one epoch",
                lambda: train_epoch(learner, opt, buf, gen, TrainConfig()),
                dev),
         window(f"duel, one half, rounds 1-{k} of {T}, {duel.num_games} "
-               "games", lambda: duel_half(game, learner, best, gen,
-                                          duel._replace(max_moves=k), dev),
-               dev, k * duel.rollouts),
+               "games", duel_window, dev, k * duel.rollouts),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         windows.append(window(
@@ -160,7 +185,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "args": vars(args), **full,
-                       "windows": windows}, f, indent=1)
+                       "warm_up": warm, "windows": windows}, f, indent=1)
     return 0
 
 

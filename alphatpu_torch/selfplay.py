@@ -10,9 +10,12 @@ Counterpart of :mod:`alphatpu.selfplay`, with its two modes:
   hands each lane's running episode to the next call through an
   :class:`EpisodeCarry`.
 
-The reference runs the rounds as one jitted ``scan``; here they are a
-Python loop over tensors on the games' device, with the same per-round
-semantics:
+The reference runs the rounds as one jitted ``scan``.  Here a call's
+rounds run on static state (:class:`GenerationRounds`,
+:class:`ContinuousRounds`): each round is fixed-shape and never waits for
+the device, and on the card it is captured once as a CUDA graph and
+replayed once per round (:mod:`alphatpu_torch.graphs`); on the CPU the
+same rounds run eagerly.  The per-round semantics are the reference's:
 
 * move selection samples from the root policy while the lane's in-episode
   move index is below ``temp_moves`` and takes the argmax after,
@@ -32,11 +35,12 @@ from typing import NamedTuple
 
 import torch
 
+from . import graphs
 from .buffer import ReplayBuffer, write_samples
 from .games.base import where_games
 from .mcts.newton import cdf_sample, row_sum
-from .mcts.search import run_mcts
-from .mcts.tree import init_tree, reset_tree, stat_dtype_for
+from .mcts.search import engine_level, run_mcts
+from .mcts.tree import init_tree, reset_tree, stat_dtype_for, write_where
 
 
 class SelfplayConfig(NamedTuple):
@@ -99,7 +103,8 @@ def _decide_moves(game, net, positions, tree, ep_move, cfg: SelfplayConfig,
     place), pick a move and play it.
 
     Returns ``(root_enc, player, pol, ok, newpos, finished, result)``;
-    ``ok`` is the legality of each chosen move."""
+    ``ok`` is the legality of each chosen move; ``player`` is
+    ``positions.player`` itself."""
     G = positions.player.shape[0]
     reset_tree(tree, positions)
     _, pol = run_mcts(
@@ -123,14 +128,117 @@ def _decide_moves(game, net, positions, tree, ep_move, cfg: SelfplayConfig,
     return root_enc, positions.player, pol, ok, newpos, finished, result
 
 
+def _record(plane: torch.Tensor, t: torch.Tensor, row: torch.Tensor):
+    """``plane[t] = row`` at the round index ``t`` (a device scalar)."""
+    plane.index_copy_(0, t.long().reshape(1), row[None])
+
+
+class SearchRounds(graphs.Rounds):
+    """Rounds that search every lane of ``cfg.num_games`` once a round:
+    the starting positions, the positions and their tree, the round
+    index ``t`` (a device scalar),
+    and the static buffers of injected draws - ``probs`` (f32[R, D, G])
+    and ``move`` (f32[G]), filled before each round by the function that
+    :meth:`feeder` returns, or None where the draws come from the
+    generator."""
+
+    def __init__(self, game, cfg, device, injected: bool):
+        super().__init__(device)
+        G, R, dev = cfg.num_games, cfg.rollouts, self.device
+        D = min(game.max_game_length, R)
+        self.game, self.cfg = game, cfg
+        self.initial = broadcast_initial(game, G, dev)
+        self.positions = broadcast_initial(game, G, dev)
+        self.tree = init_tree(game, self.positions, R,
+                              stat_dtype=stat_dtype_for(R))
+        self.t = torch.zeros((), dtype=torch.int32, device=dev)
+        self.probs = self.move = None
+        if injected:
+            self.probs = torch.empty((R, D, G), dtype=torch.float32,
+                                     device=self.device)
+            self.move = torch.empty((G,), dtype=torch.float32,
+                                    device=self.device)
+
+    @staticmethod
+    def key(kind: str, game, cfg, uniforms, device, *extra) -> tuple:
+        """What fixes a program of such rounds (``graphs.rounds_for``):
+        the game and the shapes, the stat dtype and engine level (read from
+        the switches at each call), the search's constants, whether the
+        draws are injected, the device, and the caller's ``extra``."""
+        stat_dtype = stat_dtype_for(cfg.rollouts)
+        return (kind, game.name, cfg.num_games, cfg.rollouts, stat_dtype,
+                engine_level(None, True, stat_dtype), cfg.cpuct,
+                cfg.temp_moves, uniforms is not None, device, *extra)
+
+    def feeder(self, uniforms: SelfplayUniforms | None):
+        if uniforms is None:
+            return None
+
+        def feed(t):
+            self.probs.copy_(uniforms.probs[t])
+            self.move.copy_(uniforms.move[t])
+        return feed
+
+
+class GenerationRounds(SearchRounds):
+    """The static state of :func:`selfplay_generation`'s ``T`` rounds on
+    ``cfg.num_games`` lanes; :meth:`start` sets it for a call, each
+    :meth:`round` plays one round in place."""
+
+    def __init__(self, game, cfg: SelfplayConfig, T: int, device,
+                 injected: bool = False):
+        super().__init__(game, cfg, device, injected)
+        G, A, dev = cfg.num_games, game.max_actions, self.device
+        self.T = T
+        self.done = torch.zeros((G,), dtype=torch.bool, device=dev)
+        self.result = torch.zeros((G,), dtype=torch.int8, device=dev)
+        self.fin_t = torch.zeros((G,), dtype=torch.int32, device=dev)
+        self.illegal = torch.zeros((), dtype=torch.int64, device=dev)
+        self.enc_s = torch.empty((T, G, 2 * game.vectorized_state),
+                                 dtype=torch.int8, device=dev)
+        self.pol_s = torch.empty((T, G, A), dtype=torch.float32, device=dev)
+        self.player_s = torch.empty((T, G), dtype=torch.int8, device=dev)
+        self.alive_s = torch.empty((T, G), dtype=torch.bool, device=dev)
+
+    def start(self) -> None:
+        graphs.assign(self.positions, self.initial)
+        for x in (self.t, self.done, self.result, self.fin_t, self.illegal):
+            x.zero_()
+
+    def round(self, net) -> None:
+        t = self.t
+        alive = ~self.done
+        root_enc, player_t, pol, ok, newpos, f, r = _decide_moves(
+            self.game, net, self.positions, self.tree,
+            t.expand(self.cfg.num_games), self.cfg,
+            generator=self.generator, probs=self.probs, u=self.move)
+        self.illegal += (alive & ~ok).sum()
+        _record(self.enc_s, t, root_enc)
+        _record(self.pol_s, t, pol.T)
+        _record(self.player_s, t, player_t)
+        _record(self.alive_s, t, alive)
+        graphs.assign(self.positions,
+                      where_games(alive, newpos, self.positions))
+        newly = alive & f
+        self.result.copy_(torch.where(newly, r, self.result))
+        self.fin_t.copy_(torch.where(newly, t, self.fin_t))
+        self.done |= f
+        self.t += 1
+
+
 def selfplay_generation(game, net, buffer: ReplayBuffer,
                         generator: torch.Generator | None,
                         cfg: SelfplayConfig,
-                        uniforms: SelfplayUniforms | None = None):
+                        uniforms: SelfplayUniforms | None = None,
+                        captured: bool | None = None):
     """Play ``cfg.num_games`` games from the start for ``T = cfg.max_moves
     or game.max_game_length`` rounds and write every move of each finished
     game to ``buffer`` (in place).  A lane whose game has ended keeps its
     final position; its searches and moves are masked out.
+
+    ``captured`` (default: on a CUDA device) replays the rounds from a
+    CUDA graph (:mod:`alphatpu_torch.graphs`); ``captured=False`` runs
+    them eagerly.  The buffer write after the rounds runs eagerly.
 
     Returns ``(buffer, stats)``: ``stats`` is a dict of 0-d tensors (wins /
     draws / losses from the first mover's view, mean_length (0-based ply of
@@ -139,67 +247,106 @@ def selfplay_generation(game, net, buffer: ReplayBuffer,
     T = cfg.max_moves or game.max_game_length
     A = game.max_actions
     dev = buffer.state.device
-    positions = broadcast_initial(game, G, dev)
-    tree = init_tree(game, positions, cfg.rollouts,
-                     stat_dtype=stat_dtype_for(cfg.rollouts))
-    done = torch.zeros((G,), dtype=torch.bool, device=dev)
-    result = torch.zeros((G,), dtype=torch.int8, device=dev)
-    fin_t = torch.zeros((G,), dtype=torch.int32, device=dev)
-    illegal = torch.zeros((), dtype=torch.int64, device=dev)
-    enc_s = torch.empty((T, G, 2 * game.vectorized_state), dtype=torch.int8,
-                        device=dev)
-    pol_s = torch.empty((T, G, A), dtype=torch.float32, device=dev)
-    player_s = torch.empty((T, G), dtype=torch.int8, device=dev)
-    alive_s = torch.empty((T, G), dtype=torch.bool, device=dev)
+    captured = graphs.use_graphs(captured, dev)
 
-    for t in range(T):
-        alive = ~done
-        root_enc, player_t, pol, ok, newpos, f, r = _decide_moves(
-            game, net, positions, tree,
-            torch.full((G,), t, dtype=torch.int32, device=dev), cfg,
-            generator=generator,
-            probs=None if uniforms is None else uniforms.probs[t],
-            u=None if uniforms is None else uniforms.move[t],
-        )
-        illegal = illegal + (alive & ~ok).sum()
-        positions = where_games(alive, newpos, positions)
-        newly = alive & f
-        result = torch.where(newly, r, result)
-        fin_t = torch.where(newly, t, fin_t)
-        done = done | f
-        enc_s[t] = root_enc
-        pol_s[t] = pol.T
-        player_s[t] = player_t
-        alive_s[t] = alive
+    def make():
+        return GenerationRounds(game, cfg, T, dev, uniforms is not None)
 
-    final_feat = game.final_feature(positions)  # [G, fsize]
+    key = GenerationRounds.key("generation", game, cfg, uniforms, dev, T,
+                               cfg.fresh_root_policy)
+    st = graphs.rounds_for(key, (net,), make) if captured else make()
+    st.start()
+    graphs.play(st, T, lambda t: net, generator, st.feeder(uniforms),
+                captured)
+
+    result, done, player_s = st.result, st.done, st.player_s
+    final_feat = game.final_feature(st.positions)  # [G, fsize]
     value_s = (1.0 + result.to(torch.float32)[None, :]
                * player_s.to(torch.float32)) / 2.0
     fstate_s = final_feat[None, :, :] * player_s[:, :, None]
-    mask = alive_s & done[None, :]  # only the moves of finished games
-    write_samples(buffer, enc_s.reshape(T * G, -1), pol_s.reshape(T * G, A),
-                  player_s.reshape(T * G), value_s.reshape(T * G),
-                  fstate_s.reshape(T * G, -1), mask.reshape(T * G))
+    mask = st.alive_s & done[None, :]  # only the moves of finished games
+    write_samples(buffer, st.enc_s.reshape(T * G, -1),
+                  st.pol_s.reshape(T * G, A), player_s.reshape(T * G),
+                  value_s.reshape(T * G), fstate_s.reshape(T * G, -1),
+                  mask.reshape(T * G))
     n_done = done.sum()
     stats = {
         "wins": ((result == 1) & done).sum(),
         "draws": ((result == 0) & done).sum(),
         "losses": ((result == -1) & done).sum(),
         "mean_length": torch.where(
-            n_done > 0, fin_t.sum().to(torch.float32)
+            n_done > 0, st.fin_t.sum().to(torch.float32)
             / torch.clamp_min(n_done, 1).to(torch.float32), 0.0),
-        "illegal_moves": illegal,
+        "illegal_moves": st.illegal.clone(),
         "unfinished": (~done).sum(),
         "samples_written": mask.sum(),
     }
     return buffer, stats
 
 
+class ContinuousRounds(SearchRounds):
+    """The static state of :func:`selfplay_continuous`'s ``T`` rounds on
+    ``cfg.num_games`` lanes; :meth:`start` sets it from a call's carry,
+    each :meth:`round` plays one round in place."""
+
+    def __init__(self, game, cfg: SelfplayConfig, T: int, device,
+                 injected: bool = False):
+        super().__init__(game, cfg, device, injected)
+        G, A, dev = cfg.num_games, game.max_actions, self.device
+        self.T = T
+        self.E = T // game.min_game_length + 2  # episode table rows per lane
+        self.eid = torch.zeros((G,), dtype=torch.int32, device=dev)
+        self.ep_start = torch.zeros((G,), dtype=torch.int32, device=dev)
+        self.res_table = torch.zeros((self.E, G), dtype=torch.int8,
+                                     device=dev)
+        self.ftable = torch.zeros((self.E, G, game.feature_size),
+                                  dtype=torch.int8, device=dev)
+        # wins, draws, losses, length_sum, illegal
+        self.tally = torch.zeros((5,), dtype=torch.int64, device=dev)
+        self.enc_s = torch.empty((T, G, 2 * game.vectorized_state),
+                                 dtype=torch.int8, device=dev)
+        self.pol_s = torch.empty((T, G, A), dtype=torch.float32, device=dev)
+        self.player_s = torch.empty((T, G), dtype=torch.int8, device=dev)
+        self.eid_s = torch.empty((T, G), dtype=torch.int32, device=dev)
+
+    def start(self, carry: EpisodeCarry) -> None:
+        graphs.assign(self.positions, carry.positions)
+        # continuing episodes began count moves ago
+        torch.neg(carry.count, out=self.ep_start)
+        for x in (self.t, self.eid, self.res_table, self.ftable, self.tally):
+            x.zero_()
+
+    def round(self, net) -> None:
+        t, eid = self.t, self.eid
+        ep_move = t - self.ep_start
+        root_enc, player_t, pol, ok, newpos, f, r = _decide_moves(
+            self.game, net, self.positions, self.tree, ep_move, self.cfg,
+            generator=self.generator, probs=self.probs, u=self.move)
+
+        # terminated lanes: record the episode, then recycle
+        fe = f & (eid < self.E)
+        write_where(self.res_table, eid, fe, r)
+        write_where(self.ftable, eid, fe, self.game.final_feature(newpos))
+        self.tally += torch.stack([
+            (f & (r == 1)).sum(), (f & (r == 0)).sum(),
+            (f & (r == -1)).sum(), torch.where(f, ep_move, 0).sum(),
+            (~ok).sum()])
+        _record(self.enc_s, t, root_enc)
+        _record(self.pol_s, t, pol.T)
+        _record(self.player_s, t, player_t)
+        _record(self.eid_s, t, eid)
+        graphs.assign(self.positions, where_games(f, self.initial, newpos))
+        eid += f.to(torch.int32)
+        self.ep_start.copy_(torch.where(f, t + 1, self.ep_start))
+        self.t += 1
+
+
 def selfplay_continuous(game, net, buffer: ReplayBuffer,
                         generator: torch.Generator | None,
                         cfg: SelfplayConfig,
                         carry: EpisodeCarry | None = None,
-                        uniforms: SelfplayUniforms | None = None):
+                        uniforms: SelfplayUniforms | None = None,
+                        captured: bool | None = None):
     """Play ``cfg.rounds`` move rounds on ``cfg.num_games`` lanes, recycling
     every finished lane into a fresh game, and write every completed
     episode's samples to ``buffer`` (in place).
@@ -207,7 +354,11 @@ def selfplay_continuous(game, net, buffer: ReplayBuffer,
     ``carry`` (None = fresh start) continues in-flight episodes: when one
     ends, its moves recorded in earlier calls are written with this call's.
     Given a carry, its ``rng`` continues the stream and ``generator`` is
-    ignored.  ``uniforms`` replaces every random draw.
+    ignored.  ``uniforms`` replaces every random draw.  ``captured``
+    (default: on a CUDA device) replays the rounds from a CUDA graph
+    (:mod:`alphatpu_torch.graphs`); ``captured=False`` runs them eagerly.
+    The back-fill, the buffer write and the next carry run eagerly after
+    the rounds.
 
     Returns ``(buffer, stats, carry')``: ``stats`` is a dict of 0-d tensors
     (wins / draws / losses from the first mover's view, mean_length,
@@ -215,65 +366,35 @@ def selfplay_continuous(game, net, buffer: ReplayBuffer,
     """
     G = cfg.num_games
     T = cfg.rounds or 2 * game.max_game_length
-    E = T // game.min_game_length + 2  # episode table rows per lane
     L = game.max_game_length
     A = game.max_actions
     dev = buffer.state.device
+    captured = graphs.use_graphs(captured, dev)
     if carry is None:
         carry = make_carry(game, G, generator, dev)
     gen = carry.rng
     g = torch.arange(G, device=dev)
-    fresh = broadcast_initial(game, G, dev)
-    tree = init_tree(game, carry.positions, cfg.rollouts,
-                     stat_dtype=stat_dtype_for(cfg.rollouts))
 
-    positions = carry.positions
-    eid = torch.zeros((G,), dtype=torch.int32, device=dev)
-    ep_start = -carry.count  # continuing episodes began count moves ago
-    res_table = torch.zeros((E, G), dtype=torch.int8, device=dev)
-    ftable = torch.zeros((E, G, game.feature_size), dtype=torch.int8,
-                         device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    wins, draws, losses, length_sum, illegal = zero, zero, zero, zero, zero
-    enc_s = torch.empty((T, G, 2 * game.vectorized_state), dtype=torch.int8,
-                        device=dev)
-    pol_s = torch.empty((T, G, A), dtype=torch.float32, device=dev)
-    player_s = torch.empty((T, G), dtype=torch.int8, device=dev)
-    eid_s = torch.empty((T, G), dtype=torch.int32, device=dev)
+    def make():
+        return ContinuousRounds(game, cfg, T, dev, uniforms is not None)
 
-    for t in range(T):
-        ep_move = t - ep_start
-        root_enc, player_t, pol, ok, positions, f, r = _decide_moves(
-            game, net, positions, tree, ep_move, cfg, generator=gen,
-            probs=None if uniforms is None else uniforms.probs[t],
-            u=None if uniforms is None else uniforms.move[t],
-        )
-        illegal = illegal + (~ok).sum()
-
-        # terminated lanes: record the episode, then recycle
-        fe = f & (eid < E)
-        res_table[eid.long()[fe], g[fe]] = r[fe]
-        ftable[eid.long()[fe], g[fe]] = game.final_feature(positions)[fe]
-        wins = wins + (f & (r == 1)).sum()
-        draws = draws + (f & (r == 0)).sum()
-        losses = losses + (f & (r == -1)).sum()
-        length_sum = length_sum + torch.where(f, ep_move, 0).sum()
-        positions = where_games(f, fresh, positions)
-        enc_s[t] = root_enc
-        pol_s[t] = pol.T
-        player_s[t] = player_t
-        eid_s[t] = eid
-        eid = eid + f.to(torch.int32)
-        ep_start = torch.where(f, t + 1, ep_start)
+    key = ContinuousRounds.key("continuous", game, cfg, uniforms, dev, T,
+                               cfg.fresh_root_policy)
+    st = graphs.rounds_for(key, (net,), make) if captured else make()
+    st.start(carry)
+    graphs.play(st, T, lambda t: net, gen, st.feeder(uniforms), captured)
+    E, eid, res_table, ftable = st.E, st.eid, st.res_table, st.ftable
+    player_s = st.player_s
+    wins, draws, losses, length_sum, illegal = st.tally.clone()
 
     # per-sample episode lookups and the back-fill
-    eid_l = eid_s.long().clamp_max(E - 1)
+    eid_l = st.eid_s.long().clamp_max(E - 1)
     res_s = torch.gather(res_table, 0, eid_l)  # [T, G]
     fstate_ep = ftable[eid_l, g[None, :]]  # [T, G, fsize]
     value_s = (1.0 + res_s.to(torch.float32)
                * player_s.to(torch.float32)) / 2.0
     fstate_s = fstate_ep * player_s[:, :, None]
-    completed = eid_s < eid[None, :]  # episode finished before round T
+    completed = st.eid_s < eid[None, :]  # episode finished before round T
 
     # carried-in rows belong to episode 0: back-fill from table row 0
     lio = torch.arange(L, device=dev)[None, :]  # [1, L]
@@ -285,8 +406,9 @@ def selfplay_continuous(game, net, buffer: ReplayBuffer,
     # carried rows are older than this call's: write them first
     write_samples(
         buffer,
-        torch.cat([carry.enc.reshape(G * L, -1), enc_s.reshape(T * G, -1)]),
-        torch.cat([carry.pol.reshape(G * L, A), pol_s.reshape(T * G, A)]),
+        torch.cat([carry.enc.reshape(G * L, -1),
+                   st.enc_s.reshape(T * G, -1)]),
+        torch.cat([carry.pol.reshape(G * L, A), st.pol_s.reshape(T * G, A)]),
         torch.cat([carry.player.reshape(G * L), player_s.reshape(T * G)]),
         torch.cat([pend_value.reshape(G * L), value_s.reshape(T * G)]),
         torch.cat([pend_fstate.reshape(G * L, -1),
@@ -296,7 +418,7 @@ def selfplay_continuous(game, net, buffer: ReplayBuffer,
 
     # next carry: the rows of each lane's still-running episode, which
     # started at round s (negative: the carried-in episode, still running)
-    s = ep_start
+    s = st.ep_start
     new_count = T - s
     overflow = new_count > L  # outlived maxLengthGame: reset the lane
     src = torch.clamp(lio + s[:, None], 0, T - 1).long()  # [G, L]
@@ -312,10 +434,10 @@ def selfplay_continuous(game, net, buffer: ReplayBuffer,
         return torch.where(keep, old_gl, gathered)
 
     new_carry = EpisodeCarry(
-        positions=where_games(overflow, fresh, positions),
+        positions=where_games(overflow, st.initial, st.positions),
         count=torch.where(overflow, 0, new_count).to(torch.int32),
-        enc=merge(carry.enc, enc_s),
-        pol=merge(carry.pol, pol_s),
+        enc=merge(carry.enc, st.enc_s),
+        pol=merge(carry.pol, st.pol_s),
         player=merge(carry.player, player_s),
         rng=gen,
     )

@@ -99,21 +99,32 @@ Phases, each fatal on failure:
    packed kernels none, no illegal move), a 512-lane duel half and a short
    ``eval_vs_probe`` on connect4 - every launch of the three kernels on
    bf16 planes,
-17. a JSON line of the kernels (for the four walks also ``ms_device`` and
+17. one move round as one program (``alphatpu_torch.graphs``): an eager
+   round of connect4 selfplay (4x512, 8192 lanes) under
+   ``torch.cuda.set_sync_debug_mode("error")``; 8 continuous rounds
+   captured as a CUDA graph against 8 eager rounds at levels 1, 2 and 0
+   and on bf16 planes - buffer rows, stats, carry and generator state bit
+   for bit, launches as owed under replay, env-steps/s of both, capture
+   seconds, graph nodes, graph-pool bytes, peak device memory; at level 1
+   a second call of each (the captured one all replays); a 512-lane duel
+   half captured against eager, bit for bit,
+18. a JSON line of the kernels (for the four walks also ``ms_device`` and
    ``bound_ms_device``, at the device placement's shape; a row for each
    bf16 instantiation, ``<name>_bf16``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts: before each path every count is set to 0, and after it the
 counts must be exactly what the path owes (launches made for the parity
-checks are not counted): a search of R rollouts owes R launches of its
-engine's walk and one ``backup``, so ``eval_vs_probe`` owes plies x 64 and
-plies, ``eval_vs_random`` 2 x 9 x 64 and 2 x 9, the interactive engine
-128 and 1 a move.  The kernels line reports, for
-``select_apply_packed`` and ``backup``, the launches of the CLI run (the
-main path, phase 11); for the other three kernels those of the path that
-runs each (phases 6 and 7); for the bf16 instantiations those of phase
-16's bench generation and (``select``) its per-phase search.
+checks are not counted; a replayed CUDA graph counts the launches its
+capture recorded, so captured rounds owe what eager ones owe): a search
+of R rollouts owes R launches of its engine's walk and one ``backup``,
+so ``eval_vs_probe`` owes plies x 64 and plies, ``eval_vs_random`` 2 x 9
+x 64 and 2 x 9, the interactive engine 128 and 1 a move.  The kernels
+line reports, for ``select_apply_packed`` and ``backup``, the launches of
+the CLI run (the main path, phase 11); for the other three kernels those
+of the path that runs each (phases 6 and 7); for the bf16 instantiations
+those of phase 16's bench generation and (``select``) its per-phase
+search.
 
 Kernel parity: each walk kernel and its plain version sum in the same
 order and round each operation alike, so the stat planes after the apply
@@ -126,6 +137,7 @@ over 67 TFLOP/s, whichever is larger), its plain version's wall time and,
 for backup, the device time of two ``index_put_(accumulate=True)`` calls
 that compute the same adds (a yardstick the port never calls).
 """
+import contextlib
 import json
 import math
 import os
@@ -175,6 +187,18 @@ REPLAY_TEMP_MOVES = 8
 # eval_vs_probe (games, probe depth) under ALPHATPU_BF16_STATS
 BF16_DUEL = (512, 32, 12)
 BF16_PROBE = (16, 2)
+# phase 17: continuous rounds of each captured-vs-eager run, and the duel
+# half (games, rollouts) held to its eager rounds
+CAPTURE_ROUNDS = 8
+CAPTURE_DUEL = (512, 32)
+# phase 17's runs: label, engine switches, the walk kernel they launch
+CAPTURE_RUNS = (
+    ("level 1", {}, "select_apply_packed"),
+    ("level 2", {"ALPHATPU_PACK": "2"}, "select_apply_packed1"),
+    ("level 0", {"ALPHATPU_NO_PACK": "1"}, "select_apply"),
+    ("bf16 planes", {"ALPHATPU_BF16_STATS": "1"}, "select_apply"),
+)
+SWITCHES = ("ALPHATPU_PACK", "ALPHATPU_NO_PACK", "ALPHATPU_BF16_STATS")
 ABLATE_VARIANTS = ("full", "select-only")
 # (game, rollouts = tree nodes, lanes, cpuct, training) of phase 9
 PATH_SHAPES = (
@@ -762,6 +786,23 @@ def phase_search(game, net, tree, probs, cpuct):
     return root_pi
 
 
+@contextlib.contextmanager
+def switches(env: dict):
+    """The engine switches set to ``env`` (the others unset) inside the
+    block, the caller's restored after it."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    for k in SWITCHES:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
 def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card,
                  lanes=LANES, chunk_rounds=CHUNK_ROUNDS):
     """Continuous selfplay at full width under the engine switches ``env``,
@@ -775,12 +816,7 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card,
         SelfplayConfig, make_carry, selfplay_continuous,
     )
 
-    saved = {k: os.environ.get(k) for k in ("ALPHATPU_PACK",
-                                            "ALPHATPU_NO_PACK")}
-    for k in saved:
-        os.environ.pop(k, None)
-    os.environ.update(env)
-    try:
+    with switches(env):
         G = lanes
         cfg = SelfplayConfig(num_games=G, rollouts=ROLLOUTS, cpuct=CPUCT,
                              rounds=chunk_rounds)
@@ -812,11 +848,6 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card,
         launches = expect_launches(
             K, f"selfplay {label}",
             {owed_kernel: rounds * ROLLOUTS, "backup": rounds})
-    finally:
-        for k, v in saved.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
     totals = {k: float(v) for k, v in totals.items()}
     carried = float(stats["carried"])
     env_steps = totals["samples_written"] + carried
@@ -860,6 +891,7 @@ def family_runs(K, dev, card: str) -> dict:
     FAMILIES, with its reference net.  Returns {game: env-steps/s}."""
     import torch
 
+    from alphatpu_torch import graphs
     from alphatpu_torch.games import make_game
     from alphatpu_torch.nets import MLP, config_for_game
 
@@ -867,6 +899,9 @@ def family_runs(K, dev, card: str) -> dict:
     for name, (lanes, rounds) in FAMILIES.items():
         game = make_game(name)
         net = MLP.from_seed(config_for_game(game), SEED, device=dev)
+        # the peak below is this family's: no other family's captured
+        # rounds stay cached
+        graphs.clear_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         _, rates[name] = selfplay_run(K, game, net, dev, f"family {name}", {},
                                       1, "select_apply_packed", card,
@@ -891,6 +926,7 @@ def pipeline_generation(K, dev, card: str) -> None:
 
     import torch
 
+    from alphatpu_torch import graphs
     from alphatpu_torch.duel import DuelConfig
     from alphatpu_torch.games import make_game
     from alphatpu_torch.nets import PARAM_NAMES
@@ -903,13 +939,15 @@ def pipeline_generation(K, dev, card: str) -> None:
     game = make_game("connect4")
     T = game.max_game_length
     duel = DuelConfig(num_games=GEN_DUEL[0], rollouts=GEN_DUEL[1])
-    marks = {}  # stage -> (time, launch counts) when its log line came
+    # stage -> (time, launch counts, graph counts) when its log line came
+    marks = {}
 
     def log(line):
         print(f"  {line}")
         for stage in ("selfplay", "train", "duel"):
             if line.startswith(f"[gen 1] {stage}:"):
-                marks[stage] = (time.perf_counter(), launch_counts(K))
+                marks[stage] = (time.perf_counter(), launch_counts(K),
+                                dict(graphs.counts))
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = PipelineConfig(
@@ -922,10 +960,22 @@ def pipeline_generation(K, dev, card: str) -> None:
         w0 = state.train_net.base.detach().clone()
         torch.cuda.synchronize()
         K.reset_launch_counts()
+        graphs.reset_counts()
         t0 = time.perf_counter()
         state, stats = run_generation(game, state, cfg)
         t_end = time.perf_counter()
         end_counts = launch_counts(K)
+        # on the card the stages replay captured rounds: selfplay's round
+        # 0 and each duel net's first round run eagerly, then the program
+        # captures once per net and replays every round after
+        sp, du = marks["selfplay"][2], marks["duel"][2]
+        replayed = {"selfplay": (sp["captures"], sp["replays"]),
+                    "duel": (du["captures"] - sp["captures"],
+                             du["replays"] - sp["replays"])}
+        print(f"graphs in the generation (captures, replays): {replayed}, "
+              f"capture {du['capture_s']:.3f} s")
+        if replayed != {"selfplay": (1, T - 1), "duel": (2, 2 * T - 2)}:
+            raise AssertionError(f"generation: graphs {replayed}")
         ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, f))
                          for f in os.listdir(tmp))
 
@@ -1591,6 +1641,11 @@ def bench_runs(card: str) -> None:
                 or ex["env_steps"] != LANES * BENCH_ROUNDS
                 or not math.isfinite(r["value"]) or r["value"] <= 0):
             raise AssertionError(f"bench {kw}: {json.dumps(r)}")
+        # every timed round a replay of the round the warm-up captured
+        if not ex["captured"] or (ex["graph_replays"],
+                                  ex["graph_captures"]) != (BENCH_ROUNDS, 0):
+            raise AssertionError(f"bench {kw}: rounds not replayed: "
+                                 f"{json.dumps(r)}")
         print(json.dumps(r))
         print(f"bench {kw}: {time.perf_counter() - t0:.3f} s with the "
               f"warm-up; spread {ex['spread']:.4f}  [{card}]")
@@ -1760,6 +1815,175 @@ def bf16_stats_path(K, dev, card: str) -> dict:
     return launches
 
 
+def captured_rounds(K, dev, card: str) -> None:
+    """Phase 17: one move round as one program.  An eager round of
+    continuous selfplay (connect4 4x512, LANES lanes) under
+    ``torch.cuda.set_sync_debug_mode("error")``; then, for each of
+    CAPTURE_RUNS, CAPTURE_ROUNDS continuous rounds eagerly and from a
+    CUDA graph (its first round eager, the second captured, every later
+    one a replay) from the same generator: buffer rows, stats, carry
+    (root policies included) and the generator's state bit for bit, each
+    run's launches as owed; at level 1 a second captured call (replays
+    only) and a second eager one.  Then a CAPTURE_DUEL duel half, both
+    nets' rounds captured, against its eager rounds bit for bit.  Prints
+    env-steps/s, capture seconds, graph nodes, graph-pool bytes and peak
+    device memory."""
+    import torch
+
+    from alphatpu_torch import graphs
+    from alphatpu_torch.buffer import create_buffer
+    from alphatpu_torch.duel import DuelConfig, duel_half
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.nets import MLP, config_for_game
+    from alphatpu_torch.selfplay import (
+        ContinuousRounds, SelfplayConfig, make_carry, selfplay_continuous,
+    )
+
+    t_phase = time.perf_counter()
+    game = make_game("connect4")
+    net = MLP.from_seed(config_for_game(game), SEED, device=dev)
+    T, G = CAPTURE_ROUNDS, LANES
+    cfg = SelfplayConfig(num_games=G, rollouts=ROLLOUTS, cpuct=CPUCT,
+                         rounds=T)
+    graphs.clear_cache()
+
+    # an eager round: nothing in it may wait for the device.  The first
+    # round of a game object copies its constants to the card (once, as
+    # a captured program's eager first round does); the second is checked
+    st = ContinuousRounds(game, cfg, T, dev)
+    st.start(make_carry(game, G, None, dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    graphs.play(st, 1, lambda t: net, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphs.play(st, 1, lambda t: net, gen)
+        queued = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"eager round under set_sync_debug_mode('error'): connect4, {G} "
+          f"lanes, {ROLLOUTS} rollouts, the second round of a call: queued "
+          f"in {queued:.3f} s, done in {time.perf_counter() - t0:.3f} s, no "
+          f"call waited  [{card}]")
+    del st
+
+    def run(captured, carry, label, kernel):
+        """One call of T rounds; returns (tensors, carry, wall, stats,
+        graph counts)."""
+        buf = create_buffer(game, G * T, device=dev)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        graphs.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _, stats, carry = selfplay_continuous(game, net, buf, None, cfg,
+                                              carry, captured=captured)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_launches(K, f"{T} {'captured' if captured else 'eager'} "
+                        f"rounds, {label}", {kernel: T * ROLLOUTS,
+                                             "backup": T})
+        counts = dict(graphs.counts,
+                      peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+        out = [getattr(buf, f) for f in ("state", "policy", "player",
+                                         "value", "fstate", "cursor",
+                                         "total")]
+        out += [stats[k] for k in sorted(stats)]
+        out += [carry.count, carry.enc, carry.pol, carry.player,
+                *carry.positions, carry.rng.get_state()]
+        return out, carry, wall, stats, counts
+
+    def fresh_carry():
+        return make_carry(
+            game, G, torch.Generator(device=dev).manual_seed(SEED + 29), dev)
+
+    def rate(stats, wall):
+        return float(stats["samples_written"] + stats["carried"]) / wall
+
+    for label, env, kernel in CAPTURE_RUNS:
+        with switches(env):
+            eager, eager_carry, e_wall, e_stats, _ = run(
+                False, fresh_carry(), label, kernel)
+            cap, cap_carry, c_wall, c_stats, counts = run(
+                True, fresh_carry(), label, kernel)
+            bad = [i for i, (x, y) in enumerate(zip(cap, eager))
+                   if x.dtype != y.dtype or not torch.equal(x, y)]
+            if bad or len(cap) != len(eager):
+                raise AssertionError(f"captured rounds, {label}: tensors "
+                                     f"{bad} differ from the eager rounds")
+            if (counts["captures"], counts["replays"]) != (1, T - 1) or int(
+                    c_stats["illegal_moves"]):
+                raise AssertionError(f"captured rounds, {label}: {counts}")
+            print(f"captured rounds, {label}: connect4 4x512, {G} lanes, "
+                  f"{ROLLOUTS} rollouts, {T} rounds: buffer rows, stats, "
+                  f"carry and generator state equal to the eager rounds' "
+                  f"bit for bit; eager {rate(e_stats, e_wall):.1f} "
+                  f"env-steps/s ({e_wall:.3f} s), captured "
+                  f"{rate(c_stats, c_wall):.1f} env-steps/s ({c_wall:.3f} s:"
+                  f" round 0 eager, capture {counts['capture_s']:.3f} s, "
+                  f"{counts['replays']} replays); graph nodes "
+                  f"{counts['capture_nodes']}, graph pool "
+                  f"{counts['capture_pool_bytes']} B, peak_mem_bytes "
+                  f"{counts['peak_mem_bytes']}  [{card}]")
+            if label != "level 1":
+                continue
+            # the same calls again: replays only, then eager
+            cap2, _, c2_wall, c2_stats, counts2 = run(True, cap_carry, label,
+                                                      kernel)
+            eager2, _, e2_wall, e2_stats, _ = run(False, eager_carry, label,
+                                                  kernel)
+            if counts2["replays"] != T or counts2["captures"] or any(
+                    not torch.equal(x, y) for x, y in zip(cap2, eager2)):
+                raise AssertionError(f"the second captured call, {label}: "
+                                     f"{counts2}")
+            print(f"captured rounds, {label}, a second call of {T} rounds "
+                  f"(every round a replay): captured "
+                  f"{rate(c2_stats, c2_wall):.1f} env-steps/s "
+                  f"({c2_wall:.3f} s), eager {rate(e2_stats, e2_wall):.1f} "
+                  f"env-steps/s ({e2_wall:.3f} s), equal bit for bit; "
+                  f"peak_mem_bytes {counts2['peak_mem_bytes']}  [{card}]")
+    graphs.clear_cache()
+
+    # a duel half: a graph per net, shared by the program's rounds
+    games, rollouts = CAPTURE_DUEL
+    duel = DuelConfig(num_games=games, rollouts=rollouts)
+    other = MLP.from_seed(config_for_game(game), SEED + 1, device=dev)
+    Td = game.max_game_length
+    outs = {}
+    for captured in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        graphs.reset_counts()
+        t0 = time.perf_counter()
+        tally = duel_half(game, net, other, gen, duel, dev,
+                          captured=captured)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_launches(K, f"the {'captured' if captured else 'eager'} duel "
+                        f"half", {"select_apply_packed": Td * rollouts,
+                                  "backup": Td})
+        outs[captured] = ([*tally, gen.get_state()], wall,
+                          dict(graphs.counts))
+    (cap, c_wall, counts), (eager, e_wall, _) = outs[True], outs[False]
+    if any(not torch.equal(x, y) for x, y in zip(cap, eager)) or (
+            counts["captures"], counts["replays"]) != (2, Td - 2):
+        raise AssertionError(f"captured duel half != eager: {cap} {eager} "
+                             f"{counts}")
+    print(f"captured duel half: connect4 4x512, {games} lanes, {rollouts} "
+          f"rollouts, {Td} rounds: first/draws/second/unfinished "
+          f"{'/'.join(str(int(x)) for x in cap[:4])} and the generator's "
+          f"state equal to the eager rounds'; eager {e_wall:.3f} s, "
+          f"captured {c_wall:.3f} s (two captures, "
+          f"{counts['capture_s']:.3f} s, {counts['replays']} replays)  "
+          f"[{card}]")
+    graphs.clear_cache()
+    print(f"captured rounds: {time.perf_counter() - t_phase:.3f} s  "
+          f"[{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1847,7 +2071,7 @@ def ptxas_lines(log: str) -> list:
 
 
 def smoke(dev, card: str, kind: str) -> int:
-    """Phases 3-17 on the device ``dev``; ``card`` is the nvidia-smi line
+    """Phases 3-18 on the device ``dev``; ``card`` is the nvidia-smi line
     printed beside every time, ``kind`` the device name."""
     import torch
 
@@ -2049,7 +2273,10 @@ def smoke(dev, card: str, kind: str) -> int:
     # ---- 16. the bf16 stat storage end to end ----
     bf16_launches = bf16_stats_path(K, dev, card)
 
-    # ---- 17. result ----
+    # ---- 17. captured rounds against eager rounds ----
+    captured_rounds(K, dev, card)
+
+    # ---- 18. result ----
     def row(name, src, line, count, err, r, w, d):
         return {"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": PALLAS + line, "launches": count,

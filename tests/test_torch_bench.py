@@ -55,7 +55,9 @@ torch.set_num_threads(1)
 PORT_FIELDS = {
     "wall_s_all", "spread", "nn_mfu", "peak_flops", "peak", "illegal_moves",
     "rounds_played", "pack_level", "stat_dtype", "launches",
-    "launches_owed", "peak_mem_bytes", "device",
+    "launches_owed", "peak_mem_bytes", "device", "captured",
+    "graph_replays", "graph_captures", "warmup_graph_captures", "capture_s",
+    "graph_nodes", "graph_pool_bytes",
 }
 SMOKE = dict(games=128, rollouts=8, rounds=12)
 
@@ -95,6 +97,7 @@ def test_measure_smoke(smoke_result):
     assert ex["device"]["type"] == "cpu"
     assert ex["nn_mfu"] is None and ex["peak_mem_bytes"] is None
     assert set(ex["launches"].values()) == {0}
+    assert not ex["captured"] and ex["graph_replays"] == 0  # eager rounds
     assert ex["launches_owed"] == bench.owed_launches(1, 8, 12, 1)
 
     ref = _jax_bench().measure("tictactoe", **SMOKE)

@@ -2,7 +2,9 @@
 
 The CPU tests check that ``alphatpu_torch`` never imports JAX and builds
 nothing at import.  The tests marked ``cuda`` hold each CUDA kernel to its
-plain torch version on the card; they skip where torch finds no CUDA device.
+plain torch version on the card, and the rounds replayed from CUDA graphs
+to eager rounds (bit for bit, launches as owed); they skip where torch
+finds no CUDA device.
 """
 import ctypes
 import math
@@ -33,10 +35,12 @@ MODULES = (
     "alphatpu_torch.interactive", "alphatpu_torch.nets.zoo",
     "alphatpu_torch.parallel", "alphatpu_torch.parallel.mesh",
     "alphatpu_torch.parallel.sharded", "alphatpu_torch.parallel.dryrun",
-    "alphatpu_torch.bench", "alphatpu_torch.benchmarks",
+    "alphatpu_torch.bench", "alphatpu_torch.graphs",
+    "alphatpu_torch.benchmarks",
     "alphatpu_torch.benchmarks.matrix",
     "alphatpu_torch.benchmarks.ablate_rollout",
     "alphatpu_torch.benchmarks.ttt_loss_replay",
+    "alphatpu_torch.benchmarks.captured_rounds",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more
@@ -643,3 +647,164 @@ def test_bench_on_the_card(cuda):
     assert ex["device"]["type"] == "cuda" and ex["device"]["count"] >= 1
     assert ex["peak_mem_bytes"] > 0 and ex["nn_mfu"] > 0
     assert r["metric"] == "torch_selfplay_env_steps_per_s_tictactoe_g1024_r64"
+
+
+# ---------------------------------------------------------------------------
+# captured rounds (alphatpu_torch.graphs) against eager rounds
+# ---------------------------------------------------------------------------
+
+_SMALL = dict(num_games=64, rollouts=16)  # tictactoe, 64 lanes, 16 rollouts
+
+
+def _tiny_net(device, seed=0):
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.nets import MLP, config_for_game
+
+    game = make_game("tictactoe")
+    return game, MLP.from_seed(config_for_game(game, width=32, depth=2), seed,
+                               device=device)
+
+
+def _uniforms(game, T, R, G, device, seed):
+    from alphatpu_torch.selfplay import SelfplayUniforms
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    D = min(game.max_game_length, R)
+    return SelfplayUniforms(
+        torch.rand((T, R, D, G), generator=g, device=device),
+        torch.rand((T, G), generator=g, device=device))
+
+
+def _selfplay_calls(mode, game, nets, device, captured, injected, calls=2):
+    """``calls`` chained selfplay calls of ``mode`` on the card, the i-th
+    with ``nets[i]``; returns every tensor they leave (buffer, stats,
+    carry, generator state) and the launch counts."""
+    from alphatpu_torch.buffer import create_buffer
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.selfplay import (
+        SelfplayConfig, make_carry, selfplay_continuous, selfplay_generation,
+    )
+
+    T = 6 if mode == "continuous" else game.max_game_length
+    cfg = SelfplayConfig(**_SMALL, temp_moves=3, rounds=T)
+    buf = create_buffer(game, 4096, device=device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    carry = make_carry(game, cfg.num_games, gen, device)
+    out = []
+    K.reset_launch_counts()
+    for i, net in enumerate(nets):
+        u = (_uniforms(game, T, cfg.rollouts, cfg.num_games, device, i)
+             if injected else None)
+        if mode == "continuous":
+            _, stats, carry = selfplay_continuous(
+                game, net, buf, None, cfg, carry, uniforms=u,
+                captured=captured)
+            out += [carry.count, carry.enc, carry.pol, carry.player,
+                    *carry.positions]
+        else:
+            _, stats = selfplay_generation(game, net, buf, gen, cfg,
+                                           uniforms=u, captured=captured)
+        out += [stats[k] for k in sorted(stats)]
+    out += [getattr(buf, f) for f in ("state", "policy", "player", "value",
+                                      "fstate", "cursor", "total")]
+    out.append(gen.get_state())
+    return out, K.launch_counts()
+
+
+def _equal(a, b):
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,injected", [
+    ("continuous", False), ("continuous", True), ("generation", False)])
+def test_captured_selfplay_equals_eager(mode, injected, cuda):
+    """Two chained calls: the first captures the round (its round 0 runs
+    eagerly), the second replays every round; buffer, stats, carry and
+    the generator's state equal the eager rounds' bit for bit, and the
+    launch counts too."""
+    from alphatpu_torch import graphs
+
+    game, net = _tiny_net(cuda)
+    graphs.clear_cache()
+    graphs.reset_counts()
+    captured, launches = _selfplay_calls(mode, game, (net, net), cuda, True,
+                                         injected)
+    T = 6 if mode == "continuous" else game.max_game_length
+    assert graphs.counts["captures"] == 1
+    assert graphs.counts["replays"] == 2 * T - 1
+    eager, eager_launches = _selfplay_calls(mode, game, (net, net), cuda,
+                                            False, injected)
+    _equal(captured, eager)
+    assert launches == eager_launches
+    assert launches["select_apply_packed"] == (2 * T * 16, 0)
+    assert launches["backup"] == (2 * T, 0)
+
+
+@pytest.mark.cuda
+def test_captured_duel_half_equals_eager(cuda):
+    """Both halves of a duel (one program, a graph per net): the tally and
+    the generator's state bit for bit, launches as owed."""
+    from alphatpu_torch import graphs
+    from alphatpu_torch.duel import DuelConfig, duel_half
+    from alphatpu_torch.mcts import kernels as K
+
+    game, a = _tiny_net(cuda, 0)
+    _, b = _tiny_net(cuda, 1)
+    cfg = DuelConfig(**_SMALL, temp_moves=3)
+    T = game.max_game_length
+    results = []
+    for captured in (True, False):
+        graphs.clear_cache()
+        graphs.reset_counts()
+        K.reset_launch_counts()
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        tally = [*duel_half(game, a, b, gen, cfg, cuda, captured=captured),
+                 *duel_half(game, b, a, gen, cfg, cuda, captured=captured)]
+        results.append((tally + [gen.get_state()], K.launch_counts(),
+                        dict(graphs.counts)))
+    (cap, cap_launches, counts), (eager, eager_launches, _) = results
+    _equal(cap, eager)
+    assert cap_launches == eager_launches
+    assert cap_launches["select_apply_packed"] == (2 * T * 16, 0)
+    assert counts["captures"] == 2 and counts["replays"] == 2 * T - 2
+    assert sum(int(x) for x in cap[:4]) == cfg.num_games
+
+
+@pytest.mark.cuda
+def test_a_weight_change_between_replays(cuda):
+    """The graph reads the net's parameters by address: a change made in
+    place between two calls (as the learner's update) changes the
+    captured result exactly as it changes the eager one."""
+    from alphatpu_torch import graphs
+
+    game, net = _tiny_net(cuda)
+    keep = [p.detach().clone() for p in net.parameters()]
+
+    def nudged():
+        """The same net for both calls, its weights changed in between."""
+        yield net
+        with torch.no_grad():
+            net.res.mul_(-1.0)
+            net.policy_b.add_(0.25)
+        yield net
+
+    outs = []
+    for captured in (True, False):
+        with torch.no_grad():
+            for p, k in zip(net.parameters(), keep):
+                p.copy_(k)
+        graphs.clear_cache()
+        outs.append(_selfplay_calls("continuous", game, nudged(), cuda,
+                                    captured, False)[0])
+    with torch.no_grad():
+        for p, k in zip(net.parameters(), keep):
+            p.copy_(k)
+    graphs.clear_cache()
+    unchanged = _selfplay_calls("continuous", game, (net, net), cuda, True,
+                                False)[0]
+    _equal(outs[0], outs[1])
+    assert any(not torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(outs[0], unchanged))
