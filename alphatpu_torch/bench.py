@@ -39,7 +39,8 @@ Fields beyond bench.py's: ``pack_level``, ``stat_dtype``, ``rounds_played``,
 ``wall_s_all``, ``spread``, ``illegal_moves``, ``launches`` and
 ``launches_owed`` (per kernel wrapper, one timed generation),
 ``captured``, ``graph_replays`` and ``graph_captures`` (one timed
-generation: every round a replay on the card), ``warmup_graph_captures``,
+generation: every round and every call's tail a replay on the card),
+``warmup_graph_captures``,
 ``capture_s``, ``graph_nodes`` and ``graph_pool_bytes`` (the warm-up's
 captures: seconds, nodes, device memory reserved while capturing),
 ``peak_mem_bytes`` (over the timed generations), ``device``, ``nn_mfu``

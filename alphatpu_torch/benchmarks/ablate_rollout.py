@@ -8,11 +8,16 @@ API (``search.select`` - the ``select`` kernel -, ``leaf_positions``, the
 net, ``expand`` and ``search.backup`` - the ``backup`` kernel - once per
 rollout).  Six variants: full, no-select (every game takes a random action
 at its root), no-backup, no-nn (uniform prior, value 0.5), no-expand and
-select-only.  Each move starts from a fresh tree of the initial positions
-(reset outside the timed window) and is timed on the host clock up to a
-``torch.cuda.synchronize``; the time is the mean of ``n`` moves after one
-warm-up move.  On the card each variant's kernel launches in the timed
-moves must be what :func:`owed_launches` says.
+select-only.  A variant's move - its rollouts, the draws included - is
+one program (:class:`AblationRounds`), as the reference jits it: on the
+card it is captured in the warm-up move and replayed, so the time is the
+device's work; ``captured=False`` runs it eagerly, host launches
+included, and ``main`` prints both.  Each move starts from a fresh tree of
+the initial positions (reset outside the timed window) and is timed on
+the host clock up to a ``torch.cuda.synchronize``; the time is the mean
+of ``n`` moves after one warm-up move.  On the card each variant's kernel
+launches in the timed moves (replays add theirs) must be what
+:func:`owed_launches` says.
 
 Env knobs: GAME (default connect4), G (lanes, default 16384), R
 (rollouts, default 64).  It runs on the card (:func:`ablate` takes a
@@ -23,11 +28,12 @@ from __future__ import annotations
 import os
 import sys
 import time
+from functools import partial
 from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import graphs, resolve_device
 from ..games import make_game
 from ..mcts import kernels as K
 from ..mcts import search as S
@@ -97,29 +103,52 @@ def rollout(game, net, tree, probs, variant: Variant) -> None:
         S.backup(tree, path, leaf_states.player, v, done, result)
 
 
+class AblationRounds(graphs.Rounds):
+    """One variant's move as a program on the caller's ``tree``: its
+    ``rollouts`` rollouts of every game, the draws included - the
+    reference jits the ``scan`` of a variant's rollouts
+    (``benchmarks/ablate_rollout.py:25-65``)."""
+
+    def __init__(self, game, tree, rollouts: int, variant: Variant):
+        super().__init__(tree.device)
+        self.game, self.tree = game, tree
+        self.rollouts, self.variant = rollouts, variant
+
+    def round(self, net) -> None:
+        tree = self.tree
+        depth_cap = min(self.game.max_game_length, self.rollouts)
+        for _ in range(self.rollouts):
+            probs = torch.rand((depth_cap, tree.num_games),
+                               generator=self.generator, device=self.device)
+            rollout(self.game, net, tree, probs, self.variant)
+
+
 def time_variant(game, net, tree, positions, generator, rollouts: int,
-                 variant: Variant, moves: int = 5):
+                 variant: Variant, moves: int = 5,
+                 captured: bool | None = None):
     """``(ms per move, launches in the timed moves)`` of ``variant``: one
-    warm-up move, then the mean of ``moves`` timed ones."""
+    warm-up move, then the mean of ``moves`` timed ones, each from the
+    initial positions (reset outside the timed window) up to a
+    synchronize.  ``captured`` (default: on a CUDA device) replays the
+    move from a CUDA graph, captured in the warm-up; ``captured=False``
+    runs it eagerly.  The tree is left as the last move left it."""
     dev = tree.device
     cuda = dev.type == "cuda"
-    depth_cap = min(game.max_game_length, rollouts)
-    G = tree.num_games
+    captured = graphs.use_graphs(captured, dev)
+    st = AblationRounds(game, tree, rollouts, variant)
 
     def move():
         reset_tree(tree, positions)
         if cuda:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        for _ in range(rollouts):
-            probs = torch.rand((depth_cap, G), generator=generator,
-                               device=dev)
-            rollout(game, net, tree, probs, variant)
+        with graphs.drawing(st, generator, captured):
+            graphs.step(st, "move", partial(st.round, net), captured)
         if cuda:
             torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    move()  # warm-up (and the kernels' build)
+    move()  # warm-up (the kernels' build and, captured, the capture)
     K.reset_launch_counts()
     total = sum(move() for _ in range(moves))
     counted = {k.__name__: k.launches for k in K.KERNELS}
@@ -130,11 +159,14 @@ def time_variant(game, net, tree, positions, generator, rollouts: int,
 
 
 def ablate(game_name="connect4", games=16384, rollouts=64, names=None,
-           moves=5, device="cuda", log=print) -> dict:
-    """Time the variants ``names`` (default all six) on ``games`` lanes;
-    returns ``{name: {"ms_per_move", "launches"}}`` (the launches of its
-    timed moves) and logs a line per variant."""
+           moves=5, device="cuda", log=print,
+           captured: bool | None = None) -> dict:
+    """Time the variants ``names`` (default all six) on ``games`` lanes,
+    captured or eager as :func:`time_variant` takes ``captured``; returns
+    ``{name: {"ms_per_move", "launches"}}`` (the launches of its timed
+    moves) and logs a line per variant."""
     dev = resolve_device(device)
+    mode = "captured" if graphs.use_graphs(captured, dev) else "eager"
     game = make_game(game_name)
     net = MLP.from_seed(config_for_game(game), 0, device=dev)
     positions = game.initial(games, dev)
@@ -143,10 +175,10 @@ def ablate(game_name="connect4", games=16384, rollouts=64, names=None,
     out = {}
     for name in names or VARIANTS:
         ms, counted = time_variant(game, net, tree, positions, gen,
-                                   rollouts, VARIANTS[name], moves)
+                                   rollouts, VARIANTS[name], moves, captured)
         out[name] = {"ms_per_move": ms, "launches": counted}
-        log(f"{name:24s} {ms:8.1f} ms/move  ({ms / rollouts:.3f} "
-            "ms/rollout)")
+        log(f"{name:12s} {mode:8s} {ms:8.1f} ms/move  "
+            f"({ms / rollouts:.3f} ms/rollout)")
     return out
 
 
@@ -158,7 +190,10 @@ def main() -> int:
     print(f"game={game_name} G={G} R={R} "
           f"A={make_game(game_name).max_actions} [{card_line()}]",
           flush=True)
-    ablate(game_name, G, R, log=lambda line: print(line, flush=True))
+    # captured (the reference's one program a move) beside eager
+    for captured in (True, False):
+        ablate(game_name, G, R, log=lambda line: print(line, flush=True),
+               captured=captured)
     return 0
 
 

@@ -1,7 +1,7 @@
 """Device-resident replay ring buffer.
 
 Counterpart of :mod:`alphatpu.buffer`: one dense tensor per field,
-written in place by masked scatters in round-major, then game order.
+written in place by fixed-shape scatters in round-major, then game order.
 Encoded states and final-state features are 0/1 and {-1, +1}, stored as
 int8.  In a world of D ranks (:mod:`alphatpu_torch.parallel`) each rank
 holds its own shard, ``create_buffer(game, capacity // D)``, and samples
@@ -63,18 +63,35 @@ def write_samples(buffer: ReplayBuffer, state, policy, player, value, fstate,
                   mask) -> ReplayBuffer:
     """Append the ``mask``-selected rows (flat leading axis N) to the ring
     in order, in place.  Of more rows than the capacity, the last
-    ``capacity`` are kept, as ring order implies."""
-    cap = buffer.capacity
+    ``capacity`` are kept, as ring order implies, so every slot is written
+    by one kept row at most.
+
+    Fixed-shape and sync-free, as the reference's out-of-bounds scatter
+    (``alphatpu/buffer.py:65-84``): every one of the N rows is written.  A
+    kept row goes to its slot; a dropped row (masked out, or older than
+    the last ``capacity`` kept) writes, to a sink slot, what that slot
+    holds after the write: where fewer than ``capacity`` rows are kept,
+    slot ``(cursor + n) % capacity`` (no kept row lands there) its own
+    row; else the last kept row's slot that row."""
+    cap, N = buffer.capacity, mask.shape[0]
+    if N == 0:
+        return buffer
     cursor = buffer.cursor[0].to(torch.int64)
     offs = torch.cumsum(mask.to(torch.int64), 0) - 1
-    n = mask.sum()
+    n = offs[-1] + 1
     keep = mask & (offs >= n - cap)
-    slot = ((cursor + offs) % cap)[keep]
-    buffer.state[slot] = state[keep].to(torch.int8)
-    buffer.policy[slot] = policy[keep]
-    buffer.player[slot] = player[keep].to(torch.int8)
-    buffer.value[slot] = value[keep]
-    buffer.fstate[slot] = fstate[keep].to(torch.int8)
+    full = n >= cap
+    sink = (cursor + n - full.to(torch.int64)) % cap
+    slot = torch.where(keep, (cursor + offs) % cap, sink)
+    last = torch.where(mask, torch.arange(N, device=mask.device), 0).amax()
+    for plane, rows in ((buffer.state, state), (buffer.policy, policy),
+                        (buffer.player, player), (buffer.value, value),
+                        (buffer.fstate, fstate)):
+        rows = rows.to(plane.dtype)
+        fill = torch.where(full, rows.index_select(0, last.reshape(1)),
+                           plane.index_select(0, sink.reshape(1)))
+        kept = keep.reshape((N,) + (1,) * (rows.dim() - 1))
+        plane.index_copy_(0, slot, torch.where(kept, rows, fill))
     buffer.cursor[0] = ((cursor + n) % cap).to(torch.int32)
     buffer.total[0] += n.to(torch.int32)
     return buffer

@@ -4,10 +4,11 @@ Counterpart of :mod:`alphatpu.interactive`.  Reference equivalent:
 `testvsordi` in testHex.jl:20-69 / testgobang.jl / testrev6.jl /
 testrev8.jl, which runs the CPU MCTS twin against a human.  By default the
 batched engine runs with G=1 (``run_mcts`` at level 1, the same kernels as
-selfplay) on ``--device`` (default cuda; without a card it raises unless
-given ``--device cpu``); ``--cpu`` switches to the pure numpy single-game
-engine (:mod:`alphatpu_torch.cpu_mcts`, the reference's fast_mcts.jl) on
-the host.
+selfplay; on the card each move replays one CUDA graph) on ``--device``
+(default cuda; without a card it raises unless given ``--device cpu``);
+``--cpu`` switches to the pure numpy single-game engine
+(:mod:`alphatpu_torch.cpu_mcts`, the reference's fast_mcts.jl) on the
+host.
 
 Run:
     python -m alphatpu_torch.interactive --game connect4 \
@@ -21,9 +22,12 @@ from __future__ import annotations
 
 import argparse
 import sys
+from functools import partial
 
 import numpy as np
 import torch
+
+from . import graphs
 
 
 def move_name(game, action: int) -> str:
@@ -63,27 +67,67 @@ def parse_move(game, text: str) -> int | None:
     return None
 
 
-def make_engine(game, net, rollouts: int, cpuct: float):
+class MoveRounds(graphs.Rounds):
+    """The interactive engine's program: one game's position and the
+    session's node pool ``tree``; :meth:`round` searches the position
+    and returns ``(argmax, pi [A])`` of the root policy."""
+
+    def __init__(self, game, tree, rollouts: int, cpuct: float):
+        super().__init__(tree.device)
+        self.game, self.tree = game, tree
+        self.rollouts, self.cpuct = rollouts, cpuct
+        self.positions = game.initial(1, self.device)
+
+    def round(self, net):
+        from .mcts.search import run_mcts
+        from .mcts.tree import reset_tree
+
+        reset_tree(self.tree, self.positions)
+        _, pol = run_mcts(self.game, net, self.tree, rollouts=self.rollouts,
+                          cpuct=self.cpuct, training=False,
+                          generator=self.generator)
+        pi = pol[:, 0]  # root policy is [A, G] games-minor; G = 1 here
+        return torch.argmax(pi), pi
+
+
+def make_engine(game, net, rollouts: int, cpuct: float,
+                captured: bool | None = None):
     """One-game move chooser (argmax of the root policy):
     ``choose(pos, generator) -> (action, pi [A])`` for a one-game position
     ``pos``, searched on its device.
 
     The node pool is allocated once per session (first call) and only
-    ``reset_tree``-zeroed for each later move."""
-    from .mcts.search import run_mcts
-    from .mcts.tree import init_tree, reset_tree, stat_dtype_for
+    ``reset_tree``-zeroed for each later move.  ``captured`` (default: on
+    a CUDA device) replays each move's search from a CUDA graph
+    (:class:`MoveRounds`, :mod:`alphatpu_torch.graphs`), as the reference
+    jits ``choose_impl``; ``captured=False`` runs it eagerly.  A move
+    waits for the device once, for the action."""
+    from .mcts.search import engine_level
+    from .mcts.tree import init_tree, stat_dtype_for
 
     pool = []
 
     def choose(pos, generator=None):
+        dev = pos.player.device
+        use = graphs.use_graphs(captured, dev)
         if not pool:
-            pool.append(init_tree(game, pos, rollouts,
-                                  stat_dtype=stat_dtype_for(rollouts)))
-        tree = reset_tree(pool[0], pos)
-        _, pol = run_mcts(game, net, tree, rollouts=rollouts, cpuct=cpuct,
-                          training=False, generator=generator)
-        pi = pol[:, 0]  # root policy is [A, G] games-minor; G = 1 here
-        return int(torch.argmax(pi)), pi
+            stat_dtype = stat_dtype_for(rollouts)
+
+            def make():
+                return MoveRounds(game, init_tree(game, pos, rollouts,
+                                                  stat_dtype=stat_dtype),
+                                  rollouts, cpuct)
+
+            key = ("move", game.name, rollouts, cpuct, stat_dtype,
+                   engine_level(None, True, stat_dtype), dev)
+            pool.append(graphs.rounds_for(key, (net,), make) if use
+                        else make())
+        st = pool[0]
+        graphs.assign(st.positions, pos)
+        with graphs.drawing(st, generator, use):
+            action, pi = graphs.step(st, graphs.net_identity(net),
+                                     partial(st.round, net), use)
+        return int(action), pi.clone()
 
     return choose
 

@@ -13,14 +13,24 @@ seeds):
 * :class:`HexProbe` - depth-2 minimax over a shortest-connection eval.
 
 :func:`eval_vs_probe` plays the net (a full MCTS per ply through the
-port's ``run_mcts``, on the games' device) against a probe moving on the
-host; ``python -m alphatpu_torch.probe`` runs it on a ``net<N>.npz``
+port's ``run_mcts``, on the games' device, replayed from a CUDA graph on
+the card) against a probe moving on the host; ``python -m alphatpu_torch.probe`` runs it on a ``net<N>.npz``
 written by either package.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
+
+from . import graphs
+from .eval import EvalConfig
+from .games.base import where_games
+from .mcts.newton import cdf_sample
+from .mcts.search import run_mcts
+from .mcts.tree import reset_tree
+from .selfplay import SearchRounds
 
 WIN = 1 << 20  # terminal score scale; heuristic evals stay well below
 
@@ -546,10 +556,51 @@ def probe_for_game(game, depth: int | None = None):
 
 
 
+class ProbeRounds(SearchRounds):
+    """The static state of :func:`eval_vs_probe`'s plies on
+    ``cfg.num_games`` lanes, and its two steps, the reference's two jitted
+    functions: :meth:`round` (``net_move``: the search of every game and
+    the net's greedy and sampled picks) and :meth:`apply` (``apply_moves``:
+    the host's actions played where a game is alive, and what the host
+    reads back - the encodings, then done and result)."""
+
+    def __init__(self, game, cfg, device, injected: bool = False):
+        super().__init__(game, cfg, device, injected)
+        G, dev = cfg.num_games, self.device
+        self.picks = torch.zeros((2, G), dtype=torch.int32, device=dev)
+        self.actions = torch.zeros((G,), dtype=torch.int32, device=dev)
+        self.alive = torch.zeros((G,), dtype=torch.bool, device=dev)
+        self.host = torch.zeros((G, 2 * game.vectorized_state + 2),
+                                dtype=torch.float32, device=dev)
+
+    def round(self, net) -> None:
+        game, cfg = self.game, self.cfg
+        reset_tree(self.tree, self.positions)
+        _, pol = run_mcts(
+            game, net, self.tree, rollouts=cfg.rollouts, cpuct=cfg.cpuct,
+            training=False, generator=self.generator, probs=self.probs)
+        u = (torch.rand((cfg.num_games,), generator=self.generator,
+                        device=self.device)
+             if self.move is None else self.move)
+        # the raw uniform, not scaled by the root policy's mass as selfplay
+        # and the duel scale it: the reference's protocol as it stands
+        self.picks.copy_(torch.stack([
+            torch.argmax(pol, dim=0).to(torch.int32), cdf_sample(pol, u)]))
+
+    def apply(self) -> None:
+        game, positions = self.game, self.positions
+        graphs.assign(positions, where_games(
+            self.alive, game.play(positions, self.actions), positions))
+        f, r = game.is_over(positions)
+        self.host.copy_(torch.cat([game.encode(positions), f[:, None].float(),
+                                   r[:, None].float()], dim=1))
+
+
 def eval_vs_probe(game, net, generator=None, probe=None, *,
                   num_games: int = 64, rollouts: int = 64,
                   cpuct: float = 1.5, temp_moves: int = 8, seed: int = 0,
-                  trace: bool = False, device="cuda", uniforms=None):
+                  trace: bool = False, device="cuda", uniforms=None,
+                  captured: bool | None = None):
     """(net_wins, draws, net_losses) over ``num_games`` games against the
     probe, the first half with the net moving first.  The net plays by
     full MCTS on ``device`` (sampling from the root policy for the first
@@ -563,79 +614,76 @@ def eval_vs_probe(game, net, generator=None, probe=None, *,
     from ``generator`` on ``device`` (per ply: the search's uniforms, then
     one sampling uniform per game), or from ``uniforms``
     (:class:`~alphatpu_torch.selfplay.SelfplayUniforms`: ``probs[t]`` and
-    ``move[t]`` for ply t), the tests' injection point.
+    ``move[t]`` for ply t), the tests' injection point.  ``captured``
+    (default: on a CUDA device) replays each ply's two steps
+    (:class:`ProbeRounds`) from CUDA graphs (:mod:`alphatpu_torch.graphs`);
+    ``captured=False`` runs them eagerly.  Between them the host reads the
+    picks, moves for the probe and hands the actions back.
 
     ``trace=True`` additionally returns a per-ply record list (the applied
     action, the net's greedy and sampled candidates, whose turn, liveness)
     plus the per-game result array."""
     from . import resolve_device
-    from .games.base import where_games
-    from .mcts.newton import cdf_sample
-    from .mcts.search import run_mcts
-    from .mcts.tree import init_tree, reset_tree, stat_dtype_for
-    from .selfplay import broadcast_initial
 
     dev = resolve_device(device)
+    captured = graphs.use_graphs(captured, dev)
     probe = probe or probe_for_game(game)
     G = num_games
     net_first = np.arange(G) < (G + 1) // 2
     host_rngs = [np.random.default_rng(seed * 100003 + i) for i in range(G)]
 
-    positions = broadcast_initial(game, G, dev)
-    tree = init_tree(game, positions, rollouts,
-                     stat_dtype=stat_dtype_for(rollouts))
+    cfg = EvalConfig(num_games=G, rollouts=rollouts, cpuct=cpuct)
+
+    def make():
+        return ProbeRounds(game, cfg, dev, uniforms is not None)
+
+    key = ProbeRounds.key("probe", game, cfg, uniforms, dev)
+    st = graphs.rounds_for(key, (net,), make) if captured else make()
+    graphs.assign(st.positions, st.initial)
+    feed = st.feeder(uniforms)
     done = np.zeros(G, bool)
     result = np.zeros(G, np.int8)
-    enc = game.encode(positions).cpu().numpy()
+    enc = game.encode(st.positions).cpu().numpy()
     V = game.vectorized_state
     records = []
 
-    for t in range(game.max_game_length):
-        if done.all():
-            break
-        net_turn = ((t % 2) == 0) == net_first
-        reset_tree(tree, positions)
-        _, pol = run_mcts(
-            game, net, tree, rollouts=rollouts, cpuct=cpuct, training=False,
-            generator=generator,
-            probs=None if uniforms is None else uniforms.probs[t])
-        u = (torch.rand((G,), generator=generator, device=dev)
-             if uniforms is None else uniforms.move[t])
-        # the raw uniform, not scaled by the root policy's mass as selfplay
-        # and the duel scale it: the reference's protocol as it stands
-        picks = torch.stack([torch.argmax(pol, dim=0).to(torch.int32),
-                             cdf_sample(pol, u)]).cpu().numpy()
-        greedy, sampled = picks
-        net_act = sampled if t < temp_moves else greedy
-        actions = np.zeros(G, np.int32)
-        for i in range(G):
-            if done[i]:
-                continue
-            if net_turn[i]:
-                actions[i] = net_act[i]
-            else:
-                actions[i] = probe.best_action(
-                    enc[i, :V] > 0, enc[i, V:] > 0, host_rngs[i])
-        if trace:
-            records.append({
-                "ply": t, "alive": ~done.copy(), "net_turn": net_turn,
-                "action": actions.copy(), "greedy": greedy.copy(),
-                "sampled": sampled.copy(),
-                "sampling_phase": t < temp_moves,
-            })
-        alive = torch.from_numpy(~done).to(dev)
-        positions = where_games(
-            alive, game.play(positions, torch.from_numpy(actions).to(dev)),
-            positions)
-        f, r = game.is_over(positions)
-        # one copy to the host: the encodings, then done and result
-        host = torch.cat([game.encode(positions), f[:, None].float(),
-                          r[:, None].float()], dim=1).cpu().numpy()
-        enc = host[:, :2 * V]
-        f, r = host[:, 2 * V] > 0, host[:, 2 * V + 1].astype(np.int8)
-        newly = ~done & f
-        result[newly] = r[newly]
-        done |= f
+    with graphs.drawing(st, generator, captured):
+        for t in range(game.max_game_length):
+            if done.all():
+                break
+            net_turn = ((t % 2) == 0) == net_first
+            if feed is not None:
+                feed(t)
+            graphs.step(st, graphs.net_identity(net), partial(st.round, net),
+                        captured)
+            greedy, sampled = st.picks.cpu().numpy()
+            net_act = sampled if t < temp_moves else greedy
+            actions = np.zeros(G, np.int32)
+            for i in range(G):
+                if done[i]:
+                    continue
+                if net_turn[i]:
+                    actions[i] = net_act[i]
+                else:
+                    actions[i] = probe.best_action(
+                        enc[i, :V] > 0, enc[i, V:] > 0, host_rngs[i])
+            if trace:
+                records.append({
+                    "ply": t, "alive": ~done.copy(), "net_turn": net_turn,
+                    "action": actions.copy(), "greedy": greedy.copy(),
+                    "sampled": sampled.copy(),
+                    "sampling_phase": t < temp_moves,
+                })
+            st.actions.copy_(torch.from_numpy(actions))
+            st.alive.copy_(torch.from_numpy(~done))
+            graphs.step(st, "apply", st.apply, captured)
+            # one copy to the host: the encodings, then done and result
+            host = st.host.cpu().numpy()
+            enc = host[:, :2 * V]
+            f, r = host[:, 2 * V] > 0, host[:, 2 * V + 1].astype(np.int8)
+            newly = ~done & f
+            result[newly] = r[newly]
+            done |= f
 
     net_sign = np.where(net_first, 1, -1).astype(np.int8)
     wins = int(((result == net_sign) & done).sum())

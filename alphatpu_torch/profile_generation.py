@@ -136,11 +136,12 @@ def main(argv=None) -> int:
     print(card)
 
     k = args.rounds
+    # one buffer for every window: the captured tail writes it by address
+    window_buf = create_buffer(game, G * k, device=dev)
 
     def selfplay_window():
-        selfplay_generation(game, best, create_buffer(game, G * k, device=dev),
-                            gen, sp_cfg._replace(max_moves=k),
-                            captured=captured)
+        selfplay_generation(game, best, window_buf, gen,
+                            sp_cfg._replace(max_moves=k), captured=captured)
 
     def duel_window():
         duel_half(game, learner, best, gen, duel._replace(max_moves=k), dev,

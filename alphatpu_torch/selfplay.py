@@ -10,12 +10,15 @@ Counterpart of :mod:`alphatpu.selfplay`, with its two modes:
   hands each lane's running episode to the next call through an
   :class:`EpisodeCarry`.
 
-The reference runs the rounds as one jitted ``scan``.  Here a call's
-rounds run on static state (:class:`GenerationRounds`,
-:class:`ContinuousRounds`): each round is fixed-shape and never waits for
-the device, and on the card it is captured once as a CUDA graph and
-replayed once per round (:mod:`alphatpu_torch.graphs`); on the CPU the
-same rounds run eagerly.  The per-round semantics are the reference's:
+The reference runs a call - the rounds' ``scan`` and the buffer write
+after it - as one jitted program.  Here a call's rounds and its tail (the
+back-fill, the buffer write, the next carry and the stats) run on static
+state (:class:`GenerationRounds`, :class:`ContinuousRounds`): each step is
+fixed-shape and never waits for the device, and on the card each is
+captured once as a CUDA graph and replayed, the round once per round and
+the tail once per call, so a call makes no host sync
+(:mod:`alphatpu_torch.graphs`); on the CPU the same steps run eagerly.
+The per-round semantics are the reference's:
 
 * move selection samples from the root policy while the lane's in-episode
   move index is below ``temp_moves`` and takes the argmax after,
@@ -31,6 +34,7 @@ the port to the reference - from pre-drawn :class:`SelfplayUniforms`.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -160,15 +164,16 @@ class SearchRounds(graphs.Rounds):
                                     device=self.device)
 
     @staticmethod
-    def key(kind: str, game, cfg, uniforms, device, *extra) -> tuple:
+    def key(kind: str, game, cfg, uniforms, device) -> tuple:
         """What fixes a program of such rounds (``graphs.rounds_for``):
-        the game and the shapes, the stat dtype and engine level (read from
-        the switches at each call), the search's constants, whether the
-        draws are injected, the device, and the caller's ``extra``."""
+        the game, the caller's config (the shapes and the search's
+        constants), the stat dtype and engine level (read from the
+        switches at each call), whether the draws are injected and the
+        device."""
         stat_dtype = stat_dtype_for(cfg.rollouts)
-        return (kind, game.name, cfg.num_games, cfg.rollouts, stat_dtype,
-                engine_level(None, True, stat_dtype), cfg.cpuct,
-                cfg.temp_moves, uniforms is not None, device, *extra)
+        return (kind, game.name, cfg, stat_dtype,
+                engine_level(None, True, stat_dtype), uniforms is not None,
+                device)
 
     def feeder(self, uniforms: SelfplayUniforms | None):
         if uniforms is None:
@@ -225,6 +230,35 @@ class GenerationRounds(SearchRounds):
         self.done |= f
         self.t += 1
 
+    def tail(self, buffer: ReplayBuffer) -> dict:
+        """The call's tail, one more step of the program: the value and
+        final-feature back-fill of every finished game's moves, their
+        write to ``buffer`` and the stats."""
+        game, T, G = self.game, self.T, self.cfg.num_games
+        A = game.max_actions
+        result, done, player_s = self.result, self.done, self.player_s
+        final_feat = game.final_feature(self.positions)  # [G, fsize]
+        value_s = (1.0 + result.to(torch.float32)[None, :]
+                   * player_s.to(torch.float32)) / 2.0
+        fstate_s = final_feat[None, :, :] * player_s[:, :, None]
+        mask = self.alive_s & done[None, :]  # only the moves of finished games
+        write_samples(buffer, self.enc_s.reshape(T * G, -1),
+                      self.pol_s.reshape(T * G, A), player_s.reshape(T * G),
+                      value_s.reshape(T * G), fstate_s.reshape(T * G, -1),
+                      mask.reshape(T * G))
+        n_done = done.sum()
+        return {
+            "wins": ((result == 1) & done).sum(),
+            "draws": ((result == 0) & done).sum(),
+            "losses": ((result == -1) & done).sum(),
+            "mean_length": torch.where(
+                n_done > 0, self.fin_t.sum().to(torch.float32)
+                / torch.clamp_min(n_done, 1).to(torch.float32), 0.0),
+            "illegal_moves": self.illegal.clone(),
+            "unfinished": (~done).sum(),
+            "samples_written": mask.sum(),
+        }
+
 
 def selfplay_generation(game, net, buffer: ReplayBuffer,
                         generator: torch.Generator | None,
@@ -236,52 +270,28 @@ def selfplay_generation(game, net, buffer: ReplayBuffer,
     game to ``buffer`` (in place).  A lane whose game has ended keeps its
     final position; its searches and moves are masked out.
 
-    ``captured`` (default: on a CUDA device) replays the rounds from a
-    CUDA graph (:mod:`alphatpu_torch.graphs`); ``captured=False`` runs
-    them eagerly.  The buffer write after the rounds runs eagerly.
+    ``captured`` (default: on a CUDA device) replays the rounds and the
+    call's tail (the back-fill, the buffer write and the stats) from CUDA
+    graphs (:mod:`alphatpu_torch.graphs`), so a call makes no host sync;
+    ``captured=False`` runs them eagerly.
 
     Returns ``(buffer, stats)``: ``stats`` is a dict of 0-d tensors (wins /
     draws / losses from the first mover's view, mean_length (0-based ply of
     the last move), illegal_moves, unfinished, samples_written)."""
-    G = cfg.num_games
     T = cfg.max_moves or game.max_game_length
-    A = game.max_actions
     dev = buffer.state.device
     captured = graphs.use_graphs(captured, dev)
 
     def make():
         return GenerationRounds(game, cfg, T, dev, uniforms is not None)
 
-    key = GenerationRounds.key("generation", game, cfg, uniforms, dev, T,
-                               cfg.fresh_root_policy)
+    key = GenerationRounds.key("generation", game, cfg, uniforms, dev)
     st = graphs.rounds_for(key, (net,), make) if captured else make()
     st.start()
     graphs.play(st, T, lambda t: net, generator, st.feeder(uniforms),
                 captured)
 
-    result, done, player_s = st.result, st.done, st.player_s
-    final_feat = game.final_feature(st.positions)  # [G, fsize]
-    value_s = (1.0 + result.to(torch.float32)[None, :]
-               * player_s.to(torch.float32)) / 2.0
-    fstate_s = final_feat[None, :, :] * player_s[:, :, None]
-    mask = st.alive_s & done[None, :]  # only the moves of finished games
-    write_samples(buffer, st.enc_s.reshape(T * G, -1),
-                  st.pol_s.reshape(T * G, A), player_s.reshape(T * G),
-                  value_s.reshape(T * G), fstate_s.reshape(T * G, -1),
-                  mask.reshape(T * G))
-    n_done = done.sum()
-    stats = {
-        "wins": ((result == 1) & done).sum(),
-        "draws": ((result == 0) & done).sum(),
-        "losses": ((result == -1) & done).sum(),
-        "mean_length": torch.where(
-            n_done > 0, st.fin_t.sum().to(torch.float32)
-            / torch.clamp_min(n_done, 1).to(torch.float32), 0.0),
-        "illegal_moves": st.illegal.clone(),
-        "unfinished": (~done).sum(),
-        "samples_written": mask.sum(),
-    }
-    return buffer, stats
+    return buffer, _tail(st, buffer, captured)
 
 
 class ContinuousRounds(SearchRounds):
@@ -308,9 +318,13 @@ class ContinuousRounds(SearchRounds):
         self.pol_s = torch.empty((T, G, A), dtype=torch.float32, device=dev)
         self.player_s = torch.empty((T, G), dtype=torch.int8, device=dev)
         self.eid_s = torch.empty((T, G), dtype=torch.int32, device=dev)
+        # the call's carry, copied in: the tail reads its rows
+        self.carried = make_carry(game, G, None, dev)
 
     def start(self, carry: EpisodeCarry) -> None:
         graphs.assign(self.positions, carry.positions)
+        for name in ("count", "enc", "pol", "player"):
+            getattr(self.carried, name).copy_(getattr(carry, name))
         # continuing episodes began count moves ago
         torch.neg(carry.count, out=self.ep_start)
         for x in (self.t, self.eid, self.res_table, self.ftable, self.tally):
@@ -340,6 +354,86 @@ class ContinuousRounds(SearchRounds):
         self.ep_start.copy_(torch.where(f, t + 1, self.ep_start))
         self.t += 1
 
+    def tail(self, buffer: ReplayBuffer):
+        """The call's tail, one more step of the program: the back-fill of
+        every completed episode's rows (the carried-in ones first), their
+        write to ``buffer``, the next carry's positions and rows, and the
+        stats.  Returns ``(positions, count, enc, pol, player, stats)``."""
+        game, T, G, E = self.game, self.T, self.cfg.num_games, self.E
+        L, A = game.max_game_length, game.max_actions
+        carry, dev = self.carried, self.device
+        eid, res_table, ftable, player_s = (self.eid, self.res_table,
+                                            self.ftable, self.player_s)
+        g = torch.arange(G, device=dev)
+        wins, draws, losses, length_sum, illegal = self.tally.clone()
+
+        # per-sample episode lookups and the back-fill
+        eid_l = self.eid_s.long().clamp_max(E - 1)
+        res_s = torch.gather(res_table, 0, eid_l)  # [T, G]
+        fstate_ep = ftable[eid_l, g[None, :]]  # [T, G, fsize]
+        value_s = (1.0 + res_s.to(torch.float32)
+                   * player_s.to(torch.float32)) / 2.0
+        fstate_s = fstate_ep * player_s[:, :, None]
+        completed = self.eid_s < eid[None, :]  # episode finished before T
+
+        # carried-in rows belong to episode 0: back-fill from table row 0
+        lio = torch.arange(L, device=dev)[None, :]  # [1, L]
+        pend_value = (1.0 + res_table[0].to(torch.float32)[:, None]
+                      * carry.player.to(torch.float32)) / 2.0
+        pend_fstate = ftable[0][:, None, :] * carry.player[:, :, None]
+        pend_mask = (lio < carry.count[:, None]) & (eid > 0)[:, None]
+
+        # carried rows are older than this call's: write them first
+        write_samples(
+            buffer,
+            torch.cat([carry.enc.reshape(G * L, -1),
+                       self.enc_s.reshape(T * G, -1)]),
+            torch.cat([carry.pol.reshape(G * L, A),
+                       self.pol_s.reshape(T * G, A)]),
+            torch.cat([carry.player.reshape(G * L), player_s.reshape(T * G)]),
+            torch.cat([pend_value.reshape(G * L), value_s.reshape(T * G)]),
+            torch.cat([pend_fstate.reshape(G * L, -1),
+                       fstate_s.reshape(T * G, -1)]),
+            torch.cat([pend_mask.reshape(G * L), completed.reshape(T * G)]),
+        )
+
+        # next carry: the rows of each lane's still-running episode, which
+        # started at round s (negative: the carried-in episode, still
+        # running)
+        s = self.ep_start
+        new_count = T - s
+        overflow = new_count > L  # outlived maxLengthGame: reset the lane
+        src = torch.clamp(lio + s[:, None], 0, T - 1).long()  # [G, L]
+        from_old = lio < -s[:, None]
+
+        def merge(old_gl, new_tg):  # [G, L, ...] <- [T, G, ...]
+            new_g = torch.movedim(new_tg, 0, 1)  # [G, T, ...]
+            rest = tuple(new_g.shape[2:])
+            idx = src.reshape(src.shape + (1,) * len(rest)).expand(
+                (G, L) + rest)
+            gathered = torch.gather(new_g, 1, idx)
+            keep = from_old.reshape(from_old.shape + (1,) * len(rest))
+            return torch.where(keep, old_gl, gathered)
+
+        count = torch.where(overflow, 0, new_count).to(torch.int32)
+        finished = eid.sum()
+        stats = {
+            "wins": wins,
+            "draws": draws,
+            "losses": losses,
+            "mean_length": length_sum.to(torch.float32)
+            / torch.clamp_min(finished, 1).to(torch.float32),
+            "illegal_moves": illegal,
+            # rows dropped because an episode outlived maxLengthGame
+            "unfinished": torch.where(overflow, T - s, 0).sum(),
+            "carried": count.sum(),
+            "games_finished": finished,
+            "samples_written": pend_mask.sum() + completed.sum(),
+        }
+        return (where_games(overflow, self.initial, self.positions), count,
+                merge(carry.enc, self.enc_s), merge(carry.pol, self.pol_s),
+                merge(carry.player, player_s), stats)
+
 
 def selfplay_continuous(game, net, buffer: ReplayBuffer,
                         generator: torch.Generator | None,
@@ -355,105 +449,44 @@ def selfplay_continuous(game, net, buffer: ReplayBuffer,
     ends, its moves recorded in earlier calls are written with this call's.
     Given a carry, its ``rng`` continues the stream and ``generator`` is
     ignored.  ``uniforms`` replaces every random draw.  ``captured``
-    (default: on a CUDA device) replays the rounds from a CUDA graph
-    (:mod:`alphatpu_torch.graphs`); ``captured=False`` runs them eagerly.
-    The back-fill, the buffer write and the next carry run eagerly after
-    the rounds.
+    (default: on a CUDA device) replays the rounds and the call's tail
+    (the back-fill, the buffer write, the next carry and the stats) from
+    CUDA graphs (:mod:`alphatpu_torch.graphs`), so a call makes no host
+    sync; ``captured=False`` runs them eagerly.  The carry is copied into
+    the program's state before the rounds, and the next carry and the
+    stats out of it after the tail: the returned tensors are the
+    caller's, and no later call overwrites them.
 
     Returns ``(buffer, stats, carry')``: ``stats`` is a dict of 0-d tensors
     (wins / draws / losses from the first mover's view, mean_length,
     illegal_moves, unfinished, carried, games_finished, samples_written).
     """
-    G = cfg.num_games
     T = cfg.rounds or 2 * game.max_game_length
-    L = game.max_game_length
-    A = game.max_actions
     dev = buffer.state.device
     captured = graphs.use_graphs(captured, dev)
     if carry is None:
-        carry = make_carry(game, G, generator, dev)
+        carry = make_carry(game, cfg.num_games, generator, dev)
     gen = carry.rng
-    g = torch.arange(G, device=dev)
 
     def make():
         return ContinuousRounds(game, cfg, T, dev, uniforms is not None)
 
-    key = ContinuousRounds.key("continuous", game, cfg, uniforms, dev, T,
-                               cfg.fresh_root_policy)
+    key = ContinuousRounds.key("continuous", game, cfg, uniforms, dev)
     st = graphs.rounds_for(key, (net,), make) if captured else make()
     st.start(carry)
     graphs.play(st, T, lambda t: net, gen, st.feeder(uniforms), captured)
-    E, eid, res_table, ftable = st.E, st.eid, st.res_table, st.ftable
-    player_s = st.player_s
-    wins, draws, losses, length_sum, illegal = st.tally.clone()
+    positions, count, enc, pol, player, stats = _tail(st, buffer, captured)
+    return buffer, stats, EpisodeCarry(positions, count, enc, pol, player,
+                                       rng=gen)
 
-    # per-sample episode lookups and the back-fill
-    eid_l = st.eid_s.long().clamp_max(E - 1)
-    res_s = torch.gather(res_table, 0, eid_l)  # [T, G]
-    fstate_ep = ftable[eid_l, g[None, :]]  # [T, G, fsize]
-    value_s = (1.0 + res_s.to(torch.float32)
-               * player_s.to(torch.float32)) / 2.0
-    fstate_s = fstate_ep * player_s[:, :, None]
-    completed = st.eid_s < eid[None, :]  # episode finished before round T
 
-    # carried-in rows belong to episode 0: back-fill from table row 0
-    lio = torch.arange(L, device=dev)[None, :]  # [1, L]
-    pend_value = (1.0 + res_table[0].to(torch.float32)[:, None]
-                  * carry.player.to(torch.float32)) / 2.0
-    pend_fstate = ftable[0][:, None, :] * carry.player[:, :, None]
-    pend_mask = (lio < carry.count[:, None]) & (eid > 0)[:, None]
-
-    # carried rows are older than this call's: write them first
-    write_samples(
-        buffer,
-        torch.cat([carry.enc.reshape(G * L, -1),
-                   st.enc_s.reshape(T * G, -1)]),
-        torch.cat([carry.pol.reshape(G * L, A), st.pol_s.reshape(T * G, A)]),
-        torch.cat([carry.player.reshape(G * L), player_s.reshape(T * G)]),
-        torch.cat([pend_value.reshape(G * L), value_s.reshape(T * G)]),
-        torch.cat([pend_fstate.reshape(G * L, -1),
-                   fstate_s.reshape(T * G, -1)]),
-        torch.cat([pend_mask.reshape(G * L), completed.reshape(T * G)]),
-    )
-
-    # next carry: the rows of each lane's still-running episode, which
-    # started at round s (negative: the carried-in episode, still running)
-    s = st.ep_start
-    new_count = T - s
-    overflow = new_count > L  # outlived maxLengthGame: reset the lane
-    src = torch.clamp(lio + s[:, None], 0, T - 1).long()  # [G, L]
-    from_old = lio < -s[:, None]
-
-    def merge(old_gl, new_tg):  # [G, L, ...] <- [T, G, ...]
-        new_g = torch.movedim(new_tg, 0, 1)  # [G, T, ...]
-        tail = tuple(new_g.shape[2:])
-        idx = src.reshape(src.shape + (1,) * len(tail)).expand(
-            (G, L) + tail)
-        gathered = torch.gather(new_g, 1, idx)
-        keep = from_old.reshape(from_old.shape + (1,) * len(tail))
-        return torch.where(keep, old_gl, gathered)
-
-    new_carry = EpisodeCarry(
-        positions=where_games(overflow, st.initial, st.positions),
-        count=torch.where(overflow, 0, new_count).to(torch.int32),
-        enc=merge(carry.enc, st.enc_s),
-        pol=merge(carry.pol, st.pol_s),
-        player=merge(carry.player, player_s),
-        rng=gen,
-    )
-
-    finished = eid.sum()
-    stats = {
-        "wins": wins,
-        "draws": draws,
-        "losses": losses,
-        "mean_length": length_sum.to(torch.float32)
-        / torch.clamp_min(finished, 1).to(torch.float32),
-        "illegal_moves": illegal,
-        # rows dropped because an episode outlived maxLengthGame
-        "unfinished": torch.where(overflow, T - s, 0).sum(),
-        "carried": new_carry.count.sum(),
-        "games_finished": finished,
-        "samples_written": pend_mask.sum() + completed.sum(),
-    }
-    return buffer, stats, new_carry
+def _tail(st: SearchRounds, buffer: ReplayBuffer, captured: bool):
+    """The call's tail, ``st.tail(buffer)``, as a step of the program: its
+    graph writes the buffer by address, so a program keeps one for the
+    buffer of its last call and captures a new one for another buffer.
+    A replay's outputs are copied out: the caller owns what it gets."""
+    key = ("tail", graphs.addresses(*vars(buffer).values()))
+    for old in [k for k in st.graphs if k[0] == "tail" and k != key]:
+        del st.graphs[old]
+    out = graphs.step(st, key, partial(st.tail, buffer), captured)
+    return graphs.copied(out) if captured else out

@@ -65,7 +65,10 @@ Phases, each fatal on failure:
    64 rollouts, against a depth-4 ``LineProbe``), ``eval_vs_random`` on
    tictactoe (6x128, 256 games, 64 rollouts) and five moves of the
    interactive engine on connect4 (one game, 128 rollouts a move), each
-   with its launches checked; kernels 1 and 2 against their plain versions
+   captured (its steps replayed from CUDA graphs, as a user calls it) and
+   eager from the same generator state - equal bit for bit, both times
+   printed, the probe's host seconds apart - with its launches checked;
+   kernels 1 and 2 against their plain versions
    on a tree grown at the probe games' positions (G=64) and at the
    engine's (G=1); the G=1 search on the card against the CPU path,
 13. data parallel on one card: two ranks share the card over gloo
@@ -90,7 +93,8 @@ Phases, each fatal on failure:
    generations, its launches as owed, no illegal move, the repeats'
    identical work, every lane deciding every round; one JSON line each -
    then the rollout ablation's full and select-only variants at 8192
-   lanes (``select`` and ``backup`` launched once a rollout as owed),
+   lanes, captured and eager (``select`` and ``backup`` launched once a
+   rollout as owed),
 16. the bf16 stat storage end to end, under ``ALPHATPU_BF16_STATS=1``:
    a connect4 search on bf16 planes on the card against the CPU path (512
    lanes), the per-phase API on bf16 planes against ``run_mcts`` (8192
@@ -105,9 +109,16 @@ Phases, each fatal on failure:
    captured as a CUDA graph against 8 eager rounds at levels 1, 2 and 0
    and on bf16 planes - buffer rows, stats, carry and generator state bit
    for bit, launches as owed under replay, env-steps/s of both, capture
-   seconds, graph nodes, graph-pool bytes, peak device memory; at level 1
-   a second call of each (the captured one all replays); a 512-lane duel
-   half captured against eager, bit for bit,
+   seconds, graph nodes, graph-pool bytes, peak device memory; the call's
+   tail (back-fill, buffer write, next carry, stats) captured too; at
+   level 1 a second call of each (the captured one all replays, the first
+   call's carry left as it was) and a third captured call under
+   ``set_sync_debug_mode("error")``; a 512-lane duel half captured
+   against eager, bit for bit; two tictactoe ``selfplay_generation``
+   calls (1024 lanes) captured against eager, the second under
+   ``set_sync_debug_mode("error")``; the tail's device ms, replayed and
+   eager; every ablation variant's move (connect4, 2048 lanes) captured
+   against eager: tree planes bit for bit,
 18. a JSON line of the kernels (for the four walks also ``ms_device`` and
    ``bound_ms_device``, at the device placement's shape; a row for each
    bf16 instantiation, ``<name>_bf16``), then the result line
@@ -144,6 +155,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 SEED = 0
 CPUCT = 1.5
@@ -191,6 +203,9 @@ BF16_PROBE = (16, 2)
 # half (games, rollouts) held to its eager rounds
 CAPTURE_ROUNDS = 8
 CAPTURE_DUEL = (512, 32)
+# and the lanes of its generation-mode calls (tictactoe) and of its
+# ablation moves (connect4)
+CAPTURE_GENERATION, CAPTURE_ABLATE = 1024, 2048
 # phase 17's runs: label, engine switches, the walk kernel they launch
 CAPTURE_RUNS = (
     ("level 1", {}, "select_apply_packed"),
@@ -965,16 +980,16 @@ def pipeline_generation(K, dev, card: str) -> None:
         state, stats = run_generation(game, state, cfg)
         t_end = time.perf_counter()
         end_counts = launch_counts(K)
-        # on the card the stages replay captured rounds: selfplay's round
-        # 0 and each duel net's first round run eagerly, then the program
-        # captures once per net and replays every round after
+        # on the card the stages replay captured steps: selfplay's round
+        # 0 and its tail, and each duel net's first round, run eagerly and
+        # are captured; every round after replays
         sp, du = marks["selfplay"][2], marks["duel"][2]
         replayed = {"selfplay": (sp["captures"], sp["replays"]),
                     "duel": (du["captures"] - sp["captures"],
                              du["replays"] - sp["replays"])}
         print(f"graphs in the generation (captures, replays): {replayed}, "
               f"capture {du['capture_s']:.3f} s")
-        if replayed != {"selfplay": (1, T - 1), "duel": (2, 2 * T - 2)}:
+        if replayed != {"selfplay": (2, T - 1), "duel": (2, 2 * T - 2)}:
             raise AssertionError(f"generation: graphs {replayed}")
         ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, f))
                          for f in os.listdir(tmp))
@@ -1149,18 +1164,24 @@ def cli_run(K, dev, card: str) -> dict:
 
 
 def evaluation_and_play(K, dev, card: str) -> dict:
-    """Phase 12: the evaluation and play paths, each with its launches
-    checked - ``eval_vs_probe`` on connect4 (the reference net, PROBE_GAMES
-    games, ROLLOUTS rollouts, against a depth-PROBE_DEPTH ``LineProbe``),
-    ``eval_vs_random`` on tictactoe, and PLAY_MOVES moves of the
-    interactive engine (a G = 1 search of PLAY_READOUT rollouts) on
-    connect4; then kernels 1 and 2 against their plain versions on a tree
-    grown at a position of the probe games (G = PROBE_GAMES) and at the
-    interactive engine's position (G = 1), and the G = 1 search on the card
-    against the CPU path.  Returns {kernel: max abs error} of the two
-    kernels' checks."""
+    """Phase 12: the evaluation and play paths, each run as a user calls
+    it (captured: its steps replayed from CUDA graphs) and eagerly
+    (``captured=False``) from the same generator state, the two equal bit
+    for bit, each with its launches checked and both times printed -
+    ``eval_vs_probe`` on connect4 (the reference net, PROBE_GAMES games,
+    ROLLOUTS rollouts, against a depth-PROBE_DEPTH ``LineProbe``; picks,
+    trace and the probe's host seconds), ``eval_vs_random`` on tictactoe,
+    and PLAY_MOVES moves of the interactive engine (a G = 1 search of
+    PLAY_READOUT rollouts) on connect4 (actions and root policies); then
+    kernels 1 and 2 against their plain versions on a tree grown at a
+    position of the probe games (G = PROBE_GAMES) and at the interactive
+    engine's position (G = 1), and the G = 1 search on the card against
+    the CPU path.  Returns {kernel: max abs error} of the two kernels'
+    checks."""
+    import numpy as np
     import torch
 
+    from alphatpu_torch import graphs
     from alphatpu_torch.eval import EvalConfig, eval_vs_random
     from alphatpu_torch.games import make_game
     from alphatpu_torch.games.base import where_games
@@ -1174,28 +1195,82 @@ def evaluation_and_play(K, dev, card: str) -> dict:
     pair = ("select_apply_packed", "backup")
     game = make_game("connect4")
     net = MLP.from_seed(config_for_game(game), SEED, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
 
-    # eval_vs_probe: every ply searches all games
+    def both(label, fn, owed):
+        """``fn(generator, captured)`` captured, then eagerly, each from
+        a generator seeded alike: {captured: (result, wall s, generator
+        state, graph counts)}, launches as ``owed(result)`` says."""
+        out = {}
+        for captured in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+            graphs.clear_cache()
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            graphs.reset_counts()
+            t0 = time.perf_counter()
+            r = fn(gen, captured)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            expect_launches(K, f"{label}, "
+                            f"{'captured' if captured else 'eager'}",
+                            owed(r))
+            out[captured] = (r, wall, gen.get_state(), dict(graphs.counts))
+        if not torch.equal(out[True][2], out[False][2]):
+            raise AssertionError(f"{label}: the generator's state after "
+                                 "the captured run differs from the eager")
+        return out
+
+    def timing(out) -> str:
+        (_, c_wall, _, counts), (_, e_wall, _, _) = out[True], out[False]
+        return (f"captured {c_wall:.3f} s ({counts['captures']} captures, "
+                f"{counts['capture_s']:.3f} s, {counts['replays']} "
+                f"replays), eager {e_wall:.3f} s")
+
+    # eval_vs_probe: every ply searches all games; the probe's seconds on
+    # the host are the rest of the wall
     G, R = PROBE_GAMES, ROLLOUTS
     probe = probe_for_game(game, PROBE_DEPTH)
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    w, d, l, trace = eval_vs_probe(game, net, gen, probe, num_games=G,
-                                   rollouts=R, cpuct=CPUCT, seed=SEED,
-                                   trace=True, device=dev)
-    wall = time.perf_counter() - t0
+    probe_s = []
+    best_action = probe.best_action
+
+    def timed_best_action(*args):
+        t0 = time.perf_counter()
+        a = best_action(*args)
+        probe_s[-1] += time.perf_counter() - t0
+        return a
+
+    probe.best_action = timed_best_action
+
+    def probe_run(gen, captured):
+        probe_s.append(0.0)
+        return eval_vs_probe(game, net, gen, probe, num_games=G, rollouts=R,
+                             cpuct=CPUCT, seed=SEED, trace=True, device=dev,
+                             captured=captured)
+
+    out = both("eval_vs_probe (connect4)", probe_run,
+               lambda r: {"select_apply_packed": len(r[3]["records"]) * R,
+                          "backup": len(r[3]["records"])})
+    (*wdl, trace), (*e_wdl, e_trace) = out[True][0], out[False][0]
     plies = len(trace["records"])
-    expect_launches(K, f"eval_vs_probe (connect4, {plies} plies)",
-                    {"select_apply_packed": plies * R, "backup": plies})
+    if wdl != e_wdl or len(e_trace["records"]) != plies or any(
+            not np.array_equal(a[k], b[k])
+            for a, b in zip(trace["records"], e_trace["records"])
+            for k in ("action", "greedy", "sampled", "alive")) or \
+            not np.array_equal(trace["result"], e_trace["result"]):
+        raise AssertionError("eval_vs_probe: captured != eager")
+    w, d, l = wdl
     if w + d + l != G or not game.min_game_length <= plies <= \
             game.max_game_length:
         raise AssertionError(f"eval_vs_probe: {w}/{d}/{l}, {plies} plies")
     print(f"eval_vs_probe: connect4 {net.cfg.depth}x{net.cfg.width} (random "
           f"weights, seed {SEED}) vs LineProbe depth {probe.depth}, {G} games"
-          f" x {R} rollouts: net W/D/L {w}/{d}/{l}, {plies} plies, "
-          f"{wall:.3f} s  [{card}]")
+          f" x {R} rollouts: net W/D/L {w}/{d}/{l}, {plies} plies; picks, "
+          f"trace and generator state captured = eager bit for bit; "
+          f"{timing(out)}; the probe on the host {probe_s[0]:.3f} s "
+          f"captured, {probe_s[1]:.3f} s eager, so the rest (the net's "
+          f"search, its copies) {out[True][1] - probe_s[0]:.3f} s captured, "
+          f"{out[False][1] - probe_s[1]:.3f} s eager  [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
 
     # a tree grown at the probe games' positions half way through
     positions = game.initial(G, dev)
@@ -1218,41 +1293,55 @@ def evaluation_and_play(K, dev, card: str) -> dict:
     ttt_net = MLP.from_seed(config_for_game(ttt), SEED, device=dev)
     cfg = EvalConfig()
     T = ttt.max_game_length
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    w, d, l = eval_vs_random(ttt, ttt_net, gen, cfg, device=dev)
-    wall = time.perf_counter() - t0
-    expect_launches(K, "eval_vs_random (tictactoe)",
-                    {"select_apply_packed": 2 * T * cfg.rollouts,
-                     "backup": 2 * T})
-    if w + d + l != cfg.num_games:
-        raise AssertionError(f"eval_vs_random: {w}/{d}/{l}")
+    out = both("eval_vs_random (tictactoe)",
+               lambda gen, captured: eval_vs_random(
+                   ttt, ttt_net, gen, cfg, device=dev, captured=captured),
+               lambda r: {"select_apply_packed": 2 * T * cfg.rollouts,
+                          "backup": 2 * T})
+    w, d, l = out[True][0]
+    if (w, d, l) != out[False][0] or w + d + l != cfg.num_games:
+        raise AssertionError(f"eval_vs_random: {w}/{d}/{l} captured, "
+                             f"{out[False][0]} eager")
     print(f"eval_vs_random: tictactoe {ttt_net.cfg.depth}x"
           f"{ttt_net.cfg.width} (random weights) vs the uniform mover, "
           f"{cfg.num_games} games x {cfg.rollouts} rollouts: net W/D/L "
-          f"{w}/{d}/{l}, {wall:.3f} s  [{card}]")
+          f"{w}/{d}/{l}, captured = eager; {timing(out)}  [{card}]")
 
-    # the interactive engine: one game, PLAY_MOVES engine moves
-    choose = make_engine(game, net, PLAY_READOUT, CPUCT)
-    pos = game.initial(1, dev)
-    moves = []
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(PLAY_MOVES):
-        action, pi = choose(pos, gen)
-        if not bool(game.legal_mask(pos)[0, action]) or not bool(
-                torch.isfinite(pi).all()):
-            raise AssertionError(f"interactive engine: move {action}, pi {pi}")
-        moves.append(action)
-        pos = game.play(pos, torch.tensor([action], device=dev))
-    wall = time.perf_counter() - t0
-    expect_launches(K, f"{PLAY_MOVES} interactive engine moves (G=1)",
-                    {"select_apply_packed": PLAY_MOVES * PLAY_READOUT,
-                     "backup": PLAY_MOVES})
+    # the interactive engine: one game, PLAY_MOVES engine moves (the first
+    # captured move runs eagerly and captures; the rest replay)
+    def play(gen, captured):
+        choose = make_engine(game, net, PLAY_READOUT, CPUCT,
+                             captured=captured)
+        pos = game.initial(1, dev)
+        moves, pis, walls = [], [], []
+        for _ in range(PLAY_MOVES):
+            t0 = time.perf_counter()
+            action, pi = choose(pos, gen)
+            walls.append(time.perf_counter() - t0)
+            if not bool(game.legal_mask(pos)[0, action]) or not bool(
+                    torch.isfinite(pi).all()):
+                raise AssertionError(f"interactive engine: move {action}, "
+                                     f"pi {pi}")
+            moves.append(action)
+            pis.append(pi)
+            pos = game.play(pos, torch.tensor([action], device=dev))
+        return moves, pis, walls, pos
+
+    out = both(f"{PLAY_MOVES} interactive engine moves (G=1)", play,
+               lambda r: {"select_apply_packed": PLAY_MOVES * PLAY_READOUT,
+                          "backup": PLAY_MOVES})
+    (moves, pis, walls, pos), (e_moves, e_pis, e_walls, _) = (
+        out[True][0], out[False][0])
+    if moves != e_moves or any(not torch.equal(a, b)
+                               for a, b in zip(pis, e_pis)):
+        raise AssertionError(f"interactive engine: captured {moves} != "
+                             f"eager {e_moves}")
     print(f"interactive engine: connect4, G=1, {PLAY_READOUT} rollouts a "
-          f"move, moves {moves}: {wall / PLAY_MOVES:.3f} s a move  [{card}]")
+          f"move, moves {moves}, actions and root policies captured = "
+          f"eager: captured {sum(walls[1:]) / (PLAY_MOVES - 1):.4f} s a "
+          f"move after the first ({walls[0]:.3f} s: eager, then the "
+          f"capture), eager {sum(e_walls) / PLAY_MOVES:.3f} s a move  "
+          f"[{card}]")
     print("  board after them:\n    " + game.render(pos).replace(
         "\n", "\n    "))
     geo = K.walk_geometry(game.max_actions, 1, PLAY_READOUT)
@@ -1271,6 +1360,7 @@ def evaluation_and_play(K, dev, card: str) -> dict:
                             device=torch.device("cpu"))
     search_vs_cpu(game, net, net_cpu, dev, PLAY_READOUT, 1, 1,
                   training=False)
+    graphs.clear_cache()
     print(f"evaluation and play: {time.perf_counter() - t_phase:.3f} s  "
           f"[{card}]")
     return {k: r["err"] for k, r in errs.items()}
@@ -1624,7 +1714,7 @@ def bench_runs(card: str) -> None:
     """Phase 15: the bench's ``measure`` on connect4 (LANES lanes,
     BENCH_ROUNDS rounds in chunks of BENCH_CHUNK) for each of BENCH_RUNS,
     one JSON line each; then the ablation's ABLATE_VARIANTS at LANES
-    lanes.  ``measure`` and the ablation raise on launches that differ
+    lanes, captured and eager.  ``measure`` and the ablation raise on launches that differ
     from what is owed; ``measure`` on an illegal move or repeats that
     differ."""
     from alphatpu_torch import bench
@@ -1641,20 +1731,28 @@ def bench_runs(card: str) -> None:
                 or ex["env_steps"] != LANES * BENCH_ROUNDS
                 or not math.isfinite(r["value"]) or r["value"] <= 0):
             raise AssertionError(f"bench {kw}: {json.dumps(r)}")
-        # every timed round a replay of the round the warm-up captured
-        if not ex["captured"] or (ex["graph_replays"],
-                                  ex["graph_captures"]) != (BENCH_ROUNDS, 0):
+        # every timed round, and every call's tail, a replay of what the
+        # warm-up captured
+        if not ex["captured"] or (ex["graph_replays"], ex["graph_captures"]) \
+                != (BENCH_ROUNDS + BENCH_ROUNDS // BENCH_CHUNK, 0):
             raise AssertionError(f"bench {kw}: rounds not replayed: "
                                  f"{json.dumps(r)}")
         print(json.dumps(r))
         print(f"bench {kw}: {time.perf_counter() - t0:.3f} s with the "
               f"warm-up; spread {ex['spread']:.4f}  [{card}]")
-    out = ablate_rollout.ablate("connect4", LANES, ROLLOUTS,
-                                names=ABLATE_VARIANTS, device="cuda",
-                                log=lambda line: print(f"ablate {line}"))
-    for name, v in out.items():
-        print(f"ablate {name}: launches in the timed moves {v['launches']}  "
-              f"[{card}]")
+    # each variant's move captured (replayed, the device's work) and eager
+    out = {captured: ablate_rollout.ablate(
+        "connect4", LANES, ROLLOUTS, names=ABLATE_VARIANTS, device="cuda",
+        log=lambda line: print(f"ablate {line}"), captured=captured)
+        for captured in (True, False)}
+    for name in ABLATE_VARIANTS:
+        c, e = out[True][name], out[False][name]
+        if c["launches"] != e["launches"]:
+            raise AssertionError(f"ablate {name}: captured launches "
+                                 f"{c['launches']}, eager {e['launches']}")
+        print(f"ablate {name}: captured {c['ms_per_move']:.1f} ms a move, "
+              f"eager {e['ms_per_move']:.1f} ms; launches in the timed "
+              f"moves {c['launches']}  [{card}]")
     print(f"bench and ablation: {time.perf_counter() - t_phase:.3f} s  "
           f"[{card}]")
 
@@ -1823,9 +1921,14 @@ def captured_rounds(K, dev, card: str) -> None:
     CUDA graph (its first round eager, the second captured, every later
     one a replay) from the same generator: buffer rows, stats, carry
     (root policies included) and the generator's state bit for bit, each
-    run's launches as owed; at level 1 a second captured call (replays
-    only) and a second eager one.  Then a CAPTURE_DUEL duel half, both
-    nets' rounds captured, against its eager rounds bit for bit.  Prints
+    run's launches as owed; the call's tail (back-fill, buffer write, next
+    carry, stats) runs eagerly and is captured in the first call; at
+    level 1 a second captured call (rounds and tail replayed) and a
+    second eager one, the first call's carry unchanged by the second, and
+    a third captured call under ``set_sync_debug_mode('error')``.  Then a
+    CAPTURE_DUEL duel half, both nets' rounds captured, against its eager
+    rounds bit for bit; generation-mode selfplay (:func:`captured_generation`)
+    and every ablation variant (:func:`captured_ablation`).  Prints
     env-steps/s, capture seconds, graph nodes, graph-pool bytes and peak
     device memory."""
     import torch
@@ -1869,17 +1972,28 @@ def captured_rounds(K, dev, card: str) -> None:
           f"call waited  [{card}]")
     del st
 
-    def run(captured, carry, label, kernel):
-        """One call of T rounds; returns (tensors, carry, wall, stats,
-        graph counts)."""
-        buf = create_buffer(game, G * T, device=dev)
+    # a buffer for each mode, emptied before each call: the captured tail
+    # writes its buffer by address, so one buffer keeps one tail graph
+    bufs = {c: create_buffer(game, G * T, device=dev) for c in (True, False)}
+
+    def run(captured, carry, label, kernel, strict=False):
+        """One call of T rounds (``strict``: under
+        ``set_sync_debug_mode('error')``); returns (tensors, carry, wall,
+        stats, graph counts)."""
+        buf = bufs[captured]
+        for x in vars(buf).values():
+            x.zero_()
         torch.cuda.synchronize()
         K.reset_launch_counts()
         graphs.reset_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        _, stats, carry = selfplay_continuous(game, net, buf, None, cfg,
-                                              carry, captured=captured)
+        torch.cuda.set_sync_debug_mode("error" if strict else 0)
+        try:
+            _, stats, carry = selfplay_continuous(game, net, buf, None, cfg,
+                                                  carry, captured=captured)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         expect_launches(K, f"{T} {'captured' if captured else 'eager'} "
@@ -1890,6 +2004,7 @@ def captured_rounds(K, dev, card: str) -> None:
         out = [getattr(buf, f) for f in ("state", "policy", "player",
                                          "value", "fstate", "cursor",
                                          "total")]
+        out = [x.clone() for x in out]
         out += [stats[k] for k in sorted(stats)]
         out += [carry.count, carry.enc, carry.pol, carry.player,
                 *carry.positions, carry.rng.get_state()]
@@ -1913,7 +2028,8 @@ def captured_rounds(K, dev, card: str) -> None:
             if bad or len(cap) != len(eager):
                 raise AssertionError(f"captured rounds, {label}: tensors "
                                      f"{bad} differ from the eager rounds")
-            if (counts["captures"], counts["replays"]) != (1, T - 1) or int(
+            # round 0 eager, then captured; the tail eager, then captured
+            if (counts["captures"], counts["replays"]) != (2, T - 1) or int(
                     c_stats["illegal_moves"]):
                 raise AssertionError(f"captured rounds, {label}: {counts}")
             print(f"captured rounds, {label}: connect4 4x512, {G} lanes, "
@@ -1922,28 +2038,49 @@ def captured_rounds(K, dev, card: str) -> None:
                   f"bit for bit; eager {rate(e_stats, e_wall):.1f} "
                   f"env-steps/s ({e_wall:.3f} s), captured "
                   f"{rate(c_stats, c_wall):.1f} env-steps/s ({c_wall:.3f} s:"
-                  f" round 0 eager, capture {counts['capture_s']:.3f} s, "
+                  f" round 0 and the tail eager, then captured in "
+                  f"{counts['capture_s']:.3f} s, "
                   f"{counts['replays']} replays); graph nodes "
                   f"{counts['capture_nodes']}, graph pool "
                   f"{counts['capture_pool_bytes']} B, peak_mem_bytes "
                   f"{counts['peak_mem_bytes']}  [{card}]")
             if label != "level 1":
                 continue
-            # the same calls again: replays only, then eager
-            cap2, _, c2_wall, c2_stats, counts2 = run(True, cap_carry, label,
-                                                      kernel)
-            eager2, _, e2_wall, e2_stats, _ = run(False, eager_carry, label,
-                                                  kernel)
-            if counts2["replays"] != T or counts2["captures"] or any(
+            # the same calls again: replays only (the older carry stays
+            # the caller's), then eager, then captured under
+            # set_sync_debug_mode('error')
+            held = [x.clone() for x in (cap_carry.count, cap_carry.enc,
+                                        cap_carry.pol, cap_carry.player,
+                                        *cap_carry.positions)]
+            cap2, cap2_carry, c2_wall, c2_stats, counts2 = run(
+                True, cap_carry, label, kernel)
+            eager2, eager2_carry, e2_wall, e2_stats, _ = run(
+                False, eager_carry, label, kernel)
+            if counts2["replays"] != T + 1 or counts2["captures"] or any(
                     not torch.equal(x, y) for x, y in zip(cap2, eager2)):
                 raise AssertionError(f"the second captured call, {label}: "
                                      f"{counts2}")
+            if any(not torch.equal(a, b) for a, b in zip(held, (
+                    cap_carry.count, cap_carry.enc, cap_carry.pol,
+                    cap_carry.player, *cap_carry.positions))):
+                raise AssertionError("a captured call overwrote the carry "
+                                     "an earlier call returned")
+            cap3, _, c3_wall, _, counts3 = run(True, cap2_carry, label,
+                                               kernel, strict=True)
+            eager3, *_ = run(False, eager2_carry, label, kernel)
+            if counts3["replays"] != T + 1 or any(
+                    not torch.equal(x, y) for x, y in zip(cap3, eager3)):
+                raise AssertionError(f"the third captured call, {label}: "
+                                     f"{counts3}")
             print(f"captured rounds, {label}, a second call of {T} rounds "
-                  f"(every round a replay): captured "
+                  f"(every round and the tail a replay): captured "
                   f"{rate(c2_stats, c2_wall):.1f} env-steps/s "
                   f"({c2_wall:.3f} s), eager {rate(e2_stats, e2_wall):.1f} "
                   f"env-steps/s ({e2_wall:.3f} s), equal bit for bit; "
-                  f"peak_mem_bytes {counts2['peak_mem_bytes']}  [{card}]")
+                  f"peak_mem_bytes {counts2['peak_mem_bytes']}; the first "
+                  f"call's carry unchanged; a third captured call under "
+                  f"set_sync_debug_mode('error'): no host sync, "
+                  f"{c3_wall:.3f} s, equal to the eager one  [{card}]")
     graphs.clear_cache()
 
     # a duel half: a graph per net, shared by the program's rounds
@@ -1980,8 +2117,137 @@ def captured_rounds(K, dev, card: str) -> None:
           f"{counts['capture_s']:.3f} s, {counts['replays']} replays)  "
           f"[{card}]")
     graphs.clear_cache()
+
+    # the tail's device time, replayed and eager, after T captured rounds
+    st = ContinuousRounds(game, cfg, T, dev)
+    st.start(fresh_carry())
+    graphs.play(st, T, lambda t: net, None, captured=True)
+    buf = bufs[True]
+
+    def tail_ms(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return out
+
+    graphs.step(st, "tail", partial(st.tail, buf), True)  # eager, captured
+    replayed = tail_ms(lambda: graphs.step(st, "tail", partial(st.tail, buf),
+                                           True))
+    eager = tail_ms(lambda: st.tail(buf))
+    print(f"the call's tail ({G} lanes, {T} rounds: back-fill, buffer write, "
+          f"next carry, stats): device ms a replay "
+          f"{', '.join(f'{x:.3f}' for x in replayed)}; eager "
+          f"{', '.join(f'{x:.3f}' for x in eager)}  [{card}]")
+    del st
+    graphs.clear_cache()
+    captured_generation(K, dev, card)
+    captured_ablation(K, dev, card)
     print(f"captured rounds: {time.perf_counter() - t_phase:.3f} s  "
           f"[{card}]")
+
+
+def captured_generation(K, dev, card: str) -> None:
+    """Phase 17: selfplay_generation (tictactoe 6x128, CAPTURE_GENERATION
+    lanes, ROLLOUTS rollouts, whole games) in two chained calls, captured
+    (the second replays its rounds and its tail, under
+    ``set_sync_debug_mode('error')``) and eager: buffer and stats bit for
+    bit."""
+    import torch
+
+    from alphatpu_torch import graphs
+    from alphatpu_torch.buffer import create_buffer
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.nets import MLP, config_for_game
+    from alphatpu_torch.selfplay import SelfplayConfig, selfplay_generation
+
+    game = make_game("tictactoe")
+    net = MLP.from_seed(config_for_game(game), SEED, device=dev)
+    G, T = CAPTURE_GENERATION, game.max_game_length
+    cfg = SelfplayConfig(num_games=G, rollouts=ROLLOUTS, cpuct=CPUCT)
+    outs = {}
+    for captured in (True, False):
+        graphs.clear_cache()
+        graphs.reset_counts()
+        buf = create_buffer(game, 4 * G * T, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+        K.reset_launch_counts()
+        out, walls = [], []
+        for call in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error" if captured and call
+                                           else 0)
+            try:
+                _, stats = selfplay_generation(game, net, buf, gen, cfg,
+                                               captured=captured)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            out += [stats[k] for k in sorted(stats)]
+        expect_launches(K, f"two {'captured' if captured else 'eager'} "
+                        "generations (tictactoe)",
+                        {"select_apply_packed": 2 * T * ROLLOUTS,
+                         "backup": 2 * T})
+        out += [*(getattr(buf, f) for f in ("state", "policy", "player",
+                                            "value", "fstate", "cursor",
+                                            "total")), gen.get_state()]
+        outs[captured] = (out, walls, dict(graphs.counts))
+    (cap, c_walls, counts), (eager, e_walls, _) = outs[True], outs[False]
+    if any(x.dtype != y.dtype or not torch.equal(x, y)
+           for x, y in zip(cap, eager)) or (
+            counts["captures"], counts["replays"]) != (2, 2 * T):
+        raise AssertionError(f"captured generation != eager: {counts}")
+    print(f"captured generation: tictactoe 6x128, {G} games x {ROLLOUTS} "
+          f"rollouts, {T} rounds, two calls: buffer, stats and generator "
+          f"state equal to the eager calls' bit for bit; the second "
+          f"captured call (rounds and tail replayed) under "
+          f"set_sync_debug_mode('error'): no host sync; captured "
+          f"{c_walls[0]:.3f} s then {c_walls[1]:.3f} s, eager "
+          f"{e_walls[0]:.3f} s then {e_walls[1]:.3f} s  [{card}]")
+    graphs.clear_cache()
+
+
+def captured_ablation(K, dev, card: str) -> None:
+    """Phase 17: every ablation variant's move (connect4, CAPTURE_ABLATE
+    lanes, ROLLOUTS rollouts; a warm-up and two timed moves) replayed from
+    a CUDA graph and run eagerly from the same generator state: the tree
+    planes, the generator's state and the launches owed, bit for bit."""
+    import torch
+
+    from alphatpu_torch.benchmarks import ablate_rollout
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import MLP, config_for_game
+
+    game = make_game("connect4")
+    net = MLP.from_seed(config_for_game(game), SEED, device=dev)
+    positions = game.initial(CAPTURE_ABLATE, dev)
+    line = []
+    for name, variant in ablate_rollout.VARIANTS.items():
+        outs, ms = [], []
+        for captured in (True, False):
+            tree = init_tree(game, positions, ROLLOUTS)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+            t, counted = ablate_rollout.time_variant(
+                game, net, tree, positions, gen, ROLLOUTS, variant, 2,
+                captured=captured)
+            ms.append(t)
+            outs.append([tree.prior, tree.wsum, tree.visits, tree.parent,
+                         tree.action_from, tree.expanded, tree.next_idx,
+                         *tree.states, gen.get_state()])
+        if any(not torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"captured ablation {name} != eager")
+        line.append(f"{name} {ms[0]:.2f}/{ms[1]:.2f}")
+    print(f"captured ablation: connect4 4x512, {CAPTURE_ABLATE} lanes, "
+          f"{ROLLOUTS} rollouts, each variant's tree planes and generator "
+          f"state equal to the eager moves' bit for bit, launches as owed; "
+          f"ms a move captured/eager: {', '.join(line)}  [{card}]")
 
 
 def main() -> int:

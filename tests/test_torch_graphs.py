@@ -6,7 +6,9 @@ device or gives a result whose shape depends on the data (``nonzero``,
 ``_local_scalar_dense`` - ``item``, ``bool`` and ``int`` of a tensor -
 ``masked_select``, ``equal``, ``unique``, and indexing with a boolean
 mask).  None may run in a search at levels 0, 1 and 2 on f32 planes and on
-bf16 planes, in a round of either selfplay mode, or in a duel round.  The
+bf16 planes, in a round or the tail of either selfplay mode, in a duel
+round, in a ply of ``eval_vs_random`` or ``eval_vs_probe``, in a move of
+the interactive engine or in a rollout of each ablation variant.  The
 plain versions of the CUDA kernels are left out of the record: they stand
 in for the kernels on the CPU, and the graph holds the kernels.
 
@@ -24,9 +26,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from alphatpu_torch import graphs
+from alphatpu_torch.benchmarks import ablate_rollout
 from alphatpu_torch.buffer import create_buffer
 from alphatpu_torch.duel import DuelConfig, DuelRounds, duel_half
+from alphatpu_torch.eval import EvalConfig, EvalRounds
 from alphatpu_torch.games import make_game
+from alphatpu_torch.interactive import MoveRounds
 from alphatpu_torch.mcts import kernels as K
 from alphatpu_torch.mcts import search as S
 from alphatpu_torch.mcts.search import run_mcts
@@ -34,6 +39,7 @@ from alphatpu_torch.mcts.tree import (
     init_tree, scatter_states, write_where,
 )
 from alphatpu_torch.nets import MLP, apply_inference, config_for_game
+from alphatpu_torch.probe import ProbeRounds
 from alphatpu_torch.selfplay import (
     ContinuousRounds, GenerationRounds, SelfplayConfig, make_carry,
     selfplay_continuous, selfplay_generation,
@@ -160,6 +166,91 @@ def test_duel_round_waits_for_nothing(waits):
                     torch.Generator().manual_seed(2))
     assert waits.seen == []
     assert bool(st.done.any())
+
+
+@pytest.mark.parametrize("mode", ["generation", "continuous"])
+def test_selfplay_tail_waits_for_nothing(mode, waits):
+    """A call's tail - the back-fill, the buffer write, the next carry and
+    the stats - after rounds in which games end (and, continuous, a
+    carried-in episode completes): a step of the program like a round."""
+    game = make_game("tictactoe")
+    cfg = SelfplayConfig(num_games=8, rollouts=8, temp_moves=2)
+    net = _net(game)
+    if mode == "generation":
+        st = GenerationRounds(game, cfg, 9, "cpu")
+        st.start()
+    else:
+        st = ContinuousRounds(game, cfg, 12, "cpu")
+        carry = make_carry(game, 8, None)
+        carry.count.fill_(2)  # two moves of each lane's episode carried in
+        st.start(carry)
+    graphs.play(st, st.T, lambda t: net, torch.Generator().manual_seed(1))
+    buf = create_buffer(game, 64)
+    with waits:
+        out = st.tail(buf)
+    assert waits.seen == []
+    stats = out if mode == "generation" else out[-1]
+    assert int(stats["samples_written"]) > 0
+    assert int(buf.total[0]) == int(stats["samples_written"])
+
+
+@pytest.mark.parametrize("net_first", [True, False])
+def test_eval_ply_waits_for_nothing(net_first, waits):
+    game = make_game("tictactoe")
+    st = EvalRounds(game, EvalConfig(num_games=8, rollouts=8), "cpu")
+    st.start(game.initial(8), net_first)
+    net = _net(game)
+    with waits:
+        graphs.play(st, 9, lambda t: net, torch.Generator().manual_seed(3))
+    assert waits.seen == []
+    assert bool(st.done.any())
+
+
+def test_probe_ply_waits_for_nothing(waits):
+    """The net's move (search and picks) and the host's actions applied:
+    the two steps between which the probe moves on the host."""
+    game = make_game("connect4")
+    st = ProbeRounds(game, EvalConfig(num_games=6, rollouts=8), "cpu")
+    graphs.assign(st.positions, st.initial)
+    net = _net(game)
+    st.alive.copy_(torch.tensor([True, True, False, True, True, True]))
+    st.actions.copy_(torch.arange(6, dtype=torch.int32))
+    with waits, graphs.drawing(st, torch.Generator().manual_seed(4), False):
+        st.round(net)
+        st.apply()
+    assert waits.seen == []
+    assert bool((st.picks >= 0).all()) and bool((st.picks < 7).all())
+    # a live game played its action, a finished one kept its position
+    assert torch.equal(st.host[:, :84].sum(1) > 0,
+                       torch.tensor([True, True, False, True, True, True]))
+
+
+def test_interactive_move_waits_for_nothing(waits):
+    """The G=1 engine's move up to its root policy and argmax (the host
+    reads the action after the step)."""
+    game = make_game("connect4")
+    pos = game.play(game.initial(1), torch.tensor([3], dtype=torch.int32))
+    st = MoveRounds(game, init_tree(game, pos, 16), 16, 1.5)
+    graphs.assign(st.positions, pos)
+    st.generator = torch.Generator().manual_seed(5)
+    with waits:
+        action, pi = st.round(_net(game))
+    assert waits.seen == []
+    assert pi.shape == (7,) and 0 <= int(action) < 7
+
+
+@pytest.mark.parametrize("name", list(ablate_rollout.VARIANTS))
+def test_ablation_rollout_waits_for_nothing(name, waits):
+    game = make_game("connect4")
+    tree = init_tree(game, game.initial(8), 8)
+    st = ablate_rollout.AblationRounds(game, tree, 8,
+                                       ablate_rollout.VARIANTS[name])
+    st.generator = torch.Generator().manual_seed(6)
+    with waits:
+        st.round(_net(game))
+    assert waits.seen == []
+    assert int(tree.next_idx.min()) > 1 or not ablate_rollout.VARIANTS[
+        name].expand
 
 
 # ---------------------------------------------------------------------------

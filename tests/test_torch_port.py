@@ -722,9 +722,9 @@ def _equal(a, b):
     ("continuous", False), ("continuous", True), ("generation", False)])
 def test_captured_selfplay_equals_eager(mode, injected, cuda):
     """Two chained calls: the first captures the round (its round 0 runs
-    eagerly), the second replays every round; buffer, stats, carry and
-    the generator's state equal the eager rounds' bit for bit, and the
-    launch counts too."""
+    eagerly) and the tail (after its eager run), the second replays every
+    round and the tail; buffer, stats, carry and the generator's state
+    equal the eager rounds' bit for bit, and the launch counts too."""
     from alphatpu_torch import graphs
 
     game, net = _tiny_net(cuda)
@@ -733,8 +733,10 @@ def test_captured_selfplay_equals_eager(mode, injected, cuda):
     captured, launches = _selfplay_calls(mode, game, (net, net), cuda, True,
                                          injected)
     T = 6 if mode == "continuous" else game.max_game_length
-    assert graphs.counts["captures"] == 1
-    assert graphs.counts["replays"] == 2 * T - 1
+    # the first call: round 0 eager, then captured; the tail eager, then
+    # captured; the second call replays T rounds and the tail
+    assert graphs.counts["captures"] == 2
+    assert graphs.counts["replays"] == 2 * T
     eager, eager_launches = _selfplay_calls(mode, game, (net, net), cuda,
                                             False, injected)
     _equal(captured, eager)
@@ -808,3 +810,125 @@ def test_a_weight_change_between_replays(cuda):
     _equal(outs[0], outs[1])
     assert any(not torch.equal(x.cpu(), y.cpu())
                for x, y in zip(outs[0], unchanged))
+
+
+@pytest.mark.cuda
+def test_a_captured_call_hands_out_its_own_tensors(cuda):
+    """The tail's outputs are the program's static tensors: a call copies
+    them out, so a carry or stats held from an earlier call stay as they
+    were; and a new buffer gets a tail of its own (the graph writes the
+    buffer by address)."""
+    from alphatpu_torch import graphs
+    from alphatpu_torch.buffer import create_buffer
+    from alphatpu_torch.selfplay import (
+        SelfplayConfig, make_carry, selfplay_continuous,
+    )
+
+    game, net = _tiny_net(cuda)
+    cfg = SelfplayConfig(**_SMALL, temp_moves=3, rounds=6)
+    graphs.clear_cache()
+    carry = make_carry(game, cfg.num_games,
+                       torch.Generator(device=cuda).manual_seed(2), cuda)
+    bufs = [create_buffer(game, 4096, device=cuda) for _ in range(2)]
+    held = []
+    for i in range(4):
+        graphs.reset_counts()
+        _, stats, carry = selfplay_continuous(game, net, bufs[i // 3], None,
+                                              cfg, carry)
+        # call 0 captures round and tail, calls 1-2 replay, call 3 has a
+        # new buffer: its tail runs eagerly and is captured
+        assert graphs.counts["captures"] == (2, 0, 0, 1)[i]
+        held.append(([x.clone() for x in (carry.count, carry.enc,
+                                          carry.pol, *carry.positions)],
+                     {k: v.clone() for k, v in stats.items()},
+                     carry, stats))
+    for copies, stat_copies, old, old_stats in held:
+        now = [old.count, old.enc, old.pol, *old.positions]
+        assert all(torch.equal(a, b) for a, b in zip(copies, now))
+        assert all(torch.equal(stat_copies[k], old_stats[k])
+                   for k in old_stats)
+    assert int(bufs[1].total[0]) > 0
+    graphs.clear_cache()
+
+
+@pytest.mark.cuda
+def test_captured_evaluation_and_play_equal_eager(cuda):
+    """eval_vs_random, eval_vs_probe (picks, trace) and the interactive
+    engine (actions, pi): replayed from CUDA graphs, equal to their eager
+    runs from the same generator state bit for bit, launches as owed."""
+    import numpy as np
+
+    from alphatpu_torch import graphs
+    from alphatpu_torch.eval import EvalConfig, eval_vs_random
+    from alphatpu_torch.interactive import make_engine
+    from alphatpu_torch.mcts import kernels as K
+    from alphatpu_torch.probe import eval_vs_probe
+
+    game, net = _tiny_net(cuda)
+    outs = []
+    for captured in (True, False):
+        graphs.clear_cache()
+        graphs.reset_counts()
+        K.reset_launch_counts()
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        wdl = eval_vs_random(game, net, gen, EvalConfig(num_games=16,
+                                                        rollouts=8),
+                             device=cuda, captured=captured)
+        w, d, l, trace = eval_vs_probe(game, net, gen, num_games=8,
+                                       rollouts=8, trace=True, device=cuda,
+                                       captured=captured)
+        choose = make_engine(game, net, 16, 1.5, captured=captured)
+        pos = game.initial(1, cuda)
+        moves = []
+        for _ in range(3):
+            action, pi = choose(pos, gen)
+            moves.append((action, pi))
+            pos = game.play(pos, torch.tensor([action], device=cuda))
+        plies = len(trace["records"])
+        assert K.launch_counts()["select_apply_packed"] == (
+            (2 * 9 * 8 + plies * 8 + 3 * 16), 0)
+        outs.append((wdl, (w, d, l), trace, moves, gen.get_state(),
+                     dict(graphs.counts)))
+    cap, eager = outs
+    assert cap[0] == eager[0] and cap[1] == eager[1]
+    for a, b in zip(cap[2]["records"], eager[2]["records"]):
+        for k in ("action", "greedy", "sampled", "alive"):
+            np.testing.assert_array_equal(a[k], b[k])
+    np.testing.assert_array_equal(cap[2]["result"], eager[2]["result"])
+    for (a, pa), (b, pb) in zip(cap[3], eager[3]):
+        assert a == b and torch.equal(pa, pb)
+    assert torch.equal(cap[4], eager[4])
+    # eval: one program for both halves; probe: net move and apply
+    assert cap[5]["captures"] == 4 and eager[5]["captures"] == 0
+    graphs.clear_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["full", "no-select", "no-backup", "no-nn",
+                                  "no-expand", "select-only"])
+def test_captured_ablation_equals_eager(name, cuda):
+    """Each ablation variant's move replayed from a CUDA graph leaves the
+    tree its eager moves leave, bit for bit, with the launches owed."""
+    from alphatpu_torch.benchmarks import ablate_rollout
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import MLP, config_for_game
+
+    game = make_game("connect4")
+    net = MLP.from_seed(config_for_game(game, width=32, depth=2), 0,
+                        device=cuda)
+    positions = game.initial(64, cuda)
+    variant = ablate_rollout.VARIANTS[name]
+    outs = []
+    for captured in (True, False):
+        tree = init_tree(game, positions, 16)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        _, counted = ablate_rollout.time_variant(
+            game, net, tree, positions, gen, 16, variant, moves=2,
+            captured=captured)
+        assert counted == ablate_rollout.owed_launches(variant, 16, 2)
+        outs.append([tree.prior, tree.wsum, tree.visits, tree.parent,
+                     tree.action_from, tree.expanded, tree.next_idx,
+                     gen.get_state()])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
