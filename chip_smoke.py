@@ -51,11 +51,13 @@ Phases, each fatal on failure:
    the CPU path, and all five kernels against their plain versions on a
    tree grown there,
 10. one generation of the training pipeline at full width
-   (``pipeline.run_generation``): connect4, 4x512, generation-mode
-   selfplay of 8192 games at 64 rollouts, one epoch at batch 8192, a
-   1024-game duel at 32 rollouts, Elo, and a checkpoint with the buffer,
-   reloaded and compared with the live state bit for bit; seconds per
-   stage,
+   (``pipeline.run_generation``) for each of GEN_GAMES - connect4 (4x512)
+   and hex7 (8x512, 49 actions: the 32-lane walk over two slots, and the
+   hex rules) - generation-mode selfplay of 8192 games at 64 rollouts,
+   one epoch at batch 8192, a 1024-game duel at 32 rollouts, Elo, and a
+   checkpoint with the buffer, reloaded and compared with the live state
+   bit for bit; launches and graph replays as owed, seconds per stage and
+   the phase's wall,
 11. the CLI end to end, in process (``alphatpu_torch.cli.main``): two
    tictactoe generations at 1024 games, then a third resumed from the
    checkpoint; then the loss replay
@@ -171,6 +173,7 @@ DEVICE_SHAPE = (7, 8000, 512)
 BIG_TREE, BIG_TREE_G = 7300, 128
 SMALL_G = 512  # lanes of the card-vs-CPU searches
 GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
+GEN_GAMES = ("connect4", "hex7")  # phase 10's generations, in order
 CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
 CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS = 16, 8
 # phase 12: probe games and the probe's depth; the interactive engine's
@@ -930,12 +933,13 @@ def family_runs(K, dev, card: str) -> dict:
     return rates
 
 
-def pipeline_generation(K, dev, card: str) -> None:
+def pipeline_generation(K, dev, card: str, game_name: str) -> None:
     """Phase 10: one generation of ``pipeline.run_generation`` at full
-    width on connect4 - selfplay_generation on LANES games, one epoch, a
-    1024-game duel, Elo and a checkpoint with the buffer - with each
-    stage's launches checked, then the checkpoint reloaded into a fresh
-    state and compared with the live one bit for bit."""
+    width on ``game_name`` with its reference net - selfplay_generation
+    on LANES games, one epoch, a 1024-game duel, Elo and a checkpoint
+    with the buffer - with each stage's launches checked, then the
+    checkpoint reloaded into a fresh state and compared with the live one
+    bit for bit."""
     import math
     import tempfile
 
@@ -944,14 +948,15 @@ def pipeline_generation(K, dev, card: str) -> None:
     from alphatpu_torch import graphs
     from alphatpu_torch.duel import DuelConfig
     from alphatpu_torch.games import make_game
-    from alphatpu_torch.nets import PARAM_NAMES
+    from alphatpu_torch.nets import PARAM_NAMES, config_for_game
     from alphatpu_torch.pipeline import (
         PipelineConfig, init_pipeline, resume, run_generation,
     )
     from alphatpu_torch.selfplay import SelfplayConfig
     from alphatpu_torch.train import TrainConfig
 
-    game = make_game("connect4")
+    game = make_game(game_name)
+    net_cfg = config_for_game(game)
     T = game.max_game_length
     duel = DuelConfig(num_games=GEN_DUEL[0], rollouts=GEN_DUEL[1])
     # stage -> (time, launch counts, graph counts) when its log line came
@@ -990,7 +995,8 @@ def pipeline_generation(K, dev, card: str) -> None:
         print(f"graphs in the generation (captures, replays): {replayed}, "
               f"capture {du['capture_s']:.3f} s")
         if replayed != {"selfplay": (2, T - 1), "duel": (2, 2 * T - 2)}:
-            raise AssertionError(f"generation: graphs {replayed}")
+            raise AssertionError(f"generation {game_name}: graphs "
+                                 f"{replayed}")
         ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, f))
                          for f in os.listdir(tmp))
 
@@ -1012,20 +1018,23 @@ def pipeline_generation(K, dev, card: str) -> None:
             want = {k: want.get(k, 0) for k in KERNELS}
             print(f"launches in the generation's {stage}: {got}")
             if got != want:
-                raise AssertionError(f"generation {stage}: launches {got}, "
-                                     f"owed {want}")
+                raise AssertionError(f"generation {game_name} {stage}: "
+                                     f"launches {got}, owed {want}")
         if stats["illegal_moves"] != 0:
-            raise AssertionError("generation: illegal moves")
+            raise AssertionError(f"generation {game_name}: illegal moves")
         if (stats["wins"] + stats["draws"] + stats["losses"]
                 + stats["unfinished"]) != LANES:
-            raise AssertionError("generation: w+d+l+unfinished != games")
+            raise AssertionError(f"generation {game_name}: "
+                                 "w+d+l+unfinished != games")
         if not math.isfinite(stats["loss"]):
-            raise AssertionError("generation: the loss is not finite")
+            raise AssertionError(f"generation {game_name}: the loss is not "
+                                 "finite")
         if torch.equal(w0, state.train_net.base):
-            raise AssertionError("generation: training changed no weight")
+            raise AssertionError(f"generation {game_name}: training changed "
+                                 "no weight")
         if sum(stats["duel"]) + stats["duel_unfinished"] != duel.num_games:
-            raise AssertionError("generation: duel tally + unfinished != "
-                                 "games")
+            raise AssertionError(f"generation {game_name}: duel tally + "
+                                 "unfinished != games")
 
         # the checkpoint, reloaded into a fresh state
         t1 = time.perf_counter()
@@ -1052,11 +1061,12 @@ def pipeline_generation(K, dev, card: str) -> None:
         scalars = [(fresh.elo, state.elo), (fresh.generation, 1),
                    (fresh.best_generation, state.best_generation)]
         if bad or any(a != b for a, b in scalars):
-            raise AssertionError(f"checkpoint reload differs: {bad} "
-                                 f"{scalars}")
+            raise AssertionError(f"{game_name} checkpoint reload differs: "
+                                 f"{bad} {scalars}")
     t_sp, t_tr, t_du = stats["selfplay_s"], stats["train_s"], stats["duel_s"]
     n_upd = int(state.opt_state["count"])
-    print(f"pipeline generation: connect4 4x512, selfplay {LANES} games x "
+    print(f"pipeline generation: {game_name} {net_cfg.depth}x"
+          f"{net_cfg.width}, selfplay {LANES} games x "
           f"{ROLLOUTS} rollouts ({stats['samples_written']} samples, "
           f"w/d/l/unfinished {stats['wins']}/{stats['draws']}/"
           f"{stats['losses']}/{stats['unfinished']}, illegal moves "
@@ -2513,8 +2523,12 @@ def smoke(dev, card: str, kind: str) -> int:
         del net_g, tree
 
     # ---- 10. one generation of the training pipeline ----
-    pipeline_generation(K, dev, card)
-    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    for name in GEN_GAMES:
+        pipeline_generation(K, dev, card, name)
+        torch.cuda.empty_cache()
+    print(f"pipeline generations ({', '.join(GEN_GAMES)}): "
+          f"{time.perf_counter() - t_phase:.3f} s  [{card}]")
 
     # ---- 11. the CLI: the main path ----
     cli = cli_run(K, dev, card)

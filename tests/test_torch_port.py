@@ -41,6 +41,7 @@ MODULES = (
     "alphatpu_torch.benchmarks.ablate_rollout",
     "alphatpu_torch.benchmarks.ttt_loss_replay",
     "alphatpu_torch.benchmarks.captured_rounds",
+    "alphatpu_torch.benchmarks.train_record",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more

@@ -1,0 +1,175 @@
+"""The port's training records held to the reference's.
+
+Each ``Data<game>_torch/`` directory holds a run of ``python -m
+alphatpu_torch.cli`` (``stats.jsonl``, ``latest.json``) and its probe
+record (``probe.json``); the reference's ``Data<game>/`` beside it holds
+the same files of its own run.  A port record must use the reference's
+probe protocol, count its generations without a gap, show no illegal
+move and no unfinished game on any line, and tally every probe run's
+games.  Its headline score is held to the bound the reference's own
+score gives (``comparable_from``), or the record names the open fault in
+``ROADMAP.md`` that explains the gap.  Also the record script's own
+checks, at a tiny size on the CPU.
+"""
+import json
+import math
+import os
+import re
+
+import pytest
+
+from alphatpu_torch.benchmarks import train_record
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the reference probe CLI's --temp-moves default, in both packages
+PROBE_TEMP_MOVES = 8
+WILSON_Z = 1.96  # a 95% interval
+
+RECORDS = [("Datatictactoe_torch", "Datatictactoe"),
+           ("Dataconnect4_torch", "Dataconnect4"),
+           ("Datahex7_torch", "Datahex7")]
+
+
+def load(directory, name):
+    path = os.path.join(ROOT, directory, name)
+    with open(path) as f:
+        if name.endswith(".jsonl"):
+            return [json.loads(x) for x in f if x.strip()]
+        return json.load(f)
+
+
+def temp_moves(record) -> int:
+    """The sampled plies of a probe record: its field, else its command's
+    flag, else the probe CLI's default."""
+    if "temp_moves" in record:
+        return record["temp_moves"]
+    m = re.search(r"--temp-moves (\d+)", record.get("command", ""))
+    return int(m.group(1)) if m else PROBE_TEMP_MOVES
+
+
+def score(run) -> float:
+    """A probe run's score: a win counts 1, a draw one half."""
+    return run["net_wins"] + run["draws"] / 2
+
+
+def comparable_from(reference_score, games) -> float:
+    """The least score comparable with the reference's: the Wilson 95%
+    lower bound of its score over ``games`` games, rounded up to a half
+    point (62.5 of 64 gives 58, 64 of 64 gives 60.5)."""
+    p, z2 = reference_score / games, WILSON_Z ** 2
+    low = (p + z2 / (2 * games) - WILSON_Z * math.sqrt(
+        p * (1 - p) / games + z2 / (4 * games ** 2))) / (1 + z2 / games)
+    return math.ceil(2 * games * low) / 2
+
+
+def check_stats(lines, what):
+    gens = [x["generation"] for x in lines]
+    assert gens == list(range(1, len(gens) + 1)), f"{what}: generations"
+    for x in lines:
+        assert x["illegal_moves"] == 0, f"{what}: {x['generation']}"
+        assert x["unfinished"] == 0, f"{what}: {x['generation']}"
+
+
+def check_runs(runs, games, last, what):
+    for run in runs:
+        tally = run["net_wins"] + run["draws"] + run["net_losses"]
+        assert tally == run.get("games", games), f"{what}: {run}"
+        assert 1 <= run["generation"] <= last, f"{what}: {run}"
+
+
+@pytest.mark.parametrize("port_dir,ref_dir", RECORDS,
+                         ids=[r[0] for r in RECORDS])
+def test_port_record_matches_the_reference_protocol(port_dir, ref_dir):
+    port, ref = load(port_dir, "probe.json"), load(ref_dir, "probe.json")
+    assert port["game"] == ref["game"]
+    for key in ("probe", "probe_depth", "games", "rollouts"):
+        assert port[key] == ref[key], key
+    assert temp_moves(port) == temp_moves(ref)
+    assert port["card"]
+
+    lines = load(port_dir, "stats.jsonl")
+    check_stats(lines, port_dir)
+    last = lines[-1]["generation"]
+    assert load(port_dir, "latest.json")["generation"] == last
+    # the headline result is the probe run at the probed generation
+    # under the record's protocol, and every run tallies its games
+    keys = ("generation", "net_wins", "draws", "net_losses")
+    headline = {k: port[k] for k in keys}
+    same = [{k: r[k] for k in keys} for r in port["runs"]
+            if r["generation"] == port["generation"]
+            and temp_moves(r) == temp_moves(port)]
+    assert same == [headline], port_dir
+    check_runs([headline] + port["runs"], port["games"], last, port_dir)
+
+    # the headline score against the bound the reference's score gives
+    assert port["score"] == score(port)
+    assert port["reference_score"] == score(ref)
+    assert port["comparable_from"] == comparable_from(score(ref),
+                                                      port["games"])
+    if port["score"] < port["comparable_from"]:
+        with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+            roadmap = f.read()
+        assert port.get("fault") and port["fault"] in roadmap, (
+            f"{port_dir}: {port['score']} under {port['comparable_from']} "
+            "names no open fault of ROADMAP.md")
+
+    # the reference's own probe on the port's net: its output line
+    cross = port.get("cpu_cross_check")
+    if cross is not None:
+        check_runs([cross], port["games"], last, port_dir)
+        raw = json.loads(cross["raw"])
+        assert raw["game"] == port["game"]
+        assert raw["probe_depth"] == port["probe_depth"]
+        assert {k: raw[k] for k in keys[1:]} == {k: cross[k]
+                                                 for k in keys[1:]}
+    earlier = port.get("earlier_run")
+    if earlier is not None:
+        old = load(port_dir, earlier["stats"])
+        check_stats(old, f"{port_dir}/{earlier['stats']}")
+        check_runs(earlier["runs"], port["games"], old[-1]["generation"],
+                   f"{port_dir} earlier run")
+
+
+@pytest.mark.parametrize("line,fault", [
+    ({"generation": 1, "illegal_moves": 0, "unfinished": 0,
+      "samples_written": 650_000}, None),
+    ({"generation": 2, "illegal_moves": 0, "unfinished": 0,
+      "samples_written": 700_000}, "samples_written"),
+    ({"generation": 1, "illegal_moves": 1, "unfinished": 0,
+      "samples_written": 650_000}, "illegal_moves 1"),
+    ({"generation": 3, "illegal_moves": 0, "unfinished": 2,
+      "samples_written": 1}, "unfinished 2"),
+])
+def test_record_run_stops_on_a_faulty_line(line, fault):
+    reference = {1: {"samples_written": 633_017},
+                 2: {"samples_written": 833_738}}
+    got = train_record.line_fault(line, reference)
+    assert (got is None) if fault is None else (fault in got)
+
+
+def test_record_run_trains_and_probes_on_the_cpu(tmp_path, monkeypatch):
+    # the CLI and the probes are processes of their own: one thread each
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out, ck = tmp_path / "out", tmp_path / "ck"
+    monkeypatch.setattr(train_record, "PROBE_GAMES", 4)
+    monkeypatch.setattr(train_record, "PROBE_ROLLOUT", 8)
+    # flags after -- override the quick-start ones
+    rc = train_record.main([
+        "--game", "tictactoe", "--generations", "2", "--ckpt-dir", str(ck),
+        "--out", str(out), "--probe-at", "1", "2", "--device", "cpu", "--",
+        "--samples", "32", "--rollout", "8", "--batchsize", "32",
+        "--duel-games", "16", "--duel-rollouts", "8",
+        "--buffer-capacity", "4096"])
+    assert rc == 0
+    with open(out / "record_run.json") as f:
+        record = json.load(f)
+    assert record["ok"] and record["training"]["rc"] == 0
+    assert len(record["training"]["seconds_per_generation"]) == 2
+    assert [r["generation"] for r in record["probes"]] == [1, 2]
+    for r in record["probes"]:
+        assert r["net_wins"] + r["draws"] + r["net_losses"] == 4
+    assert sorted(os.listdir(out)) == ["latest.json", "net2.npz",
+                                       "record_run.json", "stats.jsonl",
+                                       "train.log"]
+    with open(out / "stats.jsonl") as f:
+        check_stats([json.loads(x) for x in f], "tiny run")
