@@ -20,12 +20,17 @@ run is stopped.
 Then the probes at ``--probe-at`` run at once, one process each (``python
 -m alphatpu_torch.probe``: the game's probe with the reference's
 protocol, ``PROBE_GAMES`` games of ``PROBE_ROLLOUT`` rollouts and
-``--temp-moves 8``), each timed.  The last checkpoint and ``latest.json``
-are copied into ``<out>`` (checkpoints stay in ``--ckpt-dir``: a
-generation's is tens of MiB).  ``<out>/record_run.json`` holds the card,
-the commands, the seconds of each generation and each probe's W/D/L; the
-same object is the last line on stdout.  Exit 0 only when every step
-held.  Flags after ``--`` go to the CLI as they are, after the
+``--temp-moves`` sampled plies: 8 unless the record's protocol says
+otherwise, as tictactoe's 2), each timed.  The last checkpoint and
+``latest.json`` are copied into ``<out>`` (checkpoints stay in
+``--ckpt-dir``: a generation's is tens of MiB).  ``<out>/record_run.json``
+holds the card, the commands, the probes' ``temp_moves``, the engine
+(``training.engine``: the switches ``ENGINE_SWITCHES`` as the
+environment sets them and the level ``mcts.search.engine_level``
+resolves from them; the CLI and the probes inherit the environment, so
+one level holds for all), the seconds of each generation and each
+probe's W/D/L; the same object is the last line on stdout.  Exit 0 only
+when every step held.  Flags after ``--`` go to the CLI as they are, after the
 quick-start flags, so they override them (a smaller run on the CPU).
 """
 from __future__ import annotations
@@ -47,6 +52,8 @@ QUICK_START = ["--samples", "8192", "--continuous", "--rollout", "64",
 # makes a record that cannot be compared
 PROBE_GAMES = 64
 PROBE_ROLLOUT = 64
+# the environment switches that pick the search engine
+ENGINE_SWITCHES = ("ALPHATPU_PACK", "ALPHATPU_NO_PACK", "ALPHATPU_BF16_STATS")
 
 
 def card_line() -> str:
@@ -72,7 +79,20 @@ def probe_command(args, generation: int) -> list:
     return [sys.executable, "-m", "alphatpu_torch.probe", "--game", args.game,
             "--ckpt", os.path.join(args.ckpt_dir, f"net{generation}.npz"),
             "--games", str(PROBE_GAMES), "--rollout", str(PROBE_ROLLOUT),
-            "--device", args.device]
+            "--temp-moves", str(args.temp_moves), "--device", args.device]
+
+
+def engine(cli_cmd: list) -> dict:
+    """The engine switches as the environment sets them, and the level
+    ``run_mcts`` resolves from them at the CLI's ``--rollout`` (the last
+    one given wins, as argparse reads it)."""
+    from alphatpu_torch.mcts.search import engine_level
+    from alphatpu_torch.mcts.tree import stat_dtype_for
+
+    rollout = int([v for k, v in zip(cli_cmd, cli_cmd[1:])
+                   if k == "--rollout"][-1])
+    return {**{k: os.environ.get(k) for k in ENGINE_SWITCHES},
+            "level": engine_level(None, True, stat_dtype_for(rollout))}
 
 
 def line_fault(line: dict, reference: dict | None) -> str | None:
@@ -132,7 +152,7 @@ def train(args, stats_path: str, reference: dict | None) -> dict:
                 break
             time.sleep(0.25)
     return {"command": "python " + " ".join(cmd[1:]),
-            "rc": proc.returncode, "fault": fault,
+            "engine": engine(cmd), "rc": proc.returncode, "fault": fault,
             "seconds_per_generation": seconds,
             "seconds": round(time.time() - t0, 3)}
 
@@ -148,7 +168,8 @@ def probe(args) -> list:
     runs = []
     for g, cmd, t0, proc in procs:
         out, err = proc.communicate()
-        run = {"generation": g, "rc": proc.returncode,
+        run = {"generation": g, "temp_moves": args.temp_moves,
+               "rc": proc.returncode,
                "seconds": round(time.time() - t0, 3),
                "command": "python " + " ".join(cmd[1:])}
         if proc.returncode == 0:
@@ -176,6 +197,10 @@ def main(argv=None) -> int:
                     help="the reference's stats.jsonl for the game: the "
                          f"first {GATE_GENERATIONS} generations' "
                          "samples_written must each be within 10%% of its")
+    ap.add_argument("--temp-moves", type=int, default=8,
+                    help="the probes' sampled plies (the probe CLI's "
+                         "--temp-moves; the reference probed tictactoe "
+                         "with 2); the CLI's own --temp-moves goes after --")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("cli_extra", nargs="*",
                     help="more CLI flags, after --")
@@ -183,7 +208,8 @@ def main(argv=None) -> int:
 
     os.makedirs(args.out, exist_ok=True)
     stats_path = os.path.join(args.out, "stats.jsonl")
-    record = {"game": args.game, "card": card_line()}
+    record = {"game": args.game, "card": card_line(),
+              "temp_moves": args.temp_moves}
     import torch
 
     record["torch"] = f"{torch.__version__}, CUDA {torch.version.cuda}"

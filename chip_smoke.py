@@ -176,6 +176,7 @@ GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
 GEN_GAMES = ("connect4", "hex7")  # phase 10's generations, in order
 CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
 CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS = 16, 8
+L2_ROLLOUTS = 64  # the CLI's level-2 generation: the records' rollouts
 # phase 12: probe games and the probe's depth; the interactive engine's
 # moves and rollouts a move (the CLI's --readout default)
 PROBE_GAMES, PROBE_DEPTH = 64, 4
@@ -1170,6 +1171,51 @@ def cli_run(K, dev, card: str) -> dict:
           f"{REPLAY_TEMP_MOVES}, seed {SEED}: net W/D/L "
           f"{'/'.join(map(str, replay['score']))}; verdicts {counts}; "
           f"{replay_wall:.3f} s  [{card}]")
+    return launches
+
+
+def cli_level2(K, dev, card: str) -> dict:
+    """Phase 11, level 2: one tictactoe generation of
+    ``alphatpu_torch.cli.main`` under ``ALPHATPU_PACK=2`` in a fresh
+    checkpoint directory, the caller's environment restored after it:
+    ``select_apply_packed1`` L2_ROLLOUTS times a move in selfplay and in
+    both duel halves, no ``select_apply_packed``, one ``backup`` a
+    search.  Returns its launches."""
+    import tempfile
+
+    from alphatpu_torch.cli import main as cli_main
+
+    T, R = 9, L2_ROLLOUTS
+    with switches({"ALPHATPU_PACK": "2"}), \
+            tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        stats_file = os.path.join(tmp, "stats.jsonl")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(["--game", "tictactoe", "--samples", str(CLI_GAMES),
+                       "--rollout", str(R), "--batchsize", "256",
+                       "--duel-games", str(CLI_DUEL_GAMES),
+                       "--duel-rollouts", str(R), "--generation", "1",
+                       "--ckpt-dir", ck, "--stats-file", stats_file,
+                       "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        launches = expect_launches(
+            K, "the CLI's level-2 generation (ALPHATPU_PACK=2)",
+            {"select_apply_packed1": T * R + 2 * T * R, "backup": 3 * T})
+        files = sorted(os.listdir(ck))
+        with open(stats_file) as f:
+            lines = [json.loads(x) for x in f]
+    if rc != 0 or files != ["latest.json", "net1.npz"] or len(lines) != 1:
+        raise AssertionError(f"CLI level 2: exit code {rc}, files {files}, "
+                             f"{len(lines)} stats lines")
+    x = lines[0]
+    if x["illegal_moves"] != 0 or (x["wins"] + x["draws"] + x["losses"]
+                                   + x["unfinished"]) != CLI_GAMES:
+        raise AssertionError(f"CLI level 2: {x}")
+    print(f"CLI level 2: tictactoe 6x128, 1 generation under ALPHATPU_PACK=2, "
+          f"{R} rollouts a move in selfplay and the duel, {wall:.3f} s; "
+          f"illegal_moves {x['illegal_moves']}, unfinished {x['unfinished']}; "
+          f"files {files}  [{card}]")
     return launches
 
 
@@ -2534,6 +2580,8 @@ def smoke(dev, card: str, kind: str) -> int:
     cli = cli_run(K, dev, card)
     launches["select_apply_packed"] = cli["select_apply_packed"]
     launches["backup"] = cli["backup"]
+    launches["select_apply_packed1"] = cli_level2(
+        K, dev, card)["select_apply_packed1"]
 
     # ---- 12. evaluation and play ----
     for k, e in evaluation_and_play(K, dev, card).items():

@@ -27,7 +27,11 @@ WILSON_Z = 1.96  # a 95% interval
 
 RECORDS = [("Datatictactoe_torch", "Datatictactoe"),
            ("Dataconnect4_torch", "Dataconnect4"),
-           ("Datahex7_torch", "Datahex7")]
+           ("Datahex7_torch", "Datahex7"),
+           ("Datatictactoe_l2_torch", "Datatictactoe_l2"),
+           ("Datagobang9_torch", "Datagobang9")]
+# a gate: the first GATE_GENERATIONS generations at full width, no probe
+GATES = [("Datareversi8x8_torch", "Datareversi8x8")]
 
 
 def load(directory, name):
@@ -45,6 +49,13 @@ def temp_moves(record) -> int:
         return record["temp_moves"]
     m = re.search(r"--temp-moves (\d+)", record.get("command", ""))
     return int(m.group(1)) if m else PROBE_TEMP_MOVES
+
+
+def reference_level(ref) -> int:
+    """The engine level of the reference's run: its probe command's
+    ``ALPHATPU_PACK``, else the default 1."""
+    m = re.search(r"ALPHATPU_PACK=(\d)", ref.get("command", ""))
+    return int(m.group(1)) if m else 1
 
 
 def score(run) -> float:
@@ -130,6 +141,42 @@ def test_port_record_matches_the_reference_protocol(port_dir, ref_dir):
                    f"{port_dir} earlier run")
 
 
+@pytest.mark.parametrize("port_dir,ref_dir", RECORDS,
+                         ids=[r[0] for r in RECORDS])
+def test_port_record_trained_at_the_reference_level(port_dir, ref_dir):
+    # the engine the port trained and probed with is the reference's
+    port, ref = load(port_dir, "probe.json"), load(ref_dir, "probe.json")
+    assert port["training"]["engine"]["level"] == reference_level(ref)
+
+
+@pytest.mark.parametrize("port_dir,ref_dir", GATES,
+                         ids=[g[0] for g in GATES])
+def test_port_gate_matches_the_reference(port_dir, ref_dir):
+    gate = load(port_dir, "gate.json")
+    lines = load(port_dir, "stats.jsonl")
+    ref = {x["generation"]: x for x in load(ref_dir, "stats.jsonl")}
+    assert gate["game"] == load(ref_dir, "probe.json")["game"]
+    assert gate["card"] and gate["training"]["engine"]["level"] == 1
+    check_stats(lines, port_dir)
+    assert len(lines) == len(gate["generations"]) == \
+        train_record.GATE_GENERATIONS
+    stages = ("selfplay_s", "train_s", "duel_s")
+    for line, g in zip(lines, gate["generations"]):
+        n = line["generation"]
+        assert g["generation"] == n
+        assert g["samples_written"] == line["samples_written"]
+        want = ref[n]["samples_written"]
+        assert g["reference_samples_written"] == want
+        assert abs(line["samples_written"] / want - 1) <= \
+            train_record.GATE_TOLERANCE, (n, line["samples_written"], want)
+        assert train_record.line_fault(line, {n: ref[n]}) is None
+        # the seconds by stage: the stats line's, and the wall around them
+        assert {k: g[k] for k in stages} == {k: line[k] for k in stages}
+        assert g["seconds"] >= sum(line[k] for k in stages)
+    assert gate["training"]["seconds_per_generation"] == [
+        g["seconds"] for g in gate["generations"]]
+
+
 @pytest.mark.parametrize("line,fault", [
     ({"generation": 1, "illegal_moves": 0, "unfinished": 0,
       "samples_written": 650_000}, None),
@@ -173,3 +220,33 @@ def test_record_run_trains_and_probes_on_the_cpu(tmp_path, monkeypatch):
                                        "train.log"]
     with open(out / "stats.jsonl") as f:
         check_stats([json.loads(x) for x in f], "tiny run")
+
+
+def test_record_run_writes_the_probe_protocol_and_engine(tmp_path,
+                                                         monkeypatch):
+    # --temp-moves reaches every probe's command; the engine the
+    # environment picks (level 2 here) is written beside it
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("ALPHATPU_PACK", "2")
+    monkeypatch.delenv("ALPHATPU_NO_PACK", raising=False)
+    monkeypatch.delenv("ALPHATPU_BF16_STATS", raising=False)
+    monkeypatch.setattr(train_record, "PROBE_GAMES", 4)
+    monkeypatch.setattr(train_record, "PROBE_ROLLOUT", 8)
+    out, ck = tmp_path / "out", tmp_path / "ck"
+    rc = train_record.main([
+        "--game", "tictactoe", "--generations", "1", "--ckpt-dir", str(ck),
+        "--out", str(out), "--probe-at", "1", "--temp-moves", "2",
+        "--device", "cpu", "--", "--samples", "16", "--rollout", "8",
+        "--batchsize", "16", "--duel-games", "8", "--duel-rollouts", "8",
+        "--buffer-capacity", "1024"])
+    assert rc == 0
+    with open(out / "record_run.json") as f:
+        record = json.load(f)
+    assert record["temp_moves"] == 2
+    assert record["training"]["engine"] == {
+        "ALPHATPU_PACK": "2", "ALPHATPU_NO_PACK": None,
+        "ALPHATPU_BF16_STATS": None, "level": 2}
+    for r in record["probes"]:
+        assert r["temp_moves"] == 2 and temp_moves(r) == 2
+        assert "--temp-moves 2 " in r["command"]
+        assert r["net_wins"] + r["draws"] + r["net_losses"] == 4
