@@ -19,19 +19,30 @@ run is stopped.
 
 Then the probes at ``--probe-at`` run at once, one process each (``python
 -m alphatpu_torch.probe``: the game's probe with the reference's
-protocol, ``PROBE_GAMES`` games of ``PROBE_ROLLOUT`` rollouts and
-``--temp-moves`` sampled plies: 8 unless the record's protocol says
-otherwise, as tictactoe's 2), each timed.  The last checkpoint and
-``latest.json`` are copied into ``<out>`` (checkpoints stay in
-``--ckpt-dir``: a generation's is tens of MiB).  ``<out>/record_run.json``
-holds the card, the commands, the probes' ``temp_moves``, the engine
-(``training.engine``: the switches ``ENGINE_SWITCHES`` as the
-environment sets them and the level ``mcts.search.engine_level``
-resolves from them; the CLI and the probes inherit the environment, so
-one level holds for all), the seconds of each generation and each
-probe's W/D/L; the same object is the last line on stdout.  Exit 0 only
-when every step held.  Flags after ``--`` go to the CLI as they are, after the
-quick-start flags, so they override them (a smaller run on the CPU).
+protocol - the games of the reference's ``probe.json`` beside
+``--reference``'s ``stats.jsonl``, ``PROBE_GAMES`` without one, of
+``PROBE_ROLLOUT`` rollouts and ``--temp-moves`` sampled plies: 8 unless
+the record's protocol says otherwise, as tictactoe's 2), each timed.
+The checkpoints of the probed generations, the last one and
+``latest.json`` are copied into ``<out>`` (the others stay in
+``--ckpt-dir``: a generation's is tens of MiB).
+
+A record too long for one call splits in two: ``--train-only`` trains
+and keeps the nets of ``--probe-at`` in ``<out>`` without probing them;
+a later ``--probe-only`` call, with ``--ckpt-dir`` set to that ``<out>``,
+probes them and writes the earlier call's ``training`` block beside its
+``probes`` (the nets travel from the first call's ``<out>`` to the
+second call's copy by hand).
+
+``<out>/record_run.json`` holds the card, the commands, the probes'
+games and ``temp_moves``, the engine (``training.engine``: the switches
+``ENGINE_SWITCHES`` as the environment sets them and the level
+``mcts.search.engine_level`` resolves from them; the CLI and the probes
+inherit the environment, so one level holds for all), the seconds of
+each generation and each probe's W/D/L; the same object is the last
+line on stdout.  Exit 0 only when every step held.  Flags after ``--``
+go to the CLI as they are, after the quick-start flags, so they
+override them (a smaller run on the CPU; gobang13's 2048 lanes).
 """
 from __future__ import annotations
 
@@ -78,8 +89,19 @@ def cli_command(args) -> list:
 def probe_command(args, generation: int) -> list:
     return [sys.executable, "-m", "alphatpu_torch.probe", "--game", args.game,
             "--ckpt", os.path.join(args.ckpt_dir, f"net{generation}.npz"),
-            "--games", str(PROBE_GAMES), "--rollout", str(PROBE_ROLLOUT),
-            "--temp-moves", str(args.temp_moves), "--device", args.device]
+            "--games", str(args.probe_games), "--rollout",
+            str(PROBE_ROLLOUT), "--temp-moves", str(args.temp_moves),
+            "--device", args.device]
+
+
+def probe_games(reference: str | None) -> int:
+    """The games of the reference's probe (``probe.json`` in the directory
+    of its ``stats.jsonl``: gobang13 was probed with 32), else
+    ``PROBE_GAMES``."""
+    if reference is None:
+        return PROBE_GAMES
+    with open(os.path.join(os.path.dirname(reference), "probe.json")) as f:
+        return json.load(f)["games"]
 
 
 def engine(cli_cmd: list) -> dict:
@@ -182,6 +204,16 @@ def probe(args) -> list:
     return runs
 
 
+def keep_nets(args) -> None:
+    """Copy the probed generations' checkpoints, the last one and
+    ``latest.json`` from ``--ckpt-dir`` into ``--out``."""
+    with open(os.path.join(args.ckpt_dir, "latest.json")) as f:
+        last = json.load(f)["index"]
+    for g in sorted({*args.probe_at, last}):
+        shutil.copy(os.path.join(args.ckpt_dir, f"net{g}.npz"), args.out)
+    shutil.copy(os.path.join(args.ckpt_dir, "latest.json"), args.out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="alphatpu_torch.benchmarks."
                                  "train_record", description=__doc__)
@@ -189,10 +221,11 @@ def main(argv=None) -> int:
     ap.add_argument("--generations", type=int, default=60)
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--out", required=True,
-                    help="stats.jsonl, train.log, the last checkpoint and "
-                         "record_run.json go here")
+                    help="stats.jsonl, train.log, the probed and the "
+                         "last checkpoints and record_run.json go here")
     ap.add_argument("--probe-at", type=int, nargs="*", default=[],
-                   help="generations to probe once training ends")
+                   help="generations to probe once training ends; their "
+                         "nets are kept in --out")
     ap.add_argument("--reference", default=None,
                     help="the reference's stats.jsonl for the game: the "
                          f"first {GATE_GENERATIONS} generations' "
@@ -202,27 +235,46 @@ def main(argv=None) -> int:
                          "--temp-moves; the reference probed tictactoe "
                          "with 2); the CLI's own --temp-moves goes after --")
     ap.add_argument("--device", default="cuda")
+    split = ap.add_mutually_exclusive_group()
+    split.add_argument("--train-only", action="store_true",
+                       help="train and keep the nets of --probe-at in "
+                            "--out; no probe")
+    split.add_argument("--probe-only", action="store_true",
+                       help="no training: probe the nets of --probe-at in "
+                            "--ckpt-dir, an earlier --train-only call's "
+                            "--out, beside its training block")
     ap.add_argument("cli_extra", nargs="*",
                     help="more CLI flags, after --")
     args = ap.parse_args(argv)
+    args.probe_games = probe_games(args.reference)
 
     os.makedirs(args.out, exist_ok=True)
-    stats_path = os.path.join(args.out, "stats.jsonl")
     record = {"game": args.game, "card": card_line(),
-              "temp_moves": args.temp_moves}
+              "temp_moves": args.temp_moves,
+              "probe_games": args.probe_games}
     import torch
 
     record["torch"] = f"{torch.__version__}, CUDA {torch.version.cuda}"
-    record["training"] = train(args, stats_path,
-                               read_reference(args.reference))
-    ok = record["training"]["rc"] == 0 and not record["training"]["fault"]
-    if ok:
+    if args.probe_only:
+        earlier = os.path.join(args.ckpt_dir, "record_run.json")
+        with open(earlier) as f:
+            trained = json.load(f)
+        if not trained["ok"] or trained["game"] != args.game:
+            raise SystemExit(f"{earlier}: no good {args.game} training")
+        record["training"] = trained["training"]
+        record["training_record"] = earlier
+        ok = True
+    else:
+        stats_path = os.path.join(args.out, "stats.jsonl")
+        record["training"] = train(args, stats_path,
+                                   read_reference(args.reference))
+        ok = (record["training"]["rc"] == 0
+              and not record["training"]["fault"])
+        if ok:
+            keep_nets(args)
+    if ok and not args.train_only:
         record["probes"] = probe(args)
         ok = all(r["rc"] == 0 for r in record["probes"])
-        with open(os.path.join(args.ckpt_dir, "latest.json")) as f:
-            last = json.load(f)["index"]
-        for name in (f"net{last}.npz", "latest.json"):
-            shutil.copy(os.path.join(args.ckpt_dir, name), args.out)
     record["ok"] = ok
     with open(os.path.join(args.out, "record_run.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -46,18 +46,20 @@ Phases, each fatal on failure:
 9. the shapes the CLI and the families give the kernels (PATH_SHAPES):
    the CLI's tictactoe selfplay (16 rollouts, 1024 lanes) and duel halves
    (8 rollouts, 64 lanes, no root noise), reversi6x6 (the pass column)
-   and hex7 at 512 lanes, gobang9 and reversi8x8 at 200 lanes (partial
-   blocks and warps); each the level-1 search on the card against
-   the CPU path, and all five kernels against their plain versions on a
-   tree grown there,
+   and hex7 at 512 lanes, gobang9, reversi8x8, gobang8 and gobang13 (the
+   training path's <32,6> walk) at 200 lanes (partial blocks and warps);
+   each the level-1 search on the card against the CPU path (which
+   reads the card net's outputs), and all five kernels against their
+   plain versions on a tree grown there,
 10. one generation of the training pipeline at full width
    (``pipeline.run_generation``) for each of GEN_GAMES - connect4 (4x512)
    and hex7 (8x512, 49 actions: the 32-lane walk over two slots, and the
-   hex rules) - generation-mode selfplay of 8192 games at 64 rollouts,
-   one epoch at batch 8192, a 1024-game duel at 32 rollouts, Elo, and a
-   checkpoint with the buffer, reloaded and compared with the live state
-   bit for bit; launches and graph replays as owed, seconds per stage and
-   the phase's wall,
+   hex rules) at 8192 games, gobang13 (6x512, 169 actions: the walk over
+   six slots) at the reference's 2048 - generation-mode selfplay at 64
+   rollouts, one epoch at batch 8192, a 1024-game duel at 32 rollouts,
+   Elo, and a checkpoint with the buffer, reloaded and compared with the
+   live state bit for bit; launches and graph replays as owed, seconds
+   per stage and the phase's wall,
 11. the CLI end to end, in process (``alphatpu_torch.cli.main``): two
    tictactoe generations at 1024 games, then a third resumed from the
    checkpoint; then the loss replay
@@ -173,7 +175,9 @@ DEVICE_SHAPE = (7, 8000, 512)
 BIG_TREE, BIG_TREE_G = 7300, 128
 SMALL_G = 512  # lanes of the card-vs-CPU searches
 GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
-GEN_GAMES = ("connect4", "hex7")  # phase 10's generations, in order
+# phase 10's generations in order, (game, games): gobang13 at the
+# reference's 2048 lanes (A=169: the 32-lane walk over six slots)
+GEN_GAMES = (("connect4", LANES), ("hex7", LANES), ("gobang13", 2048))
 CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
 CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS = 16, 8
 L2_ROLLOUTS = 64  # the CLI's level-2 generation: the records' rollouts
@@ -227,6 +231,8 @@ PATH_SHAPES = (
     ("hex7", ROLLOUTS, SMALL_G, CPUCT, True),
     ("gobang9", ROLLOUTS, 200, CPUCT, True),
     ("reversi8x8", ROLLOUTS, 200, CPUCT, True),
+    ("gobang8", ROLLOUTS, 200, CPUCT, True),
+    ("gobang13", ROLLOUTS, 200, CPUCT, True),
 )
 # game -> (lanes, rounds) of its continuous selfplay at full width
 FAMILIES = {
@@ -934,10 +940,55 @@ def family_runs(K, dev, card: str) -> dict:
     return rates
 
 
-def pipeline_generation(K, dev, card: str, game_name: str) -> None:
+def card_outputs(net, dev):
+    """``net``, held on the card, as a net of CPU tensors: each call
+    evaluates on the card and returns the logits and values on the CPU."""
+    def evaluate(x):
+        logits, value = net(x.to(dev))
+        return logits.cpu(), value.cpu()
+    return evaluate
+
+
+def path_shapes(K, dev, gen, shapes) -> dict:
+    """Phase 9: for each (game, rollouts, lanes, cpuct, training) of
+    ``shapes``, the level-1 search on the card against the CPU path, then
+    every kernel against its plain version on a tree grown there.  The
+    CPU path reads the card net's outputs: a value one float32 step
+    apart moves a lane across the packed stats' value grid (on the CPU
+    alone, gobang8's net in float64 rounded to float32 diverges 3 of 200
+    lanes from the same net in float32), so the comparison holds the
+    search, not two devices' matmul rounding.  Returns each kernel's
+    largest error."""
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import MLP, config_for_game
+
+    errs = {k: 0.0 for k in KERNELS}
+    for name, V, G, cpuct, training in shapes:
+        g = make_game(name)
+        net_g = MLP.from_seed(config_for_game(g), SEED, device=dev)
+        search_vs_cpu(g, net_g, card_outputs(net_g, dev), dev, V, G, 1,
+                      cpuct=cpuct, training=training)
+        tree = init_tree(g, g.initial(G, dev), V)
+        run_mcts(g, net_g, tree, rollouts=V - 2, cpuct=cpuct,
+                 training=training, generator=gen)
+        D = min(g.max_game_length, V)
+        geo = K.walk_geometry(g.max_actions, G, V)
+        shape = parity(K, tree, D, gen, cpuct, K.value_scale(V),
+                       f"{name} A={g.max_actions} V={V} G={G} D={D} (walk "
+                       f"<{geo.lanes},{geo.slots}>)", False)
+        for k, r in shape.items():
+            errs[k] = max(errs[k], r["err"])
+        del net_g, tree
+    return errs
+
+
+def pipeline_generation(K, dev, card: str, game_name: str,
+                        lanes: int) -> None:
     """Phase 10: one generation of ``pipeline.run_generation`` at full
     width on ``game_name`` with its reference net - selfplay_generation
-    on LANES games, one epoch, a 1024-game duel, Elo and a checkpoint
+    on ``lanes`` games, one epoch, a 1024-game duel, Elo and a checkpoint
     with the buffer - with each stage's launches checked, then the
     checkpoint reloaded into a fresh state and compared with the live one
     bit for bit."""
@@ -972,10 +1023,10 @@ def pipeline_generation(K, dev, card: str, game_name: str) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = PipelineConfig(
-            selfplay=SelfplayConfig(num_games=LANES, rollouts=ROLLOUTS,
+            selfplay=SelfplayConfig(num_games=lanes, rollouts=ROLLOUTS,
                                     cpuct=CPUCT),
             train=TrainConfig(batch_size=8192), duel=duel,
-            buffer_capacity=LANES * T, generations=1, seed=SEED,
+            buffer_capacity=lanes * T, generations=1, seed=SEED,
             ckpt_dir=tmp, save_buffer=True, device=str(dev), log=log)
         state = init_pipeline(game, cfg)
         w0 = state.train_net.base.detach().clone()
@@ -1024,7 +1075,7 @@ def pipeline_generation(K, dev, card: str, game_name: str) -> None:
         if stats["illegal_moves"] != 0:
             raise AssertionError(f"generation {game_name}: illegal moves")
         if (stats["wins"] + stats["draws"] + stats["losses"]
-                + stats["unfinished"]) != LANES:
+                + stats["unfinished"]) != lanes:
             raise AssertionError(f"generation {game_name}: "
                                  "w+d+l+unfinished != games")
         if not math.isfinite(stats["loss"]):
@@ -1066,8 +1117,10 @@ def pipeline_generation(K, dev, card: str, game_name: str) -> None:
                                  f"{bad} {scalars}")
     t_sp, t_tr, t_du = stats["selfplay_s"], stats["train_s"], stats["duel_s"]
     n_upd = int(state.opt_state["count"])
+    geo = K.walk_geometry(game.max_actions, lanes, ROLLOUTS)
     print(f"pipeline generation: {game_name} {net_cfg.depth}x"
-          f"{net_cfg.width}, selfplay {LANES} games x "
+          f"{net_cfg.width}, A={game.max_actions} (walk <{geo.lanes},"
+          f"{geo.slots}>), selfplay {lanes} games x "
           f"{ROLLOUTS} rollouts ({stats['samples_written']} samples, "
           f"w/d/l/unfinished {stats['wins']}/{stats['draws']}/"
           f"{stats['losses']}/{stats['unfinished']}, illegal moves "
@@ -2551,29 +2604,15 @@ def smoke(dev, card: str, kind: str) -> int:
     family_runs(K, dev, card)
 
     # ---- 9. the path's shapes: card against CPU, kernels against plain ----
-    for name, V, G, cpuct, training in PATH_SHAPES:
-        g = make_game(name)
-        cfg = config_for_game(g)
-        net_g = MLP.from_seed(cfg, SEED, device=dev)
-        search_vs_cpu(g, net_g,
-                      MLP.from_seed(cfg, SEED, device=torch.device("cpu")),
-                      dev, V, G, 1, cpuct=cpuct, training=training)
-        tree = init_tree(g, g.initial(G, dev), V)
-        run_mcts(g, net_g, tree, rollouts=V - 2, cpuct=cpuct,
-                 training=training, generator=gen)
-        D = min(g.max_game_length, V)
-        shape = parity(K, tree, D, gen, cpuct, K.value_scale(V),
-                       f"{name} A={g.max_actions} V={V} G={G} D={D}", False)
-        for k, r in shape.items():
-            errs[k] = max(errs[k], r["err"])
-        del net_g, tree
+    for k, e in path_shapes(K, dev, gen, PATH_SHAPES).items():
+        errs[k] = max(errs[k], e)
 
     # ---- 10. one generation of the training pipeline ----
     t_phase = time.perf_counter()
-    for name in GEN_GAMES:
-        pipeline_generation(K, dev, card, name)
+    for name, lanes in GEN_GAMES:
+        pipeline_generation(K, dev, card, name, lanes)
         torch.cuda.empty_cache()
-    print(f"pipeline generations ({', '.join(GEN_GAMES)}): "
+    print(f"pipeline generations ({', '.join(g for g, _ in GEN_GAMES)}): "
           f"{time.perf_counter() - t_phase:.3f} s  [{card}]")
 
     # ---- 11. the CLI: the main path ----

@@ -11,6 +11,7 @@ score gives (``comparable_from``), or the record names the open fault in
 ``ROADMAP.md`` that explains the gap.  Also the record script's own
 checks, at a tiny size on the CPU.
 """
+import argparse
 import json
 import math
 import os
@@ -29,9 +30,12 @@ RECORDS = [("Datatictactoe_torch", "Datatictactoe"),
            ("Dataconnect4_torch", "Dataconnect4"),
            ("Datahex7_torch", "Datahex7"),
            ("Datatictactoe_l2_torch", "Datatictactoe_l2"),
-           ("Datagobang9_torch", "Datagobang9")]
+           ("Datagobang9_torch", "Datagobang9"),
+           ("Datagobang8_torch", "Datagobang8")]
 # a gate: the first GATE_GENERATIONS generations at full width, no probe
-GATES = [("Datareversi8x8_torch", "Datareversi8x8")]
+GATES = [("Datareversi8x8_torch", "Datareversi8x8"),
+         ("Datagobang13_torch", "Datagobang13"),
+         ("Datareversi6x6_torch", "Datareversi6x6")]
 
 
 def load(directory, name):
@@ -215,7 +219,8 @@ def test_record_run_trains_and_probes_on_the_cpu(tmp_path, monkeypatch):
     assert [r["generation"] for r in record["probes"]] == [1, 2]
     for r in record["probes"]:
         assert r["net_wins"] + r["draws"] + r["net_losses"] == 4
-    assert sorted(os.listdir(out)) == ["latest.json", "net2.npz",
+    # the probed generations' nets are kept, the last among them
+    assert sorted(os.listdir(out)) == ["latest.json", "net1.npz", "net2.npz",
                                        "record_run.json", "stats.jsonl",
                                        "train.log"]
     with open(out / "stats.jsonl") as f:
@@ -250,3 +255,72 @@ def test_record_run_writes_the_probe_protocol_and_engine(tmp_path,
         assert r["temp_moves"] == 2 and temp_moves(r) == 2
         assert "--temp-moves 2 " in r["command"]
         assert r["net_wins"] + r["draws"] + r["net_losses"] == 4
+
+
+@pytest.mark.parametrize("reference,games", [
+    ("Datagobang13/stats.jsonl", 32), ("Dataconnect4/stats.jsonl", 64),
+    (None, train_record.PROBE_GAMES)])
+def test_record_run_takes_the_reference_probe_games(reference, games,
+                                                    monkeypatch):
+    # the probe's games are the reference's probe.json's, beside the
+    # stats.jsonl given as --reference, and land in every probe command
+    monkeypatch.chdir(ROOT)
+    assert train_record.probe_games(reference) == games
+    if reference is not None:
+        assert games == load(os.path.dirname(reference),
+                             "probe.json")["games"]
+    args = argparse.Namespace(
+        game="gobang13", ckpt_dir="ck", probe_games=games, temp_moves=8,
+        device="cpu")
+    cmd = train_record.probe_command(args, 56)
+    assert cmd[cmd.index("--games") + 1] == str(games)
+    assert cmd[cmd.index("--rollout") + 1] == str(train_record.PROBE_ROLLOUT)
+
+
+def test_record_run_probes_an_earlier_calls_nets(tmp_path, monkeypatch):
+    # a --train-only call keeps the probed generations' nets and probes
+    # none; a --probe-only call on its --out probes them and writes the
+    # earlier training block beside probes of the one-call shape
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(train_record, "PROBE_GAMES", 4)
+    monkeypatch.setattr(train_record, "PROBE_ROLLOUT", 8)
+    first, second = tmp_path / "first", tmp_path / "second"
+    rc = train_record.main([
+        "--game", "tictactoe", "--generations", "2",
+        "--ckpt-dir", str(tmp_path / "ck"), "--out", str(first),
+        "--probe-at", "1", "2", "--train-only", "--device", "cpu", "--",
+        "--samples", "16", "--rollout", "8", "--batchsize", "16",
+        "--duel-games", "8", "--duel-rollouts", "8",
+        "--buffer-capacity", "1024"])
+    assert rc == 0
+    with open(first / "record_run.json") as f:
+        trained = json.load(f)
+    assert trained["ok"] and "probes" not in trained
+    assert trained["probe_games"] == 4
+    assert {"net1.npz", "net2.npz", "latest.json"} <= set(os.listdir(first))
+
+    rc = train_record.main([
+        "--game", "tictactoe", "--ckpt-dir", str(first), "--out",
+        str(second), "--probe-at", "1", "2", "--probe-only",
+        "--device", "cpu"])
+    assert rc == 0
+    with open(second / "record_run.json") as f:
+        record = json.load(f)
+    assert record["ok"] and record["training"] == trained["training"]
+    assert record["probe_games"] == 4
+    assert [r["generation"] for r in record["probes"]] == [1, 2]
+    for r in record["probes"]:
+        assert set(r) == {"generation", "temp_moves", "rc", "seconds",
+                          "command", "net_wins", "draws", "net_losses"}
+        assert r["rc"] == 0
+        assert r["net_wins"] + r["draws"] + r["net_losses"] == 4
+        assert os.path.join(str(first), f"net{r['generation']}.npz") in \
+            r["command"]
+    # nothing trained and no net copied in the probe-only call
+    assert sorted(os.listdir(second)) == ["record_run.json"]
+    # a probe-only call refuses an earlier call of another game
+    with pytest.raises(SystemExit):
+        train_record.main([
+            "--game", "connect4", "--ckpt-dir", str(first), "--out",
+            str(tmp_path / "third"), "--probe-at", "1", "--probe-only",
+            "--device", "cpu"])
