@@ -31,7 +31,8 @@ RECORDS = [("Datatictactoe_torch", "Datatictactoe"),
            ("Datahex7_torch", "Datahex7"),
            ("Datatictactoe_l2_torch", "Datatictactoe_l2"),
            ("Datagobang9_torch", "Datagobang9"),
-           ("Datagobang8_torch", "Datagobang8")]
+           ("Datagobang8_torch", "Datagobang8"),
+           ("Datareversi6x6_torch", "Datareversi6x6")]
 # a gate: the first GATE_GENERATIONS generations at full width, no probe
 GATES = [("Datareversi8x8_torch", "Datareversi8x8"),
          ("Datagobang13_torch", "Datagobang13"),
@@ -157,7 +158,8 @@ def test_port_record_trained_at_the_reference_level(port_dir, ref_dir):
                          ids=[g[0] for g in GATES])
 def test_port_gate_matches_the_reference(port_dir, ref_dir):
     gate = load(port_dir, "gate.json")
-    lines = load(port_dir, "stats.jsonl")
+    # a gate kept beside a full record names its own stats file
+    lines = load(port_dir, gate.get("stats", "stats.jsonl"))
     ref = {x["generation"]: x for x in load(ref_dir, "stats.jsonl")}
     assert gate["game"] == load(ref_dir, "probe.json")["game"]
     assert gate["card"] and gate["training"]["engine"]["level"] == 1
