@@ -7,7 +7,8 @@ build takes seconds) and loaded with ``ctypes``: one ``nvcc -c`` per
 ``alphatpu_torch/_build/`` under a name that hashes every source - the
 ``.cu`` files and the ``.cuh`` headers they include - and the flags, so an
 edited source or header is rebuilt on its next use.  Nothing is built at
-import: the first kernel launch calls :func:`load_library`.
+import: the first kernel launch calls :func:`load_library`, through
+:func:`launch`, which every kernel wrapper calls.
 
 Flags: Hopper only (``sm_90a``), ``-fmad=false`` so that no multiply-add is
 contracted, and nvcc's default IEEE division and square root (no
@@ -24,6 +25,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -55,6 +58,15 @@ _SIGNATURES = {
     "launch_select": [_P] * 13 + [_I] * 4 + [_F] + _GEOMETRY + [_P],
     # pointers x 6, A, V, G, D, threads, blocks, stream
     "launch_backup": [_P] * 6 + [_I] * 6 + [_P],
+    # the rules (games/kernels.py): pointers x 8, the host masks, G, the
+    # action's width (32 or 64 bits), the geometry (rows, cols, words),
+    # threads, stream
+    "launch_reversi_play": [_P] * 9 + [_I] * 6 + [_P],
+    # pointers x 6, the host masks, G, rows, cols, words, threads, stream
+    "launch_reversi_is_over": [_P] * 7 + [_I] * 5 + [_P],
+    # pointers x 5, the host masks, G, rows, cols, words, nvict, threads,
+    # stream
+    "launch_line_is_over": [_P] * 6 + [_I] * 6 + [_P],
 }
 # the bf16 instantiations of the three-plane kernels take what their f32
 # entries take
@@ -142,3 +154,26 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_cuda(kernel: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor (the kernel's plain
+    version runs); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for {t.device}")
+    return True
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the library's ``entry`` with ``args`` (tensors as pointers) and
+    the current stream on ``device``; raise on a launch error."""
+    lib = load_library()
+    args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")

@@ -71,6 +71,7 @@ import torch
 from . import graphs, resolve_device
 from .buffer import create_buffer
 from .games import make_game
+from .games.kernels import rules_owed
 from .mcts import kernels as K
 from .nets import MLP, apply_inference, config_for_game
 from .profile_generation import card_line
@@ -106,17 +107,20 @@ def schedule(game, games: int, rounds: int = 0, chunk: int = 0,
     return rounds, chunk, n_chunks, sb, games // sb
 
 
-def owed_launches(pack_level: int, rollouts: int, rounds_played: int,
+def owed_launches(game, pack_level: int, rollouts: int, rounds_played: int,
                   superblocks: int) -> dict:
-    """Kernel launches one generation owes, per wrapper: each round of each
-    superblock searches ``rollouts`` walks of its level's kernel and one
-    ``backup`` flush."""
+    """Kernel launches one generation of ``game`` owes, per wrapper: each
+    round of each superblock searches ``rollouts`` walks of its level's
+    kernel and one ``backup`` flush, and runs the game's rules once a
+    rollout and once for the move it plays."""
     if pack_level not in WALK_OF_LEVEL:
         raise ValueError(f"pack_level {pack_level}: the bench runs level 0, "
                          "1 or 2")
+    rounds = rounds_played * superblocks
     owed = {k.__name__: 0 for k in K.KERNELS}
-    owed[WALK_OF_LEVEL[pack_level]] = rollouts * rounds_played * superblocks
-    owed["backup"] = rounds_played * superblocks
+    owed.update(rules_owed(game, (rollouts + 1) * rounds))
+    owed[WALK_OF_LEVEL[pack_level]] = rollouts * rounds
+    owed["backup"] = rounds
     return owed
 
 
@@ -211,7 +215,7 @@ def measure(game_name="connect4", games=8192, rollouts=64, bf16=False,
     rounds, chunk, n_chunks, sb, n_sb = schedule(game, games, rounds, chunk,
                                                  superblock)
     rounds_played = n_chunks * chunk
-    owed = owed_launches(pack_level, rollouts, rounds_played, n_sb)
+    owed = owed_launches(game, pack_level, rollouts, rounds_played, n_sb)
     net_cfg = config_for_game(game)
     net = MLP.from_seed(net_cfg, seed, device=dev)
     n_params = sum(p.numel() for p in net.parameters())

@@ -35,6 +35,7 @@ import torch
 
 from .. import graphs, resolve_device
 from ..games import make_game
+from ..games.kernels import rules_owed
 from ..mcts import kernels as K
 from ..mcts import search as S
 from ..mcts.tree import init_tree, reset_tree
@@ -61,10 +62,12 @@ VARIANTS = {
 }
 
 
-def owed_launches(variant: Variant, rollouts: int, moves: int) -> dict:
-    """Kernel launches of ``moves`` moves: a ``select`` and a ``backup`` a
-    rollout where the variant runs them."""
+def owed_launches(game, variant: Variant, rollouts: int, moves: int) -> dict:
+    """Kernel launches of ``moves`` moves of ``game``: a ``select`` and a
+    ``backup`` a rollout where the variant runs them, and the game's
+    ``play`` and ``is_over`` once a rollout in every variant."""
     owed = {k.__name__: 0 for k in K.KERNELS}
+    owed.update(rules_owed(game, rollouts * moves))
     owed["select"] = rollouts * moves * variant.select
     owed["backup"] = rollouts * moves * variant.backup
     return owed
@@ -152,7 +155,7 @@ def time_variant(game, net, tree, positions, generator, rollouts: int,
     K.reset_launch_counts()
     total = sum(move() for _ in range(moves))
     counted = {k.__name__: k.launches for k in K.KERNELS}
-    owed = owed_launches(variant, rollouts, moves)
+    owed = owed_launches(game, variant, rollouts, moves)
     if cuda and counted != owed:
         raise RuntimeError(f"launches {counted}, owed {owed}")
     return total / moves * 1e3, counted

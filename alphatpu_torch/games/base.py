@@ -48,6 +48,10 @@ class Game:
     feature_size: int
     max_game_length: int
     min_game_length: int = 1
+    # the rules kernels (games/kernels.py) that play and is_over launch on
+    # the card, by wrapper name; None where the rule runs as torch ops
+    play_kernel: str | None = None
+    is_over_kernel: str | None = None
 
     def initial(self, num_games: int, device=None) -> NamedTuple:
         """``num_games`` copies of the starting position."""
@@ -105,21 +109,3 @@ class Game:
     def render(self, pos) -> str:
         """Host-side text board of a one-game position."""
         return "\n".join(self._board_rows(pos))
-
-    def _line_win(self, board: torch.Tensor, nvict: int) -> torch.Tensor:
-        """bool[G]: ``nvict`` stones in a row on ``board`` along any of the
-        four directions (``nvict - 1`` shift-ANDs per direction)."""
-        spec = self.spec
-        win = torch.zeros(board.shape[:-1], dtype=torch.bool,
-                          device=board.device)
-        for step in (
-            lambda x: bb.right(spec, x),
-            lambda x: bb.down(spec, x),
-            lambda x: bb.down(spec, bb.right(spec, x)),
-            lambda x: bb.left(spec, bb.down(spec, x)),
-        ):
-            b = board
-            for _ in range(nvict - 1):
-                b = b & step(b)
-            win = win | (bb.popcount(spec, b) != 0)
-        return win

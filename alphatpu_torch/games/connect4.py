@@ -3,7 +3,8 @@
 Counterpart of :mod:`alphatpu.games.connect4`: stones stack from row 5
 (bottom) toward row 0, the landing row is ``rows - 1 - count(stones in
 column)``, a column is legal iff its row 0 is free, and a win is four in a
-row along any of the four directions.
+row along any of the four directions (the ``line_is_over`` kernel on the
+card, :mod:`alphatpu_torch.games.kernels`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import bitboard as bb
+from . import kernels as R
 from .base import Game
 
 HEIGHT = 6
@@ -28,6 +30,9 @@ class Connect4State(NamedTuple):
 
 
 class Connect4(Game):
+    is_over_kernel = "line_is_over"
+    nvict = NVICT
+
     def __init__(self):
         self.spec = bb.BoardSpec(rows=HEIGHT, cols=WIDTH)
         self.name = "connect4"
@@ -70,9 +75,5 @@ class Connect4(Game):
         )
 
     def is_over(self, pos: Connect4State):
-        win = self._line_win(pos.bopponent, NVICT)
-        full = (bb.popcount(self.spec, pos.bplayer)
-                + bb.popcount(self.spec, pos.bopponent) == HEIGHT * WIDTH)
-        done = win | full
-        result = torch.where(win, -pos.player, 0).to(torch.int8)
-        return done, result
+        return R.line_is_over(self.spec, self.nvict, pos.bplayer,
+                              pos.bopponent, pos.player)

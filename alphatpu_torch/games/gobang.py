@@ -5,7 +5,8 @@ Counterpart of :mod:`alphatpu.games.gobang`: action ``a`` is cell ``a``
 (column-major, cell (r, c) -> r + n*c), legal iff the cell is empty; a win
 is ``nvict`` stones in a row along any of the four directions, tested with
 ``nvict - 1`` shift-ANDs per direction; the game is drawn when the board is
-full.  ``round`` starts at 0 (connect4's starts at 1).
+full.  ``round`` starts at 0 (connect4's starts at 1).  ``is_over`` runs
+the ``line_is_over`` kernel on the card (:mod:`alphatpu_torch.games.kernels`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from .. import bitboard as bb
+from . import kernels as R
 from .base import Game
 
 
@@ -25,6 +27,8 @@ class GobangState(NamedTuple):
 
 
 class Gobang(Game):
+    is_over_kernel = "line_is_over"
+
     def __init__(self, n: int = 3, nvict: int | None = None):
         if n > 13:
             raise ValueError(f"gobang{n}: boards up to 13x13 are supported")
@@ -62,13 +66,8 @@ class Gobang(Game):
         )
 
     def is_over(self, pos: GobangState):
-        win = self._line_win(pos.bopponent, self.nvict)
-        full = (bb.popcount(self.spec, pos.bplayer)
-                + bb.popcount(self.spec, pos.bopponent) == self.n * self.n)
-        done = win | full
-        # the winner is the previous mover
-        result = torch.where(win, -pos.player, 0).to(torch.int8)
-        return done, result
+        return R.line_is_over(self.spec, self.nvict, pos.bplayer,
+                              pos.bopponent, pos.player)
 
 
 def tictactoe() -> Gobang:

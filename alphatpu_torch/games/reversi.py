@@ -11,6 +11,10 @@ Counterpart of :mod:`alphatpu.games.reversi`:
   exists; playing it leaves the board as it is,
 * the game is over when neither side can move, and won by disc count.
 
+``play`` and ``is_over`` run the ``reversi_play`` and ``reversi_is_over``
+kernels on the card (:mod:`alphatpu_torch.games.kernels`, where the rules'
+plain versions live).
+
 Initial position, for size s and h = s // 2: the side to move holds
 (h, h-1) and (h-1, h), the other side (h-1, h-1) and (h, h).
 """
@@ -21,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from .. import bitboard as bb
+from . import kernels as R
 from .base import Game
 
 
@@ -32,6 +37,9 @@ class ReversiState(NamedTuple):
 
 
 class Reversi(Game):
+    play_kernel = "reversi_play"
+    is_over_kernel = "reversi_is_over"
+
     def __init__(self, size: int = 8):
         if size not in (6, 8):
             raise ValueError(f"reversi{size}x{size}: sizes 6 and 8 exist")
@@ -50,54 +58,13 @@ class Reversi(Game):
         self._start_other = bb.from_coords(self.spec,
                                            [(h - 1, h - 1), (h, h)])
 
-    def _dirs(self):
-        """The eight directions: up, down, left, right, up-left, down-left,
-        up-right, down-right."""
-        spec = self.spec
-        return (
-            lambda x: bb.up(spec, x),
-            lambda x: bb.down(spec, x),
-            lambda x: bb.left(spec, x),
-            lambda x: bb.right(spec, x),
-            lambda x: bb.up(spec, bb.left(spec, x)),
-            lambda x: bb.down(spec, bb.left(spec, x)),
-            lambda x: bb.up(spec, bb.right(spec, x)),
-            lambda x: bb.down(spec, bb.right(spec, x)),
-        )
-
-    def legal_board(self, me: torch.Tensor, adv: torch.Tensor) -> torch.Tensor:
-        """Bitboard of the placing moves of ``me``."""
-        emptyc = bb.invert(self.spec, me | adv)
-        out = torch.zeros_like(me)
-        for d in self._dirs():
-            cand = d(me) & adv
-            for _ in range(self.size - 2):
-                dc = d(cand)
-                out = out | (emptyc & dc)
-                cand = adv & dc
-            out = out | (emptyc & d(cand))
-        return out
-
-    def flip_board(self, me, adv, played) -> torch.Tensor:
-        """The discs of ``adv`` that a disc on ``played`` (a board) flips."""
-        out = torch.zeros_like(me)
-        for d in self._dirs():
-            cand = d(played) & adv
-            toflip = cand
-            for _ in range(self.size - 2):
-                cand = adv & d(cand)
-                toflip = toflip | cand
-            capped = (d(toflip) & me).any(-1, keepdim=True)
-            out = out | torch.where(capped, toflip, 0)
-        return out
-
     def initial(self, num_games: int, device=None) -> ReversiState:
         mover = self._const("_start_mover", device).expand(num_games, -1)
         other = self._const("_start_other", device).expand(num_games, -1)
         return ReversiState(
             bplayer=mover.clone(),
             bopponent=other.clone(),
-            legal=self.legal_board(mover, other),
+            legal=R.legal_board_plain(self.spec, mover, other),
             player=torch.ones((num_games,), dtype=torch.int8, device=device),
         )
 
@@ -107,27 +74,10 @@ class Reversi(Game):
         return torch.cat([planes, can_pass], dim=-1)
 
     def play(self, pos: ReversiState, action) -> ReversiState:
-        dev = pos.bplayer.device
-        action = torch.as_tensor(action, device=dev).long()
-        is_pass = (action >= self.size * self.size)[:, None]
-        placed = bb.cell_onehot(self.spec, torch.where(is_pass[:, 0], 0,
-                                                       action))
-        h = self.flip_board(pos.bplayer, pos.bopponent, placed)
-        h = torch.where(is_pass, 0, h)
-        placed = torch.where(is_pass, 0, placed)
-        me = (pos.bplayer ^ h) | placed
-        adv = pos.bopponent ^ h
-        return ReversiState(
-            bplayer=adv,
-            bopponent=me,
-            legal=self.legal_board(adv, me),
-            player=-pos.player,
-        )
+        return ReversiState(*R.reversi_play(self.spec, pos.bplayer,
+                                            pos.bopponent, pos.player,
+                                            action))
 
     def is_over(self, pos: ReversiState):
-        spec = self.spec
-        opp_moves = self.legal_board(pos.bopponent, pos.bplayer)
-        done = (pos.legal == 0).all(-1) & (opp_moves == 0).all(-1)
-        diff = bb.popcount(spec, pos.bplayer) - bb.popcount(spec, pos.bopponent)
-        result = torch.sign(diff).to(torch.int8) * pos.player
-        return done, torch.where(done, result, 0).to(torch.int8)
+        return R.reversi_is_over(self.spec, pos.bplayer, pos.bopponent,
+                                 pos.legal, pos.player)

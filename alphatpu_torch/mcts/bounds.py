@@ -29,6 +29,13 @@ adds - the policy's multiply and divide, the prefix add) and 3 per backed
 up edge.  The Newton solve takes several evaluations on most nodes; the
 operations stay far below the bytes' time all the same.
 
+The game rules' kernels (:func:`rules_cost`) read their boards (32-bit
+words in 8 B elements), the action and the player once and write their
+outputs once; their operations are counted as one per word for each
+shift-step of each direction (the flips' and the legal board's for
+``reversi_play``), at the f32 rate - a lower bound of bit operations,
+which the bytes' time exceeds at every size.
+
 Peaks: NVIDIA's H100 SXM data sheet, at a 700 W power limit.
 """
 from __future__ import annotations
@@ -116,3 +123,21 @@ def backup_cost(nodes, itemsize: int = 4) -> Cost:
     edges = int(valid.sum())
     return Cost(D * G * 4 + int(valid.any(0).sum()) * 8
                 + edges * (4 + 4 * itemsize), edges * OPS_PER_EDGE)
+
+
+def rules_cost(kernel: str, spec, G: int, action_bytes: int = 8,
+               nvict: int = 0) -> Cost:
+    """One call of a rules kernel (games/kernels.py) on ``G`` games of the
+    board ``spec`` (a BoardSpec): ``action_bytes`` the width of
+    ``reversi_play``'s action, ``nvict`` the line games' run length."""
+    board = spec.nwords * 8
+    steps = 8 * (spec.rows - 1) * spec.nwords
+    if kernel == "reversi_play":
+        return Cost(G * (2 * board + action_bytes + 1) + G * (3 * board + 1),
+                    G * 2 * steps)
+    if kernel == "reversi_is_over":
+        return Cost(G * (3 * board + 1) + G * 2, G * steps)
+    if kernel == "line_is_over":
+        return Cost(G * (2 * board + 1) + G * 2,
+                    G * 4 * max(nvict - 1, 0) * spec.nwords)
+    raise ValueError(f"{kernel}: not a rules kernel")

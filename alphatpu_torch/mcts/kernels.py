@@ -28,7 +28,9 @@ rounded once to the storage dtype, and so is each entry of a written
 prior row (round to nearest even); an untouched element round-trips
 exactly.  ``launches`` counts a wrapper's launches of either dtype,
 ``launches_bf16`` those on bf16 planes; a replayed CUDA graph adds the
-launches its capture recorded (:mod:`alphatpu_torch.graphs`).
+launches its capture recorded (:mod:`alphatpu_torch.graphs`).  The game
+rules' three kernel wrappers (:mod:`alphatpu_torch.games.kernels`) join
+this accounting: :data:`KERNELS` and the counters name them too.
 
 The four walks share one CUDA header (``csrc/walk.cuh``) and one plain
 walk (:func:`_walk_plain`); they differ in how a node's row is loaded.
@@ -54,6 +56,9 @@ from typing import NamedTuple
 
 import torch
 
+from .._build import launch as _launch
+from .._build import on_cuda as _on_cuda
+from ..games.kernels import RULES
 from .newton import ALPHA_FLOOR, cdf_sample, row_sum, solve_alpha
 from .tree import child_lookup
 
@@ -485,27 +490,6 @@ def _check_walk(kernel, planes, parent, action_from, expanded, probs,
     return A, V, G, D
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _launch(entry: str, device, *args) -> None:
-    """Call the library's ``entry`` with ``args`` (tensors as pointers) and
-    the current stream on ``device``; raise on a launch error."""
-    from .._build import load_library
-
-    lib = load_library()
-    args = [_ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = getattr(lib, entry)(*args, _stream())
-    if err != 0:
-        raise RuntimeError(f"{entry}: CUDA error {err}")
-
-
 def _selection_out(A, G, D, dev) -> Selection:
     return Selection(
         nodes=torch.empty((D, G), dtype=torch.int32, device=dev),
@@ -535,16 +519,6 @@ def stat_dtype(kernel: str, *planes: torch.Tensor) -> torch.dtype:
 def _count(kernel, dtype: torch.dtype) -> None:
     kernel.launches += 1
     kernel.launches_bf16 += dtype == torch.bfloat16
-
-
-def _on_cuda(kernel: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU tensor (the plain version
-    runs); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{kernel}: no kernel for {t.device}")
-    return True
 
 
 def select_apply_packed(prior, packed, parent, action_from, expanded, probs,
@@ -666,8 +640,10 @@ def backup(wsum, visits, nodes, actions, length, value) -> None:
     _count(backup, dt)
 
 
+# the search's five kernels and the game rules' three (games/kernels.py):
+# every wrapper whose launches a run counts
 KERNELS = (select_apply_packed, select_apply_packed1, select_apply, select,
-           backup)
+           backup) + RULES
 
 
 def reset_launch_counts() -> None:

@@ -96,11 +96,16 @@ def window(name: str, fn, device: torch.device, rollouts: int | None = None):
                                     else None),
             "host_copy_or_sync_calls": sum(1 for e in events
                                            if e.name in HOST_SYNCS),
-            "top_kernels_ms": [(k[:80], v) for k, v in sorted(
-                by_name.items(), key=lambda kv: -kv[1])[:8]],
+            "top_kernels_ms": top_kernels(by_name),
         })
     print(json.dumps(rec))
     return rec
+
+
+def top_kernels(by_name: dict, n: int = 8) -> list:
+    """The ``n`` kernels of most device time, ``(name, ms)``, names whole:
+    a templated kernel's functor and dtype sit at the end of its name."""
+    return sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
 
 
 def main(argv=None) -> int:

@@ -11,7 +11,7 @@ Phases, each fatal on failure:
    process per source) and print ptxas's register, stack and spill lines
    (one per instantiation: the packed kernels' carry their column view,
    ``SharedColumns`` or ``DeviceColumns`` - the device placement),
-3. kernel parity on the card: each of the five kernels against its plain
+3. kernel parity on the card: each of the five search kernels against its plain
    torch version on the same inputs - at the production shape (connect4,
    A=7, V=64, G=8192, D=42, on a tree grown by the port's own search) and
    at a synthetic wide shape (A=169, V=64, G=2048) - with each kernel's
@@ -24,7 +24,14 @@ Phases, each fatal on failure:
    ``select_apply``, ``select`` and ``backup`` (``ALPHATPU_BF16_STATS``)
    against their plain versions, bit for bit and timed, on a connect4 tree
    grown on bf16 planes, on the A=169 tree and (the two walks) in the
-   device placement, both rounded to bf16,
+   device placement, both rounded to bf16; then the game rules' three
+   kernels (``reversi_play``, ``reversi_is_over``, ``line_is_over``)
+   against their plain versions, bit for bit (0 lanes that differ), on
+   positions sampled from seeded random games of reversi6x6, reversi8x8,
+   tictactoe, connect4, gobang8, gobang9 (8192 lanes) and gobang13 (2048)
+   - the pass action, lanes past their game's end given any action, full
+   boards - each timed (CUDA events) beside its bound and its plain
+   version's wall,
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
@@ -125,7 +132,9 @@ Phases, each fatal on failure:
    against eager: tree planes bit for bit,
 18. a JSON line of the kernels (for the four walks also ``ms_device`` and
    ``bound_ms_device``, at the device placement's shape; a row for each
-   bf16 instantiation, ``<name>_bf16``), then the result line
+   bf16 instantiation, ``<name>_bf16``; a row for each rules kernel,
+   timed at reversi8x8's 8192 lanes or gobang13's 2048, with its time on
+   every game of phase 3), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts: before each path every count is set to 0, and after it the
@@ -134,7 +143,12 @@ checks are not counted; a replayed CUDA graph counts the launches its
 capture recorded, so captured rounds owe what eager ones owe): a search
 of R rollouts owes R launches of its engine's walk and one ``backup``,
 so ``eval_vs_probe`` owes plies x 64 and plies, ``eval_vs_random`` 2 x 9
-x 64 and 2 x 9, the interactive engine 128 and 1 a move.  The kernels
+x 64 and 2 x 9, the interactive engine 128 and 1 a move.  The rules
+kernels count too: each rollout plays the leaf's move and tests its end
+once, and each move of selfplay, a duel, an evaluation or the probe once
+more, so a round of R rollouts owes R + 1 of the game's ``is_over``
+kernel and, on reversi, R + 1 ``reversi_play`` (the line games play
+with torch ops; hex runs its flood as torch ops and owes none).  The kernels
 line reports, for ``select_apply_packed`` and ``backup``, the launches of
 the CLI run (the main path, phase 11); for the other three kernels those
 of the path that runs each (phases 6 and 7); for the bf16 instantiations
@@ -248,7 +262,7 @@ WALKS = ("select_apply_packed", "select_apply_packed1", "select_apply",
          "select")
 CSRC = "alphatpu_torch/csrc/"
 PALLAS = "alphatpu/mcts/pallas_kernels.py:"
-# name -> (source, the TPU kernel it replaces)
+# name -> (source, the TPU kernel it replaces): the search kernels
 KERNELS = {
     "select_apply_packed": ("select_apply_packed.cu", "1008"),
     "select_apply_packed1": ("select_apply_packed1.cu", "1259"),
@@ -256,6 +270,24 @@ KERNELS = {
     "select": ("select.cu", "640"),
     "backup": ("backup.cu", "1349"),
 }
+# the rules kernels (games/kernels.py, csrc/rules.cu), each replacing no
+# Pallas kernel: name -> the reference rule whose XLA fusion it stands for
+RULES = {
+    "reversi_play": "alphatpu/games/reversi.py:124",
+    "reversi_is_over": "alphatpu/games/reversi.py:144",
+    "line_is_over": "alphatpu/games/gobang.py:65",
+}
+# every wrapper whose launches a path owes
+COUNTED = (*KERNELS, *RULES)
+# phase 3's rules parity: (game, lanes), timed at the shape each record's
+# training path gives the kernels; reversi's two are reported at
+# reversi8x8's shape, line_is_over at gobang13's
+RULES_GAMES = (("reversi6x6", LANES), ("reversi8x8", LANES),
+               ("tictactoe", LANES), ("connect4", LANES),
+               ("gobang8", LANES), ("gobang9", LANES), ("gobang13", 2048))
+RULES_REPORTED = {"reversi_play": "reversi8x8",
+                  "reversi_is_over": "reversi8x8",
+                  "line_is_over": "gobang13"}
 # the kernels with a bf16 instantiation (ALPHATPU_BF16_STATS): its row in
 # the kernels line is the name + "_bf16"
 BF16_KERNELS = ("select_apply", "select", "backup")
@@ -284,14 +316,23 @@ def diverged_lanes(a, b):
 
 
 def launch_counts(K) -> dict:
-    return {name: getattr(K, name).launches for name in KERNELS}
+    counts = K.launch_counts()
+    return {name: counts[name][0] for name in COUNTED}
+
+
+def rules(game, calls: int) -> dict:
+    """The rules launches of ``calls`` calls of ``game.play`` and as many
+    of ``game.is_over`` on the card (``games.kernels.rules_owed``)."""
+    from alphatpu_torch.games.kernels import rules_owed
+
+    return rules_owed(game, calls)
 
 
 def expect_launches(K, what: str, owed: dict) -> dict:
     """The counts since the last reset, which must equal ``owed`` (kernels
     not named there owe 0)."""
     got = launch_counts(K)
-    want = {name: owed.get(name, 0) for name in KERNELS}
+    want = {name: owed.get(name, 0) for name in COUNTED}
     print(f"launches in {what}: {got}")
     if got != want:
         raise AssertionError(f"{what}: launches {got}, owed {want}")
@@ -684,6 +725,105 @@ def walk_breakdown(K, tree, D, gen, scale, card):
         f"{k} {v:.4f} ms" for k, v in times.items()) + f"  [{card}]")
 
 
+def rules_parity(dev, card: str) -> dict:
+    """Phase 3's rules kernels: for each (game, lanes) of RULES_GAMES,
+    positions and actions sampled from seeded random games
+    (``games.kernels.sample_positions``: lanes past their game's end
+    given any action, reversi's pass, full boards), and each kernel the
+    game launches against its plain version on the same tensors - every
+    output, lane by lane; reversi's move with 64- and 32-bit actions, and
+    the end test after the move too.  Each kernel is timed (CUDA events,
+    back to back) beside its bound (``mcts.bounds.rules_cost``) and its
+    plain version's wall.  Returns {kernel: result} at RULES_REPORTED's
+    game, each result with its time on every game."""
+    import torch
+
+    from alphatpu_torch.games import kernels as R
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts.bounds import rules_cost
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, G in RULES_GAMES:
+        game = make_game(name)
+        spec = game.spec
+        pos, action = R.sample_positions(game, G, SEED + 51, dev)
+        if game.play_kernel:
+            played = type(pos)(*R.reversi_play_plain(
+                spec, pos.bplayer, pos.bopponent, pos.player, action))
+            calls = {
+                "reversi_play": (
+                    lambda p, a: R.reversi_play(spec, p.bplayer,
+                                                p.bopponent, p.player, a),
+                    lambda p, a: R.reversi_play_plain(
+                        spec, p.bplayer, p.bopponent, p.player, a),
+                    [(pos, action), (pos, action.int())]),
+                "reversi_is_over": (
+                    lambda p, a: R.reversi_is_over(spec, *p),
+                    lambda p, a: R.reversi_is_over_plain(spec, *p),
+                    [(pos, None), (played, None)]),
+            }
+        else:
+            nvict = game.nvict
+            played = game.play(pos, action)  # torch ops on a line game
+            calls = {"line_is_over": (
+                lambda p, a: R.line_is_over(spec, nvict, p.bplayer,
+                                            p.bopponent, p.player),
+                lambda p, a: R.line_is_over_plain(spec, nvict, p.bplayer,
+                                                  p.bopponent, p.player),
+                [(pos, None), (played, None)])}
+        done = game.is_over(pos)[0]
+        full = bb_full(game, pos)
+        passing = int((action == game.max_actions - 1).sum()) \
+            if game.play_kernel else 0
+        for kernel, (fast, plain, inputs) in calls.items():
+            bad = torch.zeros((G,), dtype=torch.bool, device=dev)
+            err = 0.0
+            for p, a in inputs:
+                for x, y in zip(fast(p, a), plain(p, a)):
+                    if x.dtype != y.dtype or x.shape != y.shape:
+                        raise AssertionError(f"{kernel} on {name}: "
+                                             f"{x.dtype}{tuple(x.shape)} "
+                                             f"!= {y.dtype}{tuple(y.shape)}")
+                    bad |= (x != y).reshape(G, -1).any(1)
+                    err = max(err, float((x.long() - y.long()).abs().max()))
+            torch.cuda.synchronize()
+            p, a = inputs[0]
+            ms = device_ms(lambda i: fast(p, a), 50)
+            plain_ms = wall_ms(lambda i: plain(p, a), 3)
+            cost = rules_cost(kernel, spec, G, action.element_size(),
+                              getattr(game, "nvict", 0))
+            print(f"rules parity: {kernel} on {name}, {G} lanes ("
+                  f"{int(done.sum())} games over, {int(full.sum())} full "
+                  f"boards" + (f", {passing} passes" if passing else "")
+                  + f"): lanes that differ {int(bad.sum())}/{G}, max abs "
+                  f"err {err}; {ms:.4f} ms a launch, bound {cost.bound_ms:.6f}"
+                  f" ms ({cost.bound_by}, {cost.nbytes} B; share "
+                  f"{cost.bound_ms / ms:.1%}), plain {plain_ms:.3f} ms  "
+                  f"[{card}]")
+            if int(bad.sum()) or err:
+                raise AssertionError(f"{kernel} on {name}: {int(bad.sum())} "
+                                     "lanes differ from the plain version")
+            r = out.setdefault(kernel, {"ms_by_game": {},
+                                        "plain_ms_by_game": {}, "err": 0.0})
+            r["ms_by_game"][name] = ms
+            r["plain_ms_by_game"][name] = plain_ms
+            r["err"] = max(r["err"], err)
+            if RULES_REPORTED[kernel] == name:
+                r.update(ms=ms, plain_ms=plain_ms, cost=cost,
+                         shape=f"{name} G={G}")
+    print(f"rules parity: {time.perf_counter() - t_phase:.3f} s  [{card}]")
+    return out
+
+
+def bb_full(game, pos):
+    """bool[G]: every cell of the board holds a stone."""
+    from alphatpu_torch import bitboard as bb
+
+    return bb.popcount(game.spec, pos.bplayer | pos.bopponent) == \
+        game.spec.nbits
+
+
 def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
                   training=True, rollouts=None, stat_dtype=None):
     """``run_mcts`` at one engine level on the card and on the CPU, from
@@ -763,7 +903,8 @@ def big_tree_searches(K, game, net, net_cpu, dev, card) -> None:
         search_vs_cpu(game, net, net_cpu, dev, V, SMALL_G, level,
                       rollouts=ROLLOUTS)
         expect_launches(K, f"the level-{level} search of a {V}-node tree",
-                        {kernel: ROLLOUTS, "backup": 1})
+                        {kernel: ROLLOUTS, "backup": 1,
+                         **rules(game, ROLLOUTS)})
 
     G = BIG_TREE_G
     tree = init_tree(game, game.initial(G, dev), V)
@@ -775,7 +916,7 @@ def big_tree_searches(K, game, net, net_cpu, dev, card) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     expect_launches(K, f"the {V}-rollout level-1 search",
-                    {"select_apply_packed": V, "backup": 1})
+                    {"select_apply_packed": V, "backup": 1, **rules(game, V)})
     root = tree.visits[:, 0, :].sum(0)
     if not bool((root == V - 1).all()):
         raise AssertionError(f"{V}-rollout search: root visits "
@@ -872,7 +1013,8 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card,
         rounds = chunks * chunk_rounds
         launches = expect_launches(
             K, f"selfplay {label}",
-            {owed_kernel: rounds * ROLLOUTS, "backup": rounds})
+            {owed_kernel: rounds * ROLLOUTS, "backup": rounds,
+             **rules(game, rounds * (ROLLOUTS + 1))})
     totals = {k: float(v) for k, v in totals.items()}
     carried = float(stats["carried"])
     env_steps = totals["samples_written"] + carried
@@ -913,14 +1055,14 @@ def selfplay_run(K, game, net, dev, label, env, chunks, owed_kernel, card,
 
 def family_runs(K, dev, card: str) -> dict:
     """Phase 8: continuous selfplay at level 1 for every family of
-    FAMILIES, with its reference net.  Returns {game: env-steps/s}."""
+    FAMILIES, with its reference net.  Returns {game: launches}."""
     import torch
 
     from alphatpu_torch import graphs
     from alphatpu_torch.games import make_game
     from alphatpu_torch.nets import MLP, config_for_game
 
-    rates = {}
+    rates, launches = {}, {}
     for name, (lanes, rounds) in FAMILIES.items():
         game = make_game(name)
         net = MLP.from_seed(config_for_game(game), SEED, device=dev)
@@ -928,16 +1070,16 @@ def family_runs(K, dev, card: str) -> dict:
         # rounds stay cached
         graphs.clear_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        _, rates[name] = selfplay_run(K, game, net, dev, f"family {name}", {},
-                                      1, "select_apply_packed", card,
-                                      lanes=lanes, chunk_rounds=rounds)
+        launches[name], rates[name] = selfplay_run(
+            K, game, net, dev, f"family {name}", {}, 1,
+            "select_apply_packed", card, lanes=lanes, chunk_rounds=rounds)
         print(f"  {name}: A={game.max_actions}, peak device memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
         del net
         torch.cuda.empty_cache()
     print("env-steps/s per family in this run: " + ", ".join(
         f"{k} {v:.1f}" for k, v in rates.items()) + f"  [{card}]")
-    return rates
+    return launches
 
 
 def card_outputs(net, dev):
@@ -1055,19 +1197,21 @@ def pipeline_generation(K, dev, card: str, game_name: str,
         def delta(a, b):
             return {k: b[k] - a[k] for k in b}
 
-        zero = {k: 0 for k in KERNELS}
+        zero = {k: 0 for k in COUNTED}
         owed = {
             "selfplay": (zero, marks["selfplay"][1],
-                         {"select_apply_packed": T * ROLLOUTS, "backup": T}),
+                         {"select_apply_packed": T * ROLLOUTS, "backup": T,
+                          **rules(game, T * (ROLLOUTS + 1))}),
             "train": (marks["selfplay"][1], marks["train"][1], {}),
             "duel": (marks["train"][1], marks["duel"][1],
                      {"select_apply_packed": 2 * T * duel.rollouts,
-                      "backup": 2 * T}),
+                      "backup": 2 * T,
+                      **rules(game, 2 * T * (duel.rollouts + 1))}),
             "checkpoint": (marks["duel"][1], end_counts, {}),
         }
         for stage, (a, b, want) in owed.items():
             got = delta(a, b)
-            want = {k: want.get(k, 0) for k in KERNELS}
+            want = {k: want.get(k, 0) for k in COUNTED}
             print(f"launches in the generation's {stage}: {got}")
             if got != want:
                 raise AssertionError(f"generation {game_name} {stage}: "
@@ -1162,6 +1306,7 @@ def cli_run(K, dev, card: str) -> dict:
 
     from alphatpu_torch.benchmarks import ttt_loss_replay
     from alphatpu_torch.cli import main as cli_main
+    from alphatpu_torch.games import make_game
 
     T, R, duel_r = 9, CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS  # T: the move bound
     with tempfile.TemporaryDirectory() as tmp:
@@ -1183,7 +1328,9 @@ def cli_run(K, dev, card: str) -> dict:
         launches = expect_launches(
             K, "the CLI (3 generations)",
             {"select_apply_packed": gens * (T * R + 2 * T * duel_r),
-             "backup": gens * 3 * T})
+             "backup": gens * 3 * T,
+             **rules(make_game("tictactoe"),
+                     gens * (T * (R + 1) + 2 * T * (duel_r + 1)))})
         files = sorted(os.listdir(ck))
         with open(stats_file) as f:
             lines = [json.loads(x) for x in f]
@@ -1237,6 +1384,7 @@ def cli_level2(K, dev, card: str) -> dict:
     import tempfile
 
     from alphatpu_torch.cli import main as cli_main
+    from alphatpu_torch.games import make_game
 
     T, R = 9, L2_ROLLOUTS
     with switches({"ALPHATPU_PACK": "2"}), \
@@ -1254,7 +1402,8 @@ def cli_level2(K, dev, card: str) -> dict:
         wall = time.perf_counter() - t0
         launches = expect_launches(
             K, "the CLI's level-2 generation (ALPHATPU_PACK=2)",
-            {"select_apply_packed1": T * R + 2 * T * R, "backup": 3 * T})
+            {"select_apply_packed1": T * R + 2 * T * R, "backup": 3 * T,
+             **rules(make_game("tictactoe"), 3 * T * (R + 1))})
         files = sorted(os.listdir(ck))
         with open(stats_file) as f:
             lines = [json.loads(x) for x in f]
@@ -1358,7 +1507,8 @@ def evaluation_and_play(K, dev, card: str) -> dict:
 
     out = both("eval_vs_probe (connect4)", probe_run,
                lambda r: {"select_apply_packed": len(r[3]["records"]) * R,
-                          "backup": len(r[3]["records"])})
+                          "backup": len(r[3]["records"]),
+                          **rules(game, len(r[3]["records"]) * (R + 1))})
     (*wdl, trace), (*e_wdl, e_trace) = out[True][0], out[False][0]
     plies = len(trace["records"])
     if wdl != e_wdl or len(e_trace["records"]) != plies or any(
@@ -1406,7 +1556,8 @@ def evaluation_and_play(K, dev, card: str) -> dict:
                lambda gen, captured: eval_vs_random(
                    ttt, ttt_net, gen, cfg, device=dev, captured=captured),
                lambda r: {"select_apply_packed": 2 * T * cfg.rollouts,
-                          "backup": 2 * T})
+                          "backup": 2 * T,
+                          **rules(ttt, 2 * T * (cfg.rollouts + 1))})
     w, d, l = out[True][0]
     if (w, d, l) != out[False][0] or w + d + l != cfg.num_games:
         raise AssertionError(f"eval_vs_random: {w}/{d}/{l} captured, "
@@ -1438,7 +1589,8 @@ def evaluation_and_play(K, dev, card: str) -> dict:
 
     out = both(f"{PLAY_MOVES} interactive engine moves (G=1)", play,
                lambda r: {"select_apply_packed": PLAY_MOVES * PLAY_READOUT,
-                          "backup": PLAY_MOVES})
+                          "backup": PLAY_MOVES,
+                          **rules(game, PLAY_MOVES * PLAY_READOUT)})
     (moves, pis, walls, pos), (e_moves, e_pis, e_walls, _) = (
         out[True][0], out[False][0])
     if moves != e_moves or any(not torch.equal(a, b)
@@ -1643,11 +1795,14 @@ def data_parallel(K, dev, card: str) -> None:
     game, cfg = _dp_config(World(0, D, dev), None)
     stats = outs[0]["stats"]
     _, _, duel_moves = DP_DUEL
+    sp_plays = DP_ROUNDS * (ROLLOUTS + 1)
+    duel_plays = 2 * duel_moves * (cfg.duel.rollouts + 1)
     owed = {"select_apply_packed": DP_ROUNDS * ROLLOUTS
             + 2 * duel_moves * cfg.duel.rollouts,
-            "backup": DP_ROUNDS + 2 * duel_moves}
+            "backup": DP_ROUNDS + 2 * duel_moves,
+            **rules(game, sp_plays + duel_plays)}
     for r, out in enumerate(outs):
-        want = {k: owed.get(k, 0) for k in KERNELS}
+        want = {k: owed.get(k, 0) for k in COUNTED}
         print(f"launches in rank {r}'s generation: {out['counts']}")
         if out["counts"] != want:
             raise AssertionError(f"rank {r}: launches {out['counts']}, owed "
@@ -1664,15 +1819,16 @@ def data_parallel(K, dev, card: str) -> None:
         raise AssertionError("data parallel: illegal moves")
     first = outs[0]
     stages = first["stages"]
-    for stage, start, kernel1, backups in (
-            ("selfplay", None, DP_ROUNDS * ROLLOUTS, DP_ROUNDS),
+    for stage, start, kernel1, backups, plays in (
+            ("selfplay", None, DP_ROUNDS * ROLLOUTS, DP_ROUNDS, sp_plays),
             ("duel", "train", 2 * duel_moves * cfg.duel.rollouts,
-             2 * duel_moves)):
-        a = {k: 0 for k in KERNELS} if start is None else stages[start][1]
-        got = {k: stages[stage][1][k] - a[k] for k in KERNELS}
+             2 * duel_moves, duel_plays)):
+        a = {k: 0 for k in COUNTED} if start is None else stages[start][1]
+        got = {k: stages[stage][1][k] - a[k] for k in COUNTED}
         print(f"  rank 0's launches in the {stage}: {got}")
-        want = {k: 0 for k in KERNELS}
-        want.update(select_apply_packed=kernel1, backup=backups)
+        want = {k: 0 for k in COUNTED}
+        want.update(select_apply_packed=kernel1, backup=backups,
+                    **rules(game, plays))
         if got != want:
             raise AssertionError(f"rank 0's {stage}: launches {got}, owed "
                                  f"{want}")
@@ -1800,7 +1956,8 @@ def zoo_searches(K, dev, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         expect_launches(K, f"the {name} search",
-                        {"select_apply_packed": ROLLOUTS, "backup": 1})
+                        {"select_apply_packed": ROLLOUTS, "backup": 1,
+                         **rules(game, ROLLOUTS)})
         root = tree.visits[:, 0, :].sum(0)
         if not bool((root == ROLLOUTS - 1).all()) or not bool(
                 torch.isfinite(pi).all()):
@@ -1916,7 +2073,8 @@ def bf16_stats_path(K, dev, card: str) -> dict:
         search_vs_cpu(game, net, net_cpu, dev, ROLLOUTS, SMALL_G, 0,
                       stat_dtype=bf16)
         expect_launches(K, "the bf16 search on the card",
-                        {"select_apply": ROLLOUTS, "backup": 1})
+                        {"select_apply": ROLLOUTS, "backup": 1,
+                         **rules(game, ROLLOUTS)})
         expect_bf16(K, "the bf16 search on the card")
 
         # the per-phase API on bf16 planes against the engine's run_mcts
@@ -1934,7 +2092,7 @@ def bf16_stats_path(K, dev, card: str) -> dict:
         wall = time.perf_counter() - t0
         phase_launches = expect_launches(
             K, "the per-phase search on bf16 planes",
-            {"select": V, "backup": V})
+            {"select": V, "backup": V, **rules(game, V)})
         expect_bf16(K, "the per-phase search on bf16 planes")
         ref = init_tree(game, game.initial(G, dev), V, stat_dtype=bf16)
         _, ref_pi = run_mcts(game, net, ref, rollouts=V, cpuct=CPUCT,
@@ -1956,10 +2114,11 @@ def bf16_stats_path(K, dev, card: str) -> dict:
                           rounds=BENCH_ROUNDS, chunk=BENCH_CHUNK, seed=SEED)
         ex = r["extra"]
         owed = {"select_apply": ROLLOUTS * BENCH_ROUNDS,
-                "backup": BENCH_ROUNDS}
+                "backup": BENCH_ROUNDS,
+                **rules(game, (ROLLOUTS + 1) * BENCH_ROUNDS)}
         print(json.dumps(r))
         if (ex["launches"] != ex["launches_owed"]
-                or ex["launches"] != {n: owed.get(n, 0) for n in KERNELS}
+                or ex["launches"] != {n: owed.get(n, 0) for n in COUNTED}
                 or ex["illegal_moves"] or ex["stat_dtype"] != "bfloat16"
                 or ex["pack_level"] != 0
                 or not r["metric"].endswith("_bf16stats")
@@ -1985,7 +2144,8 @@ def bf16_stats_path(K, dev, card: str) -> dict:
             int(x) for x in duel_half(game, net, net, gen, duel_cfg, dev))
         wall = time.perf_counter() - t0
         expect_launches(K, "the bf16 duel half",
-                        {"select_apply": moves * rollouts, "backup": moves})
+                        {"select_apply": moves * rollouts, "backup": moves,
+                         **rules(game, moves * (rollouts + 1))})
         expect_bf16(K, "the bf16 duel half")
         if first + draws + second + unfinished != games:
             raise AssertionError("bf16 duel half: games lost")
@@ -2005,7 +2165,8 @@ def bf16_stats_path(K, dev, card: str) -> dict:
         wall = time.perf_counter() - t0
         plies = len(trace["records"])
         expect_launches(K, f"eval_vs_probe with bf16 stats ({plies} plies)",
-                        {"select_apply": plies * ROLLOUTS, "backup": plies})
+                        {"select_apply": plies * ROLLOUTS, "backup": plies,
+                         **rules(game, plies * (ROLLOUTS + 1))})
         expect_bf16(K, "eval_vs_probe with bf16 stats")
         if w + d + l != BF16_PROBE[0]:
             raise AssertionError(f"eval_vs_probe, bf16 stats: {w}/{d}/{l}")
@@ -2106,8 +2267,9 @@ def captured_rounds(K, dev, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         expect_launches(K, f"{T} {'captured' if captured else 'eager'} "
-                        f"rounds, {label}", {kernel: T * ROLLOUTS,
-                                             "backup": T})
+                        f"rounds, {label}",
+                        {kernel: T * ROLLOUTS, "backup": T,
+                         **rules(game, T * (ROLLOUTS + 1))})
         counts = dict(graphs.counts,
                       peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
         out = [getattr(buf, f) for f in ("state", "policy", "player",
@@ -2210,7 +2372,8 @@ def captured_rounds(K, dev, card: str) -> None:
         wall = time.perf_counter() - t0
         expect_launches(K, f"the {'captured' if captured else 'eager'} duel "
                         f"half", {"select_apply_packed": Td * rollouts,
-                                  "backup": Td})
+                                  "backup": Td,
+                                  **rules(game, Td * (rollouts + 1))})
         outs[captured] = ([*tally, gen.get_state()], wall,
                           dict(graphs.counts))
     (cap, c_wall, counts), (eager, e_wall, _) = outs[True], outs[False]
@@ -2302,7 +2465,8 @@ def captured_generation(K, dev, card: str) -> None:
         expect_launches(K, f"two {'captured' if captured else 'eager'} "
                         "generations (tictactoe)",
                         {"select_apply_packed": 2 * T * ROLLOUTS,
-                         "backup": 2 * T})
+                         "backup": 2 * T,
+                         **rules(game, 2 * T * (ROLLOUTS + 1))})
         out += [*(getattr(buf, f) for f in ("state", "policy", "player",
                                             "value", "fstate", "cursor",
                                             "total")), gen.get_state()]
@@ -2403,8 +2567,9 @@ def ptxas_lines(log: str) -> list:
         # _ZN <length><identifier>... [I<template arguments>E]: the last
         # identifier is the function, after its (possibly hashed)
         # namespaces; the arguments are ints (Li<n>E: lanes, slots), the
-        # packed kernels' column view (N4walk<length><view>E) and the
+        # packed kernels' column view (N4walk<length><view>E), the
         # three-plane kernels' storage type (f, or <length>__nv_bfloat16)
+        # and reversi_play's action type (i or l)
         rest, ident = re.sub(r"^_ZN?", "", mangled), mangled
         while (n := re.match(r"\d+", rest)):
             size = int(n.group())
@@ -2422,6 +2587,8 @@ def ptxas_lines(log: str) -> list:
                 m = re.match(r".{%d}E" % end, rest)
             elif (m := re.match(r"f", rest)):
                 args.append("float")
+            elif (m := re.match(r"[il]", rest)):  # the rules' action type
+                args.append({"i": "int32_t", "l": "int64_t"}[m.group()])
             elif (m := re.match(r"(\d+)", rest)):
                 end = m.end() + int(m.group(1))
                 args.append(rest[m.end():end])
@@ -2528,6 +2695,9 @@ def smoke(dev, card: str, kind: str) -> int:
                  for k in BF16_KERNELS}
     del big
 
+    # the game rules' kernels
+    rules_results = rules_parity(dev, card)
+
     # ---- 4. the search on the card against the CPU path ----
     net_cpu = MLP.from_seed(config_for_game(game), SEED,
                             device=torch.device("cpu"))
@@ -2545,7 +2715,7 @@ def smoke(dev, card: str, kind: str) -> int:
     torch.cuda.synchronize()
     expect_launches(K, "the pre-grown search",
                     {"select_apply_packed": half, "select_apply": half,
-                     "backup": 2})
+                     "backup": 2, **rules(game, 2 * half)})
     root_total = tree.visits[:, 0, :].sum(0)
     if not bool((root_total == 2 * half - 1).all()):
         raise AssertionError("pre-grown search: root visits != rollouts - 1")
@@ -2567,7 +2737,8 @@ def smoke(dev, card: str, kind: str) -> int:
     torch.cuda.synchronize()
     phase_wall = time.perf_counter() - t0
     phase_launches = expect_launches(K, "the per-phase search",
-                                     {"select": V, "backup": V})
+                                     {"select": V, "backup": V,
+                                      **rules(game, V)})
     ref = init_tree(game, game.initial(G, dev), V)
     _, ref_pi = run_mcts(game, net, ref, rollouts=V, cpuct=CPUCT,
                          training=True, probs=probs, packed_stats=False)
@@ -2601,7 +2772,7 @@ def smoke(dev, card: str, kind: str) -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. every other family at full width ----
-    family_runs(K, dev, card)
+    family_launches = family_runs(K, dev, card)
 
     # ---- 9. the path's shapes: card against CPU, kernels against plain ----
     for k, e in path_shapes(K, dev, gen, PATH_SHAPES).items():
@@ -2619,6 +2790,11 @@ def smoke(dev, card: str, kind: str) -> int:
     cli = cli_run(K, dev, card)
     launches["select_apply_packed"] = cli["select_apply_packed"]
     launches["backup"] = cli["backup"]
+    # the rules kernels: reversi's from phase 8's reversi8x8 selfplay (the
+    # record's training path), line_is_over from the CLI's tictactoe
+    launches["line_is_over"] = cli["line_is_over"]
+    for name in ("reversi_play", "reversi_is_over"):
+        launches[name] = family_launches["reversi8x8"][name]
     launches["select_apply_packed1"] = cli_level2(
         K, dev, card)["select_apply_packed1"]
 
@@ -2666,6 +2842,20 @@ def smoke(dev, card: str, kind: str) -> int:
                  bf16_errs[name], bf16_results[name], bf16_wide[name],
                  bf16_device.get(name))
              for name in BF16_KERNELS]
+    # the rules kernels: each replaces no Pallas kernel (the reference's
+    # rule is a loop of jnp ops that XLA fuses)
+    rows += [{"name": name, "route": "cuda", "source": CSRC + "rules.cu",
+              "replaces": ref, "replaces_pallas": None,
+              "launches": launches[name],
+              "max_abs_err": rules_results[name]["err"],
+              "ms": rules_results[name]["ms"],
+              "plain_ms": rules_results[name]["plain_ms"],
+              "bound_ms": rules_results[name]["cost"].bound_ms,
+              "bound_by": rules_results[name]["cost"].bound_by,
+              "library_ms": None, "shape": rules_results[name]["shape"],
+              "ms_by_game": rules_results[name]["ms_by_game"],
+              "plain_ms_by_game": rules_results[name]["plain_ms_by_game"]}
+             for name, ref in RULES.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -98,7 +98,8 @@ def test_measure_smoke(smoke_result):
     assert ex["nn_mfu"] is None and ex["peak_mem_bytes"] is None
     assert set(ex["launches"].values()) == {0}
     assert not ex["captured"] and ex["graph_replays"] == 0  # eager rounds
-    assert ex["launches_owed"] == bench.owed_launches(1, 8, 12, 1)
+    assert ex["launches_owed"] == bench.owed_launches(
+        make_game("tictactoe"), 1, 8, 12, 1)
 
     ref = _jax_bench().measure("tictactoe", **SMOKE)
     assert r.keys() == ref.keys()
@@ -126,7 +127,8 @@ def test_measure_superblocks_sum_two_generations():
                       superblock=128, device="cpu")
     ex = r["extra"]
     assert (ex["superblock_lanes"], ex["superblocks"]) == (128, 2)
-    assert ex["launches_owed"] == bench.owed_launches(1, R, T, 2)
+    assert ex["launches_owed"] == bench.owed_launches(
+        make_game("tictactoe"), 1, R, T, 2)
 
     game = make_game("tictactoe")
     net = MLP.from_seed(config_for_game(game), 0)
@@ -230,15 +232,20 @@ def test_schedule_follows_bench_py(game_name, games, rounds, chunk,
     (2, 12, 4), (0, 168, 1), (0, 12, 4)])
 def test_owed_launches(level, rounds_played, superblocks):
     """A round owes ``rollouts`` walks of its level's kernel and one
-    flush, per superblock; chunks change nothing.  Level 0 (f32 planes
-    under ALPHATPU_NO_PACK, every bf16 search) walks with select_apply."""
-    owed = bench.owed_launches(level, 64, rounds_played, superblocks)
+    flush, per superblock, and the game's end test once a rollout and once
+    for the move (connect4: ``line_is_over``); chunks change nothing.
+    Level 0 (f32 planes under ALPHATPU_NO_PACK, every bf16 search) walks
+    with select_apply."""
+    owed = bench.owed_launches(make_game("connect4"), level, 64,
+                               rounds_played, superblocks)
     walk = {0: "select_apply", 1: "select_apply_packed",
             2: "select_apply_packed1"}[level]
     assert owed == {"select_apply_packed": 0, "select_apply_packed1": 0,
                     "select_apply": 0, "select": 0,
                     walk: 64 * rounds_played * superblocks,
-                    "backup": rounds_played * superblocks}
+                    "backup": rounds_played * superblocks,
+                    "reversi_play": 0, "reversi_is_over": 0,
+                    "line_is_over": 65 * rounds_played * superblocks}
 
 
 def test_measure_pins_the_engine_and_restores_the_switches(monkeypatch):
@@ -305,7 +312,8 @@ def test_measure_level_0_and_bf16_stats(bf16_stats, monkeypatch):
     assert r["metric"] == ("torch_selfplay_env_steps_per_s_tictactoe_g16_r16"
                            + ("_bf16stats" if bf16_stats else "_l0")
                            + "_cpu")
-    assert ex["launches_owed"] == bench.owed_launches(0, 16, 2, 1)
+    assert ex["launches_owed"] == bench.owed_launches(
+        make_game("tictactoe"), 0, 16, 2, 1)
     assert ex["launches_owed"]["select_apply"] == 16 * 2
     assert os.environ["ALPHATPU_PACK"] == "2"
     assert "ALPHATPU_NO_PACK" not in os.environ
@@ -396,7 +404,7 @@ def test_ablate_rollout_variants_run(name):
     nodes = (1 if not variant.expand else 8 if variant.select else 9)
     assert torch.equal(tree.next_idx, torch.full((16,), nodes,
                                                  dtype=torch.int32))
-    owed = ablate_rollout.owed_launches(variant, 8, 1)
+    owed = ablate_rollout.owed_launches(game, variant, 8, 1)
     assert (owed["select"], owed["backup"]) == (8 * variant.select,
                                                 8 * variant.backup)
 

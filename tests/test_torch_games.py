@@ -170,7 +170,13 @@ FAMILIES = {
     "hex13": ({}, lambda: oracles.OracleHex(13)),
     "reversi6x6": ({}, lambda: oracles.OracleReversi(6)),
     "reversi8x8": ({}, lambda: oracles.OracleReversi(8)),
+    "connect4": ({}, lambda: oracles.OracleConnect4()),
+    "gobang8": ({}, lambda: oracles.OracleGobang(8, 5)),
 }
+# games whose random moves avoid completing a line, and then moves that
+# leave the opponent a winning reply, where another move exists: many end
+# on a full board (a draw)
+FULL_BOARDS = ("connect4", "gobang8")
 
 
 @pytest.mark.parametrize("name", list(FAMILIES))
@@ -178,7 +184,8 @@ def test_game_random_trajectories_match_reference(name):
     """16 random games played to the end and two plies past it: at every
     ply the port's legal_mask, play, is_over, encode and final_feature equal
     the JAX game's exactly, and on 4 of the games the independent numpy
-    oracle's legal moves, planes and results."""
+    oracle's legal moves, planes and results.  Reversi's games pass; the
+    games of ``FULL_BOARDS`` fill their boards."""
     kwargs, make_oracle = FAMILIES[name]
     jgame, game = jax_make_game(name, **kwargs), make_game(name, **kwargs)
     oracle = make_oracle()
@@ -189,6 +196,25 @@ def test_game_random_trajectories_match_reference(name):
     def jstep(pos, action):
         pos = jax.vmap(jgame.play)(pos, action)
         return pos, jax.vmap(jgame.is_over)(pos)
+
+    acts = jnp.arange(jgame.max_actions, dtype=jnp.int32)
+
+    def wins(p):
+        """bool[A]: each move's position, and whether it wins for the
+        mover."""
+        after = jax.vmap(lambda a: jgame.play(p, a))(acts)
+        return after, jax.vmap(jgame.is_over)(after)[1] != 0
+
+    @jax.jit
+    def jwinning(pos):
+        """bool[G, A] twice: the move wins for the mover; after the move
+        the opponent has a winning reply."""
+        def one(p):
+            after, win = wins(p)
+            reply = jax.vmap(lambda q: (wins(q)[1] & jgame.legal_mask(q))
+                             .any())(after)
+            return win, reply
+        return jax.vmap(one)(pos)
 
     @jax.jit
     def jinspect(pos):
@@ -204,7 +230,7 @@ def test_game_random_trajectories_match_reference(name):
     finished = np.zeros(G, bool)
     results, passes, extra = np.zeros(G, np.int64), 0, 0
     vs = game.vectorized_state
-    for ply in range(3 * game.max_actions):
+    for ply in range(3 * max(game.max_actions, game.max_game_length)):
         legal, enc, feat = jinspect(jpos)
         legal = np.asarray(legal)
         np.testing.assert_array_equal(game.legal_mask(pos).numpy(), legal)
@@ -217,7 +243,10 @@ def test_game_random_trajectories_match_reference(name):
             np.testing.assert_array_equal(np.asarray(enc)[g, :vs], mover)
             np.testing.assert_array_equal(np.asarray(enc)[g, vs:], other)
         # a random legal action (0 where none is legal)
-        scores = np.where(legal, rng.random(legal.shape), -1.0)
+        scores = np.where(legal, rng.random(legal.shape), -9.0)
+        if name in FULL_BOARDS:
+            win, reply = (legal & np.asarray(x) for x in jwinning(jpos))
+            scores -= 1.5 * win + 3.0 * reply
         action = scores.argmax(1).astype(np.int32)
         passes += int((action[~finished] == game.max_actions - 1).sum()
                       if name.startswith("reversi") else 0)
@@ -246,3 +275,7 @@ def test_game_random_trajectories_match_reference(name):
         assert set(np.unique(results)) <= {-1, 1}
     if name.startswith("reversi"):
         assert passes > 0, "no pass was played"
+    if name in FULL_BOARDS:
+        full = bb.popcount(game.spec, pos.bplayer | pos.bopponent) == \
+            game.spec.nbits
+        assert int(full.sum()) > 0 and (results == 0).any()

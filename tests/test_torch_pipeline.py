@@ -408,3 +408,21 @@ def test_profile_generation_runs_on_the_cpu(tmp_path):
         "selfplay", "train", "duel", "checkpoint with the buffer"]
     for w in rec["windows"]:
         assert w["wall_ms"] > 0 and "idle_share" not in w
+
+
+def test_profile_summary_keeps_whole_kernel_names():
+    """The top kernels by device time, most first, at most eight, each
+    name whole: the functor and dtype of a templated elementwise kernel
+    come after its 80th character."""
+    from alphatpu_torch.profile_generation import top_kernels
+
+    long = ("void at::native::elementwise_kernel<128, 2, at::native::"
+            "gpu_kernel_impl_nocast<at::native::BitwiseAndFunctor<long> >"
+            "(at::TensorIteratorBase&, ...)::{lambda(int)#1}>(int, ...)")
+    assert len(long) > 80
+    by_name = {f"k{i}": float(i) for i in range(12)}
+    by_name[long] = 100.0
+    top = top_kernels(by_name)
+    assert top[0] == (long, 100.0)
+    assert [n for n, _ in top[1:]] == [f"k{i}" for i in range(11, 4, -1)]
+    assert top_kernels(by_name, 2) == [(long, 100.0), ("k11", 11.0)]

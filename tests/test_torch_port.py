@@ -23,6 +23,7 @@ MODULES = (
     "alphatpu_torch", "alphatpu_torch.bitboard", "alphatpu_torch.games",
     "alphatpu_torch.games.connect4", "alphatpu_torch.games.gobang",
     "alphatpu_torch.games.hex", "alphatpu_torch.games.reversi",
+    "alphatpu_torch.games.kernels",
     "alphatpu_torch.nets", "alphatpu_torch.mcts.tree",
     "alphatpu_torch.mcts.newton", "alphatpu_torch.mcts.kernels",
     "alphatpu_torch.mcts.bounds",
@@ -74,7 +75,8 @@ def test_build_paths_are_inside_the_package():
     assert _build.BUILD_DIR.parent == _build.PACKAGE_DIR
     names = {p.name for p in _build.sources()}
     assert names == {"select_apply_packed.cu", "select_apply_packed1.cu",
-                     "select_apply.cu", "select.cu", "backup.cu"}
+                     "select_apply.cu", "select.cu", "backup.cu",
+                     "rules.cu"}
     assert {p.name for p in _build.hashed_sources()} == names | {"walk.cuh"}
     lib = _build.library_path()
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
@@ -115,7 +117,8 @@ def test_signatures_name_every_c_entry_point():
 @pytest.mark.parametrize("entry", [
     "launch_select_apply_packed", "launch_select_apply_packed1",
     "launch_select_apply", "launch_select", "launch_backup",
-    "launch_select_apply_bf16", "launch_select_bf16", "launch_backup_bf16"])
+    "launch_select_apply_bf16", "launch_select_bf16", "launch_backup_bf16",
+    "launch_reversi_play", "launch_reversi_is_over", "launch_line_is_over"])
 def test_signatures_match_the_c_declarations(entry):
     """ctypes passes what ``_SIGNATURES`` declares: a mismatch with the C
     parameters would show only on the card, as a wrong argument."""
@@ -167,6 +170,49 @@ def _grown(device, G, V, seed):
     run_mcts(game, net, tree, rollouts=V - 2, cpuct=1.5, training=True,
              generator=torch.Generator(device=device).manual_seed(seed))
     return game, tree
+
+
+RULES_GAMES = ("reversi6x6", "reversi8x8", "tictactoe", "connect4", "gobang8",
+               "gobang9", "gobang13")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RULES_GAMES)
+def test_rules_kernels_match_plain(name, cuda):
+    """The rules kernels equal their plain versions bit for bit on sampled
+    positions - dead lanes given any action, reversi's pass, full boards
+    - at a lane count that leaves the last block part full; each call
+    launches one kernel."""
+    from alphatpu_torch.games import kernels as R
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts import kernels as K
+
+    game = make_game(name)
+    pos, action = R.sample_positions(game, 1021, seed=7, device=cuda)
+    reversi = name.startswith("reversi")
+    K.reset_launch_counts()
+    got = [game.is_over(pos)]
+    if reversi:
+        got += [game.play(pos, action), game.play(pos, action.int())]
+    got.append(game.is_over(game.play(pos, action)))
+    torch.cuda.synchronize()
+    played = game.play(pos, action) if not reversi else type(pos)(
+        *R.reversi_play_plain(game.spec, pos.bplayer, pos.bopponent,
+                              pos.player, action))
+    if reversi:
+        over = [R.reversi_is_over_plain(game.spec, *p[:4]) for p in
+                (pos, played)]
+        want = [over[0], played, played, over[1]]
+    else:
+        want = [R.line_is_over_plain(game.spec, game.nvict, p.bplayer,
+                                     p.bopponent, p.player)
+                for p in (pos, played)]
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    counts = {k: n for k, (n, _) in K.launch_counts().items() if n}
+    assert counts == ({"reversi_play": 3, "reversi_is_over": 2} if reversi
+                      else {"line_is_over": 2})
 
 
 @pytest.mark.cuda
@@ -549,7 +595,8 @@ def test_switches_launch_engines(env, kernel, cuda, monkeypatch):
     _grown(cuda, 256, 16, 4)
     assert {k.__name__: k.launches for k in K.KERNELS} == {
         "select_apply_packed": 0, "select_apply_packed1": 0,
-        "select_apply": 0, "select": 0, "backup": 1, kernel: 14}
+        "select_apply": 0, "select": 0, "backup": 1, kernel: 14,
+        "reversi_play": 0, "reversi_is_over": 0, "line_is_over": 14}
 
 
 @pytest.mark.cuda
@@ -638,11 +685,12 @@ def test_bench_on_the_card(cuda):
     owes (measure raises otherwise), no illegal move, the device's own
     numbers."""
     from alphatpu_torch import bench
+    from alphatpu_torch.games import make_game
 
     r = bench.measure("tictactoe", games=1024, rounds=4, device="cuda")
     ex = r["extra"]
     assert ex["launches"] == ex["launches_owed"] == bench.owed_launches(
-        1, 64, 4, 1)
+        make_game("tictactoe"), 1, 64, 4, 1)
     assert ex["illegal_moves"] == 0
     assert ex["env_steps"] == 1024 * 4
     assert ex["device"]["type"] == "cuda" and ex["device"]["count"] >= 1
@@ -927,7 +975,8 @@ def test_captured_ablation_equals_eager(name, cuda):
         _, counted = ablate_rollout.time_variant(
             game, net, tree, positions, gen, 16, variant, moves=2,
             captured=captured)
-        assert counted == ablate_rollout.owed_launches(variant, 16, 2)
+        assert counted == ablate_rollout.owed_launches(game, variant,
+                                                        16, 2)
         outs.append([tree.prior, tree.wsum, tree.visits, tree.parent,
                      tree.action_from, tree.expanded, tree.next_idx,
                      gen.get_state()])

@@ -32,7 +32,8 @@ RECORDS = [("Datatictactoe_torch", "Datatictactoe"),
            ("Datatictactoe_l2_torch", "Datatictactoe_l2"),
            ("Datagobang9_torch", "Datagobang9"),
            ("Datagobang8_torch", "Datagobang8"),
-           ("Datareversi6x6_torch", "Datareversi6x6")]
+           ("Datareversi6x6_torch", "Datareversi6x6"),
+           ("Datareversi8x8_torch", "Datareversi8x8")]
 # a gate: the first GATE_GENERATIONS generations at full width, no probe
 GATES = [("Datareversi8x8_torch", "Datareversi8x8"),
          ("Datagobang13_torch", "Datagobang13"),

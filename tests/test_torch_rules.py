@@ -1,0 +1,253 @@
+"""The game rules' kernel wrappers (``alphatpu_torch.games.kernels``) on
+the CPU: their plain versions against the reference's rules on sampled
+positions (dead lanes, passes, full boards), the dispatch (CPU tensors
+take the plain path and count nothing), the geometry each wrapper hands
+its kernel, and the launches a path owes.  The kernels themselves are held
+to the plain versions on the card (``tests/test_torch_port.py``,
+``chip_smoke.py``)."""
+import ctypes
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alphatpu.games import make_game as jax_make_game
+from alphatpu_torch import bitboard as bb
+from alphatpu_torch.games import kernels as R
+from alphatpu_torch.games import make_game
+from alphatpu_torch.mcts import bounds
+from alphatpu_torch.mcts import kernels as K
+
+# the tests run tiny tensors, where torch's CPU thread pool costs more
+# than it saves
+torch.set_num_threads(1)
+
+GAMES = ("reversi6x6", "reversi8x8", "tictactoe", "connect4", "gobang8",
+         "gobang9", "gobang13")
+
+
+@pytest.fixture(autouse=True)
+def zero_counts():
+    """Every test starts and ends with the launch counters at 0: the tests
+    that stand in for a launch count it, and other files in the worker
+    read the counters."""
+    K.reset_launch_counts()
+    yield
+    K.reset_launch_counts()
+
+
+def _eq(port, ref):
+    np.testing.assert_array_equal(port.numpy().astype(np.int64),
+                                  np.asarray(ref).astype(np.int64))
+
+
+@pytest.mark.parametrize("name", GAMES)
+def test_plain_rules_match_reference_on_sampled_positions(name):
+    """On 64 sampled positions - lanes past their game's end given any
+    action, reversi's pass, random full boards - the plain ``play`` and
+    ``is_over`` equal the reference's, and so does ``is_over`` after the
+    move."""
+    game, jgame = make_game(name), jax_make_game(name)
+    pos, action = R.sample_positions(game, 64, seed=len(name))
+    jpos = type(pos)(*(jnp.asarray(x.numpy().astype(ref.dtype))
+                       for x, ref in zip(pos, jgame.initial())))
+    jaction = jnp.asarray(action.numpy().astype(np.int32))
+    for got, want in zip(game.is_over(pos), jax.vmap(jgame.is_over)(jpos)):
+        _eq(got, want)
+    played = game.play(pos, action)
+    jplayed = jax.vmap(jgame.play)(jpos, jaction)
+    for got, want in zip(played, jplayed):
+        _eq(got, want)
+    for got, want in zip(game.is_over(played),
+                         jax.vmap(jgame.is_over)(jplayed)):
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("name", GAMES)
+def test_sampled_positions_cover_the_hard_cases(name):
+    """The sample holds finished games, full boards and, on reversi, the
+    pass action on lanes that must pass and on lanes that need not."""
+    game = make_game(name)
+    pos, action = R.sample_positions(game, 256, seed=1)
+    done, _ = game.is_over(pos)
+    cells = game.spec.nbits
+    stones = bb.popcount(game.spec, pos.bplayer | pos.bopponent)
+    assert bool(done.any()) and bool((~done).any())
+    assert int((stones == cells).sum()) >= 256 // 8
+    assert int(action.min()) >= 0 and int(action.max()) < game.max_actions
+    if name.startswith("reversi"):
+        passing = action == game.max_actions - 1
+        forced = (pos.legal == 0).all(-1)
+        assert bool((passing & forced).any()) and bool((passing & ~forced)
+                                                       .any())
+
+
+@pytest.mark.parametrize("name", GAMES + ("hex7",))
+def test_cpu_rules_take_the_plain_path(name):
+    """On CPU tensors the four game methods run the plain versions: the
+    same tensors as calling them directly, and no launch counted."""
+    game = make_game(name)
+    pos, action = R.sample_positions(game, 32, seed=2)
+    K.reset_launch_counts()
+    done, result = game.is_over(pos)
+    played = game.play(pos, action)
+    assert all(n == (0, 0) for n in K.launch_counts().values())
+    if name.startswith("reversi"):
+        want = R.reversi_is_over_plain(game.spec, pos.bplayer, pos.bopponent,
+                                       pos.legal, pos.player)
+        for got, ref in zip(played, R.reversi_play_plain(
+                game.spec, pos.bplayer, pos.bopponent, pos.player, action)):
+            assert torch.equal(got, ref)
+    elif not name.startswith("hex"):
+        want = R.line_is_over_plain(game.spec, game.nvict, pos.bplayer,
+                                    pos.bopponent, pos.player)
+    else:
+        return
+    assert torch.equal(done, want[0]) and torch.equal(result, want[1])
+
+
+def test_launch_counts_name_the_rules_wrappers():
+    """The rules wrappers join the search kernels' counters, so a graph
+    replay adds their launches as it adds the walks'."""
+    names = set(K.launch_counts())
+    assert {"reversi_play", "reversi_is_over", "line_is_over"} <= names
+    K.reset_launch_counts()
+    K.add_launches({n: (3, 0) if n == "line_is_over" else (0, 0)
+                    for n in names})
+    assert R.line_is_over.launches == 3
+    K.reset_launch_counts()
+    assert R.line_is_over.launches == 0
+
+
+def test_geometry_refuses_what_the_kernels_do_not_take():
+    """Reversi: square 6x6 or 8x8 boards; line games: up to six words,
+    rows and cols up to 31, nvict 1-32.  The masks are the spec's."""
+    for rows, cols in ((7, 7), (8, 6), (4, 4)):
+        with pytest.raises(ValueError, match="reversi kernels"):
+            R.reversi_geometry(bb.BoardSpec(rows, cols))
+    for rows, cols, nvict in ((14, 14, 5), (1, 32, 3), (9, 9, 0),
+                              (9, 9, 33)):
+        with pytest.raises(ValueError, match="line_is_over"):
+            R.line_geometry(bb.BoardSpec(rows, cols), nvict)
+    spec = bb.BoardSpec(6, 6)
+    geo = R.reversi_geometry(spec)
+    assert (geo.rows, geo.cols, geo.words, geo.nvict) == (6, 6, 2, 0)
+    assert geo.masks == tuple(spec.valid_mask) + tuple(
+        spec.not_first_row_mask) + tuple(spec.not_last_row_mask)
+    assert geo.masks[:2] == (0xFFFFFFFF, 0xF)  # 36 cells over two words
+    geo = R.line_geometry(bb.BoardSpec(13, 13), 5)
+    assert (geo.words, geo.nvict, len(geo.masks)) == (6, 5, 18)
+    # a game whose spec the kernel refuses raises on a CUDA tensor instead
+    # of falling back (the check runs before any launch)
+    with pytest.raises(ValueError, match="line_is_over"):
+        R.line_geometry(make_game("hex13").spec, 5)
+
+
+@pytest.mark.parametrize("G,threads", [(1, 32), (2048, 32), (8192, 32),
+                                       (16896, 128), (33792, 128),
+                                       (16384, 64)])
+def test_rules_threads(G, threads):
+    """128 threads a block, halved down to a warp while the card's 132 SMs
+    would not each get a block."""
+    assert R.rules_threads(G) == threads
+    with pytest.raises(ValueError):
+        R.rules_threads(0)
+
+
+@pytest.mark.parametrize("name,entry", [
+    ("reversi8x8", "launch_reversi_play"),
+    ("reversi6x6", "launch_reversi_is_over"),
+    ("gobang13", "launch_line_is_over"),
+    ("connect4", "launch_line_is_over")])
+def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
+    """Where the boards are on the card (here: the dispatch told so), each
+    wrapper launches its entry point with the geometry of its spec and new
+    outputs, counts one launch, and raises when the launch fails - no
+    plain fallback."""
+    game = make_game(name)
+    pos, action = R.sample_positions(game, 40, seed=3)
+    launched = []
+    monkeypatch.setattr(R, "_on_cuda", lambda kernel, t: True)
+    monkeypatch.setattr(R, "_launch",
+                        lambda e, dev, *a: launched.append((e, a)))
+    K.reset_launch_counts()
+    if entry == "launch_reversi_play":
+        out = game.play(pos, action.to(torch.int32))
+    else:
+        out = game.is_over(pos)
+    (got, args), = launched
+    assert got == entry
+    masks = next(a for a in args if isinstance(a, ctypes.Array))
+    geo = (R.reversi_geometry(game.spec) if name.startswith("reversi")
+           else R.line_geometry(game.spec, game.nvict))
+    assert list(masks) == list(geo.masks)
+    ints = args[[id(a) for a in args].index(id(masks)) + 1:]
+    if entry == "launch_reversi_play":
+        assert ints == (40, 32, 8, 8, 2, 32)  # G, action bits, geometry
+    elif entry == "launch_reversi_is_over":
+        assert ints == (40, 6, 6, 2, 32)
+    else:
+        assert ints == (40, geo.rows, geo.cols, geo.words, geo.nvict, 32)
+    assert {n: c for n, (c, _) in K.launch_counts().items() if c} == {
+        entry[len("launch_"):]: 1}
+    for t in out:
+        assert t.shape[0] == 40
+
+    def fail(*a):
+        raise RuntimeError(f"{entry}: CUDA error 1")
+
+    monkeypatch.setattr(R, "_launch", fail)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        game.play(pos, action) if entry == "launch_reversi_play" \
+            else game.is_over(pos)
+
+
+def test_wrappers_check_their_tensors(monkeypatch):
+    monkeypatch.setattr(R, "_on_cuda", lambda kernel, t: True)
+    monkeypatch.setattr(R, "_launch", lambda e, dev, *a: None)
+    game = make_game("reversi8x8")
+    pos, action = R.sample_positions(game, 8, seed=4)
+    with pytest.raises(ValueError, match="bopponent"):
+        game.is_over(pos._replace(bopponent=pos.bopponent[:, :1]))
+    with pytest.raises(ValueError, match="player"):
+        game.is_over(pos._replace(player=pos.player.long()))
+    with pytest.raises(ValueError, match="action"):
+        game.play(pos, action.to(torch.int16))
+
+
+@pytest.mark.parametrize("name,owed", [
+    ("reversi8x8", {"reversi_play": 10, "reversi_is_over": 10,
+                    "line_is_over": 0}),
+    ("gobang13", {"reversi_play": 0, "reversi_is_over": 0,
+                  "line_is_over": 10}),
+    ("connect4", {"reversi_play": 0, "reversi_is_over": 0,
+                  "line_is_over": 10}),
+    ("hex7", {"reversi_play": 0, "reversi_is_over": 0, "line_is_over": 0})])
+def test_rules_owed(name, owed):
+    """10 calls of play and 10 of is_over owe the game's wrappers; the
+    line games play with torch ops, and hex's flood runs as torch ops and
+    owes none."""
+    assert R.rules_owed(make_game(name), 10) == owed
+
+
+@pytest.mark.parametrize("name,G", [("reversi8x8", 8192),
+                                    ("gobang13", 2048)])
+def test_rules_cost(name, G):
+    """Each input byte read once and each output byte written once; the
+    bound is the bytes' time at these sizes."""
+    game = make_game(name)
+    W = game.spec.nwords
+    if name.startswith("reversi"):
+        play = bounds.rules_cost("reversi_play", game.spec, G, 8)
+        assert play.nbytes == G * (2 * W * 8 + 8 + 1) + G * (3 * W * 8 + 1)
+        over = bounds.rules_cost("reversi_is_over", game.spec, G)
+        assert over.nbytes == G * (3 * W * 8 + 1) + G * 2
+        assert play.bound_by == over.bound_by == "bytes"
+    else:
+        over = bounds.rules_cost("line_is_over", game.spec, G, nvict=5)
+        assert over.nbytes == G * (2 * W * 8 + 1) + G * 2
+        assert over.bound_by == "bytes"
+    with pytest.raises(ValueError):
+        bounds.rules_cost("select", game.spec, G)
