@@ -2,7 +2,8 @@
 
     python -m alphatpu_torch.profile_generation --out profile.json
 
-Builds the best net and the learner's copy from seed 0, runs the whole
+Builds the best net from seed 0 (or a checkpoint's best net, ``--ckpt``:
+the trees a trained net grows) and the learner's copy, runs the whole
 generation-mode selfplay stage unprofiled (its wall time, and the buffer
 the train window reads), runs the selfplay and duel windows' calls once
 unprofiled (on the card this captures their rounds: the windows replay
@@ -30,6 +31,7 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from . import checkpoint as ckpt
@@ -37,7 +39,7 @@ from . import graphs, resolve_device
 from .buffer import create_buffer
 from .duel import DuelConfig, duel_half
 from .games import make_game
-from .nets import MLP, config_for_game
+from .nets import MLP, config_for_game, params_from_jax
 from .selfplay import SelfplayConfig, selfplay_generation
 from .train import TrainConfig, adam_init, train_epoch
 
@@ -119,6 +121,9 @@ def main(argv=None) -> int:
                    help="rounds in the selfplay and duel windows")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--depth", type=int, default=None)
+    p.add_argument("--ckpt", default=None,
+                   help="net<N>.npz: its best net, at the game's reference "
+                        "size, in place of seed 0's")
     p.add_argument("--device", default="cuda")
     p.add_argument("--eager", action="store_true",
                    help="run the rounds eagerly, not from CUDA graphs")
@@ -130,7 +135,12 @@ def main(argv=None) -> int:
     game = make_game(args.game)
     kw = {k: v for k, v in (("width", args.width), ("depth", args.depth))
           if v is not None}
-    best = MLP.from_seed(config_for_game(game, **kw), 0, device=dev)
+    if args.ckpt:
+        with np.load(args.ckpt) as z:
+            best = params_from_jax(dict(z), config_for_game(game), device=dev,
+                                   prefix="best/")
+    else:
+        best = MLP.from_seed(config_for_game(game, **kw), 0, device=dev)
     learner = best.copy(trainable=True)
     opt = adam_init(learner)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -410,6 +410,50 @@ def test_profile_generation_runs_on_the_cpu(tmp_path):
         assert w["wall_ms"] > 0 and "idle_share" not in w
 
 
+def test_profile_generation_profiles_a_checkpoints_net(tmp_path,
+                                                     monkeypatch):
+    """``--ckpt`` profiles the best net of a checkpoint: its selfplay is
+    that net's, not seed 0's."""
+    from alphatpu_torch import profile_generation
+    from alphatpu_torch.checkpoint import save_checkpoint
+    from alphatpu_torch.train import adam_init
+
+    nets = []
+    play = profile_generation.selfplay_generation
+
+    def selfplay_generation(game, net, *a, **k):
+        nets.append(net.base.detach().clone())
+        return play(game, net, *a, **k)
+
+    monkeypatch.setattr(profile_generation, "selfplay_generation",
+                        selfplay_generation)
+    main = profile_generation.main
+
+    game = make_game("tictactoe")
+    best = MLP.from_seed(config_for_game(game), 5)
+    train = best.copy(trainable=True)
+    path = save_checkpoint(
+        str(tmp_path / "ck"), 1, best_net=best, train_net=train,
+        opt_state=adam_init(train), elo=0.0, best_generation=1,
+        rng=torch.Generator().manual_seed(0))
+    recs = []
+    for extra in (["--ckpt", path], []):
+        out = tmp_path / "profile.json"
+        assert main(["--device", "cpu", "--game", "tictactoe", "--games",
+                     "16", "--rollouts", "4", "--rounds", "1",
+                     "--out", str(out)] + extra) == 0
+        recs.append(json.loads(out.read_text()))
+    assert recs[0]["args"]["ckpt"] == path
+    # the stage and both windows' calls, then the same without --ckpt
+    assert len(nets) == 6
+    for got in nets[:3]:
+        torch.testing.assert_close(got, best.base, rtol=0, atol=0)
+    assert not torch.equal(nets[3], best.base)
+    assert recs[0]["samples_written"] > 0
+    assert [w["window"] for w in recs[0]["windows"]] == [
+        w["window"] for w in recs[1]["windows"]]
+
+
 def test_profile_summary_keeps_whole_kernel_names():
     """The top kernels by device time, most first, at most eight, each
     name whole: the functor and dtype of a templated elementwise kernel

@@ -43,6 +43,7 @@ MODULES = (
     "alphatpu_torch.benchmarks.ttt_loss_replay",
     "alphatpu_torch.benchmarks.captured_rounds",
     "alphatpu_torch.benchmarks.train_record",
+    "alphatpu_torch.benchmarks.probe_moves",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more

@@ -50,6 +50,9 @@ ENGINES = {
                  lambda m: m.LineProbe(6, 7, 4, depth=4, gravity=True), 30),
     "gobang8": (lambda: OracleGobang(8, 5),
                 lambda m: m.GomokuProbe(8, 8, 5, depth=3), 20),
+    # the record's 13x13 board at a shallower depth than its probe's 5
+    "gobang13": (lambda: OracleGobang(13, 5),
+                 lambda m: m.GomokuProbe(13, 13, 5, depth=3), 30),
     "reversi6x6": (lambda: OracleReversi(6),
                    lambda m: m.ReversiProbe(6, depth=4), 20),
     "hex7": (lambda: OracleHex(7), lambda m: m.HexProbe(7, depth=2), 30),
@@ -95,8 +98,8 @@ def _fields(engine):
 
 
 @pytest.mark.parametrize("name", ["tictactoe", "connect4", "gobang8",
-                                  "gobang9", "reversi6x6", "reversi8x8",
-                                  "hex7", "hex13"])
+                                  "gobang9", "gobang13", "reversi6x6",
+                                  "reversi8x8", "hex7", "hex13"])
 def test_probe_for_game_matches_reference(name):
     """The port's games carry the attributes ``probe_for_game`` reads, so it
     builds the reference's engine for each; an explicit depth is kept."""
@@ -178,6 +181,33 @@ def test_eval_vs_probe_never_falls_back_to_the_cpu(monkeypatch):
         probe.eval_vs_probe(game, net, None, num_games=2, rollouts=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe.main(["--game", "tictactoe", "--ckpt", "unused.npz"])
+
+
+def test_probe_moves_times_every_probe_move(tmp_path):
+    """``benchmarks.probe_moves`` times each of the probe's moves and
+    leaves the games as ``eval_vs_probe`` plays them: the same tally, and
+    one timed move for each probe ply of a live game."""
+    from alphatpu_torch.benchmarks import probe_moves
+
+    out = probe_moves.main([
+        "--game", "tictactoe", "--games", "4", "--rollout", "4",
+        "--depth", "2", "--device", "cpu",
+        "--out", str(tmp_path / "moves.json")])
+    game = make_game("tictactoe")
+    net = MLP.from_seed(config_for_game(game), 0)
+    w, d, l, trace = probe.eval_vs_probe(
+        game, net, torch.Generator().manual_seed(0),
+        probe.probe_for_game(game, 2), num_games=4, rollouts=4,
+        trace=True, device="cpu")
+    assert (out["net_wins"], out["draws"], out["net_losses"]) == (w, d, l)
+    plies = sum(int((r["alive"] & ~r["net_turn"]).sum())
+                for r in trace["records"])
+    assert out["probe_moves"] == len(out["moves"]) == plies
+    assert out["projected_probe_seconds"] == pytest.approx(
+        probe_moves.PROJECT_GAMES * plies / 4
+        * out["seconds_a_move"]["mean"])
+    with open(tmp_path / "moves.json") as f:
+        assert json.loads(f.read()) == out
 
 
 def test_probe_main_reads_either_packages_checkpoint(tmp_path, capsys):

@@ -33,7 +33,8 @@ RECORDS = [("Datatictactoe_torch", "Datatictactoe"),
            ("Datagobang9_torch", "Datagobang9"),
            ("Datagobang8_torch", "Datagobang8"),
            ("Datareversi6x6_torch", "Datareversi6x6"),
-           ("Datareversi8x8_torch", "Datareversi8x8")]
+           ("Datareversi8x8_torch", "Datareversi8x8"),
+           ("Datagobang13_torch", "Datagobang13")]
 # a gate: the first GATE_GENERATIONS generations at full width, no probe
 GATES = [("Datareversi8x8_torch", "Datareversi8x8"),
          ("Datagobang13_torch", "Datagobang13"),
@@ -145,6 +146,24 @@ def test_port_record_matches_the_reference_protocol(port_dir, ref_dir):
         check_stats(old, f"{port_dir}/{earlier['stats']}")
         check_runs(earlier["runs"], port["games"], old[-1]["generation"],
                    f"{port_dir} earlier run")
+    # runs of the same command from other seeds, beside the record: each
+    # held as the record's own lines and runs are, and to the reference's
+    # first generations as the gate is
+    ref_lines = {x["generation"]: x for x in load(ref_dir, "stats.jsonl")}
+    for other in port.get("seed_runs", []):
+        what = f"{port_dir}/{other['stats']}"
+        seed_lines = load(port_dir, other["stats"])
+        check_stats(seed_lines, what)
+        assert f"--seed {other['seed']}" in other["training_command"], what
+        for line in seed_lines[:train_record.GATE_GENERATIONS]:
+            assert train_record.line_fault(line, ref_lines) is None, what
+        check_runs(other["runs"], port["games"],
+                   seed_lines[-1]["generation"], what)
+        cross = other.get("cpu_cross_check")
+        if cross is not None:
+            raw = json.loads(cross["raw"])
+            assert {k: raw[k] for k in keys[1:]} == {k: cross[k]
+                                                     for k in keys[1:]}
 
 
 @pytest.mark.parametrize("port_dir,ref_dir", RECORDS,
