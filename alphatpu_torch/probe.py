@@ -596,11 +596,18 @@ class ProbeRounds(SearchRounds):
                                    r[:, None].float()], dim=1))
 
 
+def _probe_move(job):
+    """One probe move, ``(probe, mover, other, rng) -> (action, rng)``: a
+    pool's worker hands the game's generator back with its state moved on."""
+    probe, mover, other, rng = job
+    return probe.best_action(mover, other, rng), rng
+
+
 def eval_vs_probe(game, net, generator=None, probe=None, *,
                   num_games: int = 64, rollouts: int = 64,
                   cpuct: float = 1.5, temp_moves: int = 8, seed: int = 0,
                   trace: bool = False, device="cuda", uniforms=None,
-                  captured: bool | None = None):
+                  captured: bool | None = None, pool=None):
     """(net_wins, draws, net_losses) over ``num_games`` games against the
     probe, the first half with the net moving first.  The net plays by
     full MCTS on ``device`` (sampling from the root policy for the first
@@ -619,6 +626,10 @@ def eval_vs_probe(game, net, generator=None, probe=None, *,
     (:class:`ProbeRounds`) from CUDA graphs (:mod:`alphatpu_torch.graphs`);
     ``captured=False`` runs them eagerly.  Between them the host reads the
     picks, moves for the probe and hands the actions back.
+
+    ``pool`` (a ``multiprocessing`` pool) moves for the probe in its
+    workers, a ply's games at once; each game's generator travels with its
+    position and comes back, so the actions are those of the serial loop.
 
     ``trace=True`` additionally returns a per-ply record list (the applied
     action, the net's greedy and sampled candidates, whose turn, liveness)
@@ -658,15 +669,14 @@ def eval_vs_probe(game, net, generator=None, probe=None, *,
                         captured)
             greedy, sampled = st.picks.cpu().numpy()
             net_act = sampled if t < temp_moves else greedy
-            actions = np.zeros(G, np.int32)
-            for i in range(G):
-                if done[i]:
-                    continue
-                if net_turn[i]:
-                    actions[i] = net_act[i]
-                else:
-                    actions[i] = probe.best_action(
-                        enc[i, :V] > 0, enc[i, V:] > 0, host_rngs[i])
+            actions = np.where(~done & net_turn, net_act, 0).astype(np.int32)
+            probe_games = np.flatnonzero(~done & ~net_turn)
+            jobs = [(probe, enc[i, :V] > 0, enc[i, V:] > 0, host_rngs[i])
+                    for i in probe_games]
+            moved = (map(_probe_move, jobs) if pool is None else
+                     pool.imap(_probe_move, jobs))
+            for i, (a, rng) in zip(probe_games, moved):
+                actions[i], host_rngs[i] = a, rng
             if trace:
                 records.append({
                     "ply": t, "alive": ~done.copy(), "net_turn": net_turn,

@@ -57,7 +57,12 @@ Phases, each fatal on failure:
    training path's <32,6> walk) at 200 lanes (partial blocks and warps);
    each the level-1 search on the card against the CPU path (which
    reads the card net's outputs), and all five kernels against their
-   plain versions on a tree grown there,
+   plain versions on a tree grown there; then deep, narrow 13x13 trees
+   like a trained net's (DEEP_TREES: the gobang13 net from the seed with
+   its policy head scaled by 16, roots after 20 random plies, V=65): the
+   card against the CPU path at 200 lanes within 1 lane in 512, and all
+   five kernels against their plain versions at 2048 lanes (the record's
+   lanes, the <32,6> walk), the largest depth reached at least 12,
 10. one generation of the training pipeline at full width
    (``pipeline.run_generation``) for each of GEN_GAMES - connect4 (4x512)
    and hex7 (8x512, 49 actions: the 32-lane walk over two slots, and the
@@ -248,6 +253,10 @@ PATH_SHAPES = (
     ("gobang8", ROLLOUTS, 200, CPUCT, True),
     ("gobang13", ROLLOUTS, 200, CPUCT, True),
 )
+# phase 9's deep, narrow trees: game, nodes (64 rollouts), lanes of the
+# kernel parity, lanes of the card-vs-CPU search, the policy head's scale,
+# random plies before the roots, the least largest depth to reach
+DEEP_TREES = ("gobang13", 65, 2048, 200, 16.0, 20, 12)
 # game -> (lanes, rounds) of its continuous selfplay at full width
 FAMILIES = {
     "tictactoe": (1024, 12),
@@ -825,12 +834,15 @@ def bb_full(game, pos):
 
 
 def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
-                  training=True, rollouts=None, stat_dtype=None):
+                  training=True, rollouts=None, stat_dtype=None,
+                  positions=None, limit=None):
     """``run_mcts`` at one engine level on the card and on the CPU, from
     the same uniforms, ``rollouts`` of them (default V) on trees of V
-    nodes.  Exact: the tree structure, visits and (packed
-    levels) wsum; the level-2 prior to one step of its 1/2048 grid, other
-    floats to rtol 1e-4 (the net's matmuls round differently on the two
+    nodes rooted at ``positions`` (CPU tensors; default the initial
+    position), at most ``limit`` lanes diverged (default ``tie_limit``).
+    Exact: the tree structure, visits and (packed levels) wsum; the
+    level-2 prior to one step of its 1/2048 grid, other floats to rtol
+    1e-4 (the net's matmuls round differently on the two
     devices, and a leaf value or prior that lands on the other side of a
     grid point changes a lane; those lanes count as diverged).  On bf16
     stat planes (``stat_dtype``; level 0 whatever ``level`` says) a stored
@@ -847,8 +859,10 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
     probs = torch.rand((R, D, G), generator=torch.Generator().manual_seed(1))
     dtype = stat_dtype or torch.float32
     searched = []
+    root = game.initial(G) if positions is None else positions
     for d, n in ((dev, net), (cpu, net_cpu)):
-        t = init_tree(game, game.initial(G, d), V, stat_dtype=dtype)
+        t = init_tree(game, type(root)(*(x.to(d) for x in root)), V,
+                      stat_dtype=dtype)
         _, pi = run_mcts(game, n, t, rollouts=R, cpuct=cpuct,
                          training=training, probs=probs.to(d),
                          packed_stats=level)
@@ -862,7 +876,7 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
     bad = diverged_lanes(tuple(getattr(tg, f).cpu() for f in fields),
                          tuple(getattr(tc, f) for f in fields))
     n_bad = int(bad.sum())
-    if n_bad > tie_limit(G):
+    if n_bad > (tie_limit(G) if limit is None else limit):
         raise AssertionError(f"search card vs CPU, level {level}: {n_bad} "
                              "diverged lanes")
     ok = ~bad
@@ -877,6 +891,7 @@ def search_vs_cpu(game, net, net_cpu, dev, V, G, level, cpuct=CPUCT,
     print(f"search on the card vs the CPU path, {game.name}, level {level} "
           f"(G={G}, R={R}, V={V}, cpuct {cpuct}, training={training}"
           + (", bf16 stat planes" if dtype == torch.bfloat16 else "")
+          + (", deep trees" if positions is not None else "")
           + f"): diverged lanes {n_bad}/{G}")
 
 
@@ -1124,6 +1139,52 @@ def path_shapes(K, dev, gen, shapes) -> dict:
             errs[k] = max(errs[k], r["err"])
         del net_g, tree
     return errs
+
+
+def deep_trees(K, dev, gen, card) -> dict:
+    """Phase 9's deep, narrow trees (``DEEP_TREES``), like those of a
+    trained gobang13 net: the net from the seed with its policy head
+    scaled up (a sharp prior), roots after random legal plies drawn with
+    numpy.  The level-1 search on the card against the CPU path fed the
+    card net's outputs, within 1 lane in 512; then a tree grown by the
+    card's level-1 search at the record's lanes, whose largest depth must
+    reach the floor, and all five kernels against their plain versions on
+    it (0 diverged lanes).  Returns each kernel's largest error."""
+    import torch
+
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts.deep_trees import (node_depths,
+                                                opening_positions, sharpen)
+    from alphatpu_torch.mcts.search import run_mcts
+    from alphatpu_torch.mcts.tree import init_tree
+    from alphatpu_torch.nets import MLP, config_for_game
+
+    name, V, G, Gc, factor, plies, floor = DEEP_TREES
+    g = make_game(name)
+    net = sharpen(MLP.from_seed(config_for_game(g), SEED, device=dev), factor)
+    t0 = time.perf_counter()
+    pos, _ = opening_positions(g, Gc, plies, SEED)
+    search_vs_cpu(g, net, card_outputs(net, dev), dev, V, Gc, 1,
+                  rollouts=V - 1, positions=pos, limit=math.ceil(Gc / 512))
+    pos, _ = opening_positions(g, G, plies, SEED, device=dev)
+    tree = init_tree(g, pos, V)
+    run_mcts(g, net, tree, rollouts=V - 2, cpuct=CPUCT, training=True,
+             generator=gen)
+    depth = node_depths(tree.parent)
+    print(f"deep trees, {name} (policy head x{factor:g}, roots after "
+          f"{plies} random plies), {G} lanes, V={V}: depth reached largest "
+          f"{depth.max()}, mean {depth[depth > 0].mean():.2f}, mean of each "
+          f"lane's largest {depth.max(0).mean():.2f}")
+    if depth.max() < floor:
+        raise AssertionError(f"deep trees: largest depth {depth.max()} < "
+                             f"{floor}")
+    D = min(g.max_game_length, V)
+    geo = K.walk_geometry(g.max_actions, G, V)
+    errs = parity(K, tree, D, gen, CPUCT, K.value_scale(V),
+                  f"deep trees {name} A={g.max_actions} V={V} G={G} D={D} "
+                  f"(walk <{geo.lanes},{geo.slots}>)", False)
+    print(f"deep trees: {time.perf_counter() - t0:.3f} s  [{card}]")
+    return {k: r["err"] for k, r in errs.items()}
 
 
 def pipeline_generation(K, dev, card: str, game_name: str,
@@ -2776,6 +2837,9 @@ def smoke(dev, card: str, kind: str) -> int:
 
     # ---- 9. the path's shapes: card against CPU, kernels against plain ----
     for k, e in path_shapes(K, dev, gen, PATH_SHAPES).items():
+        errs[k] = max(errs[k], e)
+    for k, e in deep_trees(K, dev, torch.Generator(device=dev).manual_seed(
+            SEED + 4), card).items():
         errs[k] = max(errs[k], e)
 
     # ---- 10. one generation of the training pipeline ----

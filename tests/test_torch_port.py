@@ -26,7 +26,7 @@ MODULES = (
     "alphatpu_torch.games.kernels",
     "alphatpu_torch.nets", "alphatpu_torch.mcts.tree",
     "alphatpu_torch.mcts.newton", "alphatpu_torch.mcts.kernels",
-    "alphatpu_torch.mcts.bounds",
+    "alphatpu_torch.mcts.bounds", "alphatpu_torch.mcts.deep_trees",
     "alphatpu_torch.mcts.search", "alphatpu_torch.buffer",
     "alphatpu_torch.selfplay", "alphatpu_torch.train", "alphatpu_torch.duel",
     "alphatpu_torch.checkpoint", "alphatpu_torch.pipeline",
@@ -44,6 +44,7 @@ MODULES = (
     "alphatpu_torch.benchmarks.captured_rounds",
     "alphatpu_torch.benchmarks.train_record",
     "alphatpu_torch.benchmarks.probe_moves",
+    "alphatpu_torch.benchmarks.probe_pair",
 )
 
 # the tests run tiny tensors, where torch's CPU thread pool costs more

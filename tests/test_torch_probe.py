@@ -239,3 +239,135 @@ def test_probe_main_reads_either_packages_checkpoint(tmp_path, capsys):
     rec = json.loads(lines[0])
     assert rec["game"] == "tictactoe" and rec["probe_depth"] == 3
     assert rec["net_wins"] + rec["draws"] + rec["net_losses"] == 4
+
+
+def _probe_ckpt(tmp_path, seed=4):
+    game = make_game("tictactoe")
+    best = MLP.from_seed(config_for_game(game), seed)
+    train = best.copy(trainable=True)
+    return save_checkpoint(
+        str(tmp_path / "ck"), 1, best_net=best, train_net=train,
+        opt_state=adam_init(train), elo=0.0, best_generation=1,
+        rng=torch.Generator().manual_seed(0))
+
+
+def _pair_play(path, out, *extra):
+    from alphatpu_torch.benchmarks import probe_pair
+
+    return probe_pair.main([
+        "play", "--game", "tictactoe", "--ckpt", path, "--games", "6",
+        "--rollout", "8", "--depth", "2", "--device", "cpu", "--out",
+        str(out), *extra])
+
+
+def test_probe_pair_plays_the_same_games_from_a_seed(tmp_path):
+    """Two CPU runs of ``probe_pair play`` from one seed, the second with
+    the probe's moves in two worker processes: the same trace, ply for
+    ply, and the tally ``eval_vs_probe`` gives on the same uniforms."""
+    from alphatpu_torch.benchmarks import probe_pair
+
+    path = _probe_ckpt(tmp_path)
+    a = _pair_play(path, tmp_path / "a.json")
+    b = _pair_play(path, tmp_path / "b.json", "--workers", "2")
+    assert a["trace"] == b["trace"]
+    cmp = probe_pair.main(["compare", str(tmp_path / "a.json"),
+                           str(tmp_path / "b.json")])
+    assert cmp["identical"] == cmp["same_actions"] == 6
+    assert cmp["parting"] == 0 and cmp["wdl"][0] == cmp["wdl"][1]
+    game = make_game("tictactoe")
+    with np.load(path) as z:
+        net = params_from_jax(dict(z), config_for_game(game), prefix="best/")
+    draws = probe_pair.PlyDraws(0, 8, 8, 6)
+    w, d, l = probe.eval_vs_probe(
+        game, net, None, probe.probe_for_game(game, 2), num_games=6,
+        rollouts=8, device="cpu", uniforms=draws.uniforms())
+    assert [w, d, l] == probe_pair.wdl(a) and w + d + l == 6
+    for g in a["trace"]:
+        assert len(g["actions"]) == len(g["greedy"]) == len(g["sampled"])
+        assert g["outcome"] in probe_pair.OUTCOMES
+    # ply t's uniforms come from default_rng([seed, t]) whatever was drawn
+    probs, move = draws.draw(3)
+    rng = np.random.default_rng([0, 3])
+    np.testing.assert_array_equal(probs.numpy(),
+                                  rng.random((8, 8, 6), dtype=np.float32))
+    np.testing.assert_array_equal(move.numpy(),
+                                  rng.random(6, dtype=np.float32))
+
+
+@pytest.mark.parametrize("key,game,ply", [("sampled", 2, 1),
+                                          ("actions", 5, 0),
+                                          ("greedy", 0, 3)])
+def test_probe_pair_compare_finds_a_planted_difference(tmp_path, key, game,
+                                                       ply):
+    """One pick changed at one ply of one game: ``compare`` reports that
+    game alone, parting at that ply (and its applied actions there only
+    where the applied action was the one changed)."""
+    import copy
+
+    from alphatpu_torch.benchmarks import probe_pair
+
+    a = _pair_play(_probe_ckpt(tmp_path), tmp_path / "a.json")
+    b = copy.deepcopy(a)
+    g = b["trace"][game]
+    g[key][ply] = (g[key][ply] + 1) % 9
+    cmp = probe_pair.compare(a, b)
+    assert cmp["parting"] == 1 and cmp["identical"] == 5
+    (part,) = cmp["games_parting"]
+    assert (part["game"], part["ply"]) == (game, ply)
+    assert part["actions_ply"] == (ply if key == "actions" else None)
+    assert cmp["same_actions"] == 6 - (key == "actions")
+    assert cmp["first_ply_histogram"] == {ply: 1}
+
+
+def test_probe_pair_rerun_and_classify_on_the_cpu(tmp_path):
+    """The attribution's two halves on the CPU: a trace from another net
+    parts from the first; ``rerun`` rebuilds each first divergence's ply
+    from the first trace and reproduces its picks (the plain versions are
+    the CPU's path, so kernel and plain agree), and ``classify`` replays
+    the recorded net outputs to the same picks and, with the other net's
+    checkpoint, reproduces the other trace's picks: net rounding."""
+    from alphatpu_torch.benchmarks import probe_pair
+
+    a = _pair_play(_probe_ckpt(tmp_path / "x", 4), tmp_path / "a.json")
+    other = _probe_ckpt(tmp_path / "y", 5)
+    b = _pair_play(other, tmp_path / "b.json")
+    cmp = probe_pair.compare(a, b)
+    assert cmp["parting"] > 0
+    rr = probe_pair.main([
+        "rerun", "--ckpt", a["ckpt"], "--card", str(tmp_path / "a.json"),
+        "--cpu", str(tmp_path / "b.json"), "--device", "cpu", "--out",
+        str(tmp_path / "rerun")])
+    assert all(all(p["reproduced"]) for p in rr["plies"])
+    assert not any(any(p["kernel_vs_plain"]) for p in rr["plies"])
+    assert {g for p in rr["plies"] for g in p["games"]} == {
+        p["game"] for p in cmp["games_parting"]}
+    out = probe_pair.main([
+        "classify", "--ckpt", other, "--rerun", str(tmp_path / "rerun"),
+        "--cpu", str(tmp_path / "b.json"), "--out",
+        str(tmp_path / "classes.json")])
+    assert out["classes"] == {"net rounding": len(out["lanes"])}
+    assert out["logit_max_abs_diff"] > 0
+
+
+def test_probe_pair_selfplay_rounds_compare(tmp_path):
+    """``probe_pair selfplay``: round r's uniforms from ``default_rng([seed,
+    r])``, so two runs from one seed play the same lanes round for round
+    (no round parts) and another seed's part at some round."""
+    from alphatpu_torch.benchmarks import probe_pair
+
+    path = _probe_ckpt(tmp_path)
+    runs = []
+    for i, seed in enumerate((0, 0, 1)):
+        runs.append(probe_pair.main([
+            "selfplay", "--game", "tictactoe", "--ckpt", path, "--games",
+            "4", "--rollout", "8", "--rounds", "10", "--seed", str(seed),
+            "--device", "cpu", "--out", str(tmp_path / f"sp{i}.json")]))
+    a, b, c = runs
+    assert a["games_finished"] > 0 and a["illegal_moves"] == 0
+    assert len(a["lanes"]) == 10 and len(a["lanes"][0]) == 4
+    same = probe_pair.compare(a, b)
+    assert same["first_round_parting"] is None
+    assert same["mean_length"][0] == same["mean_length"][1]
+    other = probe_pair.compare(a, c)
+    assert other["first_round_parting"] is not None
+    assert other["lanes_parted_by_round"][other["first_round_parting"]] > 0

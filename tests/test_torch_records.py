@@ -166,6 +166,72 @@ def test_port_record_matches_the_reference_protocol(port_dir, ref_dir):
                                                      for k in keys[1:]}
 
 
+def test_gobang13_paired_probe_is_its_traces():
+    """gobang13's ``paired`` block: net 56 of each seed played the same
+    256 games (the record's protocol, one set of numpy-drawn uniforms) on
+    the card captured, the card eager and the port's CPU path.  Every
+    figure of the block is ``probe_pair.compare`` of the committed traces;
+    captured equals eager on every ply; every first divergence between the
+    card and the CPU was searched again and classified, and the classes
+    are those of the committed ``classify`` output."""
+    from alphatpu_torch.benchmarks import probe_pair
+
+    port = load("Datagobang13_torch", "probe.json")
+    paired = port["paired"]
+    assert paired["card"] and paired["seed"] == 0
+    for net in paired["nets"]:
+        runs = {k: load("Datagobang13_torch", v)
+                for k, v in net["traces"].items()}
+        assert set(runs) == {"card_captured", "card_eager", "cpu"}
+        for name, run in runs.items():
+            assert run["kind"] == "probe" and run["game"] == port["game"]
+            assert (run["games"], run["seed"]) == (paired["games"],
+                                                   paired["seed"]), name
+            assert (run["rollouts"], run["probe_depth"], run["temp_moves"]) \
+                == (port["rollouts"], port["probe_depth"],
+                    temp_moves(port)), name
+            assert probe_pair.wdl(run) == net["wdl"][name], name
+            assert sum(net["wdl"][name]) == paired["games"]
+            assert run["device"] == ("cpu" if name == "cpu" else "cuda")
+        assert runs["card_captured"]["captured"]
+        assert not runs["card_eager"]["captured"]
+        same = probe_pair.compare(runs["card_captured"], runs["card_eager"])
+        assert same["identical"] == paired["games"]
+        assert net["captured_equals_eager"]
+        cmp = probe_pair.compare(runs["card_captured"], runs["cpu"])
+        for key in ("identical", "same_actions", "parting",
+                    "outcome_changed", "score_difference", "spread"):
+            assert net[key] == cmp[key], key
+        assert net["first_divergence_histogram"] == {
+            str(k): v for k, v in cmp["first_ply_histogram"].items()}
+        classes = load("Datagobang13_torch", net["classes"])
+        divergences = {(g, t) for t, games in
+                       probe_pair.divergent_plies(cmp).items()
+                       for g in games}
+        assert {(x["game"], x["ply"]) for x in classes["lanes"]} == \
+            divergences
+        assert net["attribution"] == classes["classes"]
+        assert sum(net["attribution"].values()) == len(divergences)
+        rerun = load("Datagobang13_torch", net["rerun"])
+        assert {t: g for t, g in probe_pair.divergent_plies(cmp).items()} \
+            == {p["ply"]: p["games"] for p in rerun["plies"]}
+        assert all(all(p["reproduced"]) for p in rerun["plies"])
+        assert net["kernel_vs_plain_lanes"] == sum(
+            p["kernel_vs_plain_lanes"] for p in rerun["plies"])
+    # one selfplay generation of net 56 on the card and on the CPU path
+    sp = paired["selfplay"]
+    card, cpu = (load("Datagobang13_torch", sp["traces"][k])
+                 for k in ("card", "cpu"))
+    assert (card["device"], cpu["device"]) == ("cuda", "cpu")
+    assert (card["games"], card["rounds"]) == (cpu["games"], cpu["rounds"])
+    cmp = probe_pair.compare(card, cpu)
+    assert sp["mean_length"] == cmp["mean_length"]
+    assert sp["games_finished"] == cmp["games_finished"]
+    assert sp["first_round_parting"] == cmp["first_round_parting"]
+    assert sp["lanes_parted_last_round"] == cmp["lanes_parted_by_round"][-1]
+    assert sp["illegal_moves"] == [0, 0]
+
+
 @pytest.mark.parametrize("port_dir,ref_dir", RECORDS,
                          ids=[r[0] for r in RECORDS])
 def test_port_record_trained_at_the_reference_level(port_dir, ref_dir):
