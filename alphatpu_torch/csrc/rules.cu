@@ -1,19 +1,23 @@
 // rules: the game rules the search runs once per rollout - reversi's move
-// (reversi_play) and end test (reversi_is_over), and the line games' end
-// test (line_is_over: tictactoe, gobang, connect4).
+// (reversi_play) and end test (reversi_is_over), the line games' end test
+// (line_is_over: tictactoe, gobang, connect4) and hex's (hex_is_over).
 //
 // Replaces no Pallas kernel.  The reference writes each rule as a static
 // Python loop of jnp bit operations - reversi's _legal_play_dir,
 // legal_board, _flip_dir, flip_board, play and is_over
 // (alphatpu/games/reversi.py:71-153), gobang's is_over
-// (alphatpu/games/gobang.py:65-86) and connect4's
-// (alphatpu/games/connect4.py:86-106) - traced into its one jitted search
+// (alphatpu/games/gobang.py:65-86), connect4's
+// (alphatpu/games/connect4.py:86-106) and hex's connectivity flood
+// (alphatpu/games/hex.py:95-110) - traced into its one jitted search
 // program, where XLA fuses each chain of bit operations into a few loop
 // fusions.  Run op by op, the port's torch versions of the same rules
 // (alphatpu_torch/games/kernels.py, *_plain) cost hundreds of launches a
 // call: these kernels are the port's counterpart of XLA's fusion.  Each
 // does the plain version's operations in the plain version's order, so
-// its outputs equal the plain version's bit for bit for any input.
+// its outputs equal the plain version's bit for bit for any input.  Hex's
+// flood is 2N-2 dependent steps of three shifts each (up, right, down):
+// the plain version runs each shift word by word, some 5,700 launches a
+// call on hex13.
 //
 // What bounds them on Hopper: the launch.  At 8192 games a call reads and
 // writes under 1 MB (about 0.3 us at 3.35 TB/s) and does a few thousand
@@ -25,11 +29,12 @@
 // at bit r + rows * c.  Reversi's two words are joined into one 64-bit
 // value (36 or 64 cells); a shift of that value equals the plain
 // version's two-word shift, and the valid mask clears what the 6x6 board
-// does not hold.  The line kernel keeps W 32-bit words (gobang13: six) and
-// shifts across them as bitboard._shift does.  Geometry and masks come
+// does not hold.  The line and hex kernels keep W 32-bit words (gobang13:
+// six, hex13: seven) and shift across them as bitboard._shift does; the
+// flood's steps run as a loop inside the thread.  Geometry and masks come
 // from Python (games/kernels.py: reversi_geometry, line_geometry,
-// rules_threads); each entry point checks them against the masks it
-// derives from rows and cols and refuses any geometry it has no
+// hex_geometry, rules_threads); each entry point checks them against the
+// masks it derives from rows and cols and refuses any geometry it has no
 // instantiation for.
 #include <cuda_runtime.h>
 
@@ -41,7 +46,9 @@ typedef unsigned long long u64;
 typedef uint32_t u32;
 
 constexpr int kMaxThreads = 128;
-constexpr int kMaxWords = 6;
+constexpr int kMaxWords = 7;      // hex13: 196 cells
+constexpr int kLineMaxWords = 6;  // gobang13: 169 cells
+constexpr int kHexMaxSize = 13;   // hex<N>, N + 1 rows with the border
 
 // The spec's masks, word by word: valid cells, not the first row, not the
 // last row (BoardSpec.valid_mask, not_first_row_mask, not_last_row_mask).
@@ -350,6 +357,65 @@ void line(const void* bplayer, const void* bopponent, const void* player,
       static_cast<int8_t*>(result), m, G, rows, rows * cols, nvict);
 }
 
+// ---------------------------------------------------------------------------
+// hex: the connectivity flood on W 32-bit words
+// ---------------------------------------------------------------------------
+
+// kernels.hex_is_over_plain on a board of `rows` = N + 1 rows and columns:
+// from the previous mover's stones a, 2N-2 steps of
+//   b = up(a), c = right(b), a = down((a & (b | c)) | (b & c)),
+// then, where that side owns the row-0 border (player == 1), a |= the
+// seed of step j: row 0 from column 2 + j to N.  Won where the corner
+// (row N, column N) is reached.
+template <int W>
+__global__ void __launch_bounds__(kMaxThreads) hex_is_over_kernel(
+    const int64_t* __restrict__ bopponent, const int8_t* __restrict__ player,
+    bool* __restrict__ done, int8_t* __restrict__ result, Masks masks, int G,
+    int rows) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const int n = rows - 1;
+  const int8_t p = player[g];
+  const bool reseed = p == 1;
+  Board<W> a = load<W>(bopponent, g);
+  for (int j = 1; j <= 2 * n - 2; ++j) {
+    Board<W> b = shift_down(a, 1, masks);  // up
+#pragma unroll
+    for (int w = 0; w < W; ++w) b.w[w] &= masks.not_last_row[w];
+    const Board<W> c = shift_up(b, rows, masks);  // right
+    Board<W> x;
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      x.w[w] = (a.w[w] & (b.w[w] | c.w[w])) | (b.w[w] & c.w[w]);
+    a = shift_up(x, 1, masks);  // down
+#pragma unroll
+    for (int w = 0; w < W; ++w) a.w[w] &= masks.not_first_row[w];
+    if (reseed) {
+      // row 0's cells (r = 0: bits rows * c) from bit rows * (2 + j) up
+      const int from = rows * (2 + j);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int lo = from - 32 * w;
+        const u32 upper = lo <= 0 ? ~0u : lo >= 32 ? 0u : ~0u << lo;
+        a.w[w] |= upper & masks.valid[w] & ~masks.not_first_row[w];
+      }
+    }
+  }
+  const int corner = rows * rows - 1;
+  const bool win = (a.w[corner / 32] >> (corner % 32)) & 1u;
+  done[g] = win;
+  result[g] = win ? static_cast<int8_t>(-p) : int8_t{0};
+}
+
+template <int W>
+void hex(const void* bopponent, const void* player, void* done, void* result,
+         const Masks& m, int G, int rows, int threads, cudaStream_t stream) {
+  hex_is_over_kernel<W><<<blocks_for(G, threads), threads, 0, stream>>>(
+      static_cast<const int64_t*>(bopponent),
+      static_cast<const int8_t*>(player), static_cast<bool*>(done),
+      static_cast<int8_t*>(result), m, G, rows);
+}
+
 }  // namespace
 
 // Reversi.play on boards i64[G, 2]: action i32 (action_bits 32) or i64
@@ -421,7 +487,8 @@ extern "C" int launch_line_is_over(const void* bplayer, const void* bopponent,
                                    int threads, void* stream) {
   Masks m;
   if (G < 1 || rows < 1 || rows > 31 || cols < 1 || cols > 31 ||
-      words < 1 || words > kMaxWords || words != (rows * cols + 31) / 32 ||
+      words < 1 || words > kLineMaxWords ||
+      words != (rows * cols + 31) / 32 ||
       nvict < 1 || nvict > 32 || !threads_ok(threads) ||
       !masks_match(static_cast<const u32*>(masks), rows, cols, words, &m))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -439,6 +506,40 @@ extern "C" int launch_line_is_over(const void* bplayer, const void* bopponent,
                     cols, nvict, threads, st); break;
     default: line<6>(bplayer, bopponent, player, done, result, m, G, rows,
                      cols, nvict, threads, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Hex.is_over on the previous mover's board i64[G, words] (1 to 7) and
+// player i8[G], hex<N> for N from 2 to 13 (rows = cols = N + 1): done
+// bool[G], result i8[G].
+extern "C" int launch_hex_is_over(const void* bopponent, const void* player,
+                                  void* done, void* result,
+                                  const void* masks, int G, int rows,
+                                  int cols, int words, int threads,
+                                  void* stream) {
+  Masks m;
+  if (G < 1 || rows != cols || rows < 3 || rows > kHexMaxSize + 1 ||
+      words != (rows * cols + 31) / 32 || words > kMaxWords ||
+      !threads_ok(threads) ||
+      !masks_match(static_cast<const u32*>(masks), rows, cols, words, &m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (words) {
+    case 1: hex<1>(bopponent, player, done, result, m, G, rows, threads, st);
+      break;
+    case 2: hex<2>(bopponent, player, done, result, m, G, rows, threads, st);
+      break;
+    case 3: hex<3>(bopponent, player, done, result, m, G, rows, threads, st);
+      break;
+    case 4: hex<4>(bopponent, player, done, result, m, G, rows, threads, st);
+      break;
+    case 5: hex<5>(bopponent, player, done, result, m, G, rows, threads, st);
+      break;
+    case 6: hex<6>(bopponent, player, done, result, m, G, rows, threads, st);
+      break;
+    default: hex<7>(bopponent, player, done, result, m, G, rows, threads,
+                    st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,9 @@ Counterpart of :mod:`alphatpu.games.hex`:
 * ``is_over`` is the bit-parallel connectivity flood: 2N-2 steps of
   ``a = down((a & (b|c)) | (b & c))`` with ``b = up(a)``, ``c = right(b)``,
   re-seeding part of row 0 at each step when the side that just moved owns
-  that border; the game is won iff the bottom-right corner is reached,
+  that border; the game is won iff the bottom-right corner is reached
+  (the ``hex_is_over`` kernel on the card,
+  :mod:`alphatpu_torch.games.kernels`),
 * the state carries the reference's ``lp`` counter (cells left).
 
 Hex13 needs 196 bits, seven words.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import bitboard as bb
+from . import kernels as R
 from .base import Game
 
 
@@ -34,6 +37,8 @@ class HexState(NamedTuple):
 
 
 class Hex(Game):
+    is_over_kernel = "hex_is_over"
+
     def __init__(self, n: int = 7):
         self.n = n
         m = n + 1
@@ -54,11 +59,6 @@ class Hex(Game):
         acts = np.arange(nn)
         x, y = acts // n, acts % n
         self._action_cells = (y + 1) + m * (x + 1)
-        # flood re-seed masks, step j = 1 .. 2n-2: row 0, columns 2+j .. n
-        self._seeds = np.stack([
-            bb.from_coords(self.spec, [(0, c) for c in range(2 + j, m)])
-            for j in range(1, 2 * n - 1)])
-        self._corner_cell = m * m - 1  # (row n, column n)
 
     def initial(self, num_games: int, device=None) -> HexState:
         def board(name):
@@ -96,16 +96,6 @@ class Hex(Game):
                          for r, row in enumerate(self._board_rows(pos)))
 
     def is_over(self, pos: HexState):
-        spec = self.spec
-        a = pos.bopponent  # stones (border included) of the side that moved
-        # the side that just moved owns the row-0 border
-        reseed = (pos.player == 1)[:, None]
-        seeds = self._const("_seeds", a.device)
-        for j in range(2 * self.n - 2):
-            b = bb.up(spec, a)
-            c = bb.right(spec, b)
-            a = bb.down(spec, (a & (b | c)) | (b & c))
-            a = torch.where(reseed, a | seeds[j], a)
-        win = bb.get_bit(spec, a, torch.full_like(pos.lp, self._corner_cell))
-        # a game of hex ends only by a connection, won by the previous mover
-        return win, torch.where(win, -pos.player, 0).to(torch.int8)
+        # the flood runs from the stones (border included) of the side
+        # that just moved
+        return R.hex_is_over(self.spec, self.n, pos.bopponent, pos.player)

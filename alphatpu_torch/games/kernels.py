@@ -2,7 +2,7 @@
 kernel wrappers with their launch counters, and the plain torch version of
 each.
 
-Three kernels, written by hand in CUDA C++ for Hopper
+Four kernels, written by hand in CUDA C++ for Hopper
 (``alphatpu_torch/csrc/rules.cu``), none of which replaces a Pallas
 kernel.  The reference writes each rule as a static Python loop of ``jnp``
 bit operations that is traced into its one jitted search program, where
@@ -18,7 +18,10 @@ counterpart of that fusion:
   can move, the sign of the disc difference times ``player``,
 * :func:`line_is_over` - ``Gobang.is_over`` and ``Connect4.is_over``
   (``Game._line_win``): ``nvict`` in a row along four directions, or a
-  full board; ``-player`` on a win.
+  full board; ``-player`` on a win,
+* :func:`hex_is_over` - ``Hex.is_over``: the bit-parallel connectivity
+  flood from the previous mover's border, 2N-2 steps; a game of hex ends
+  only by a connection, won by the previous mover.
 
 Each wrapper runs its plain version (``*_plain``, the torch bodies the
 games ran before) when - and only when - its boards lie on the CPU; on
@@ -30,9 +33,9 @@ launches; they join the search kernels' accounting
 
 The geometry - rows, cols, words, ``nvict`` and the spec's three masks -
 comes from the :class:`~alphatpu_torch.bitboard.BoardSpec`
-(:func:`reversi_geometry`, :func:`line_geometry`); the C entry points
-refuse any other.  Boards are the port's: 32-bit words in int64 elements,
-cell ``(r, c)`` at bit ``r + rows * c``.
+(:func:`reversi_geometry`, :func:`line_geometry`, :func:`hex_geometry`);
+the C entry points refuse any other.  Boards are the port's: 32-bit
+words in int64 elements, cell ``(r, c)`` at bit ``r + rows * c``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ NUM_SMS = 132  # H100 SXM
 RULES_THREADS = 128  # most threads a block of a rules kernel
 REVERSI_SIZES = (6, 8)
 LINE_MAX_WORDS = 6  # gobang13's 169 cells
+HEX_SIZES = range(2, 14)  # hex<N>: hex13's (N+1)^2 = 196 cells, 7 words
 
 
 class RulesGeometry(NamedTuple):
@@ -92,6 +96,17 @@ def line_geometry(spec: bb.BoardSpec, nvict: int) -> RulesGeometry:
                          f"takes up to {LINE_MAX_WORDS} words, rows and cols "
                          "up to 31, nvict 1-32")
     return _geometry(spec, nvict)
+
+
+@functools.cache
+def hex_geometry(spec: bb.BoardSpec) -> RulesGeometry:
+    """The geometry of a hex board: N from 2 to 13, embedded in a square
+    of N+1 rows (the border), 1 to 7 words."""
+    if spec.rows != spec.cols or spec.rows - 1 not in HEX_SIZES:
+        raise ValueError(f"hex_is_over: a {spec.rows}x{spec.cols} board; "
+                         f"the kernel takes hex<N> for N in {HEX_SIZES.start}"
+                         f"-{HEX_SIZES.stop - 1}, (N+1)x(N+1) embedded")
+    return _geometry(spec, 0)
 
 
 def rules_threads(G: int) -> int:
@@ -211,6 +226,36 @@ def line_is_over_plain(spec: bb.BoardSpec, nvict: int, bplayer, bopponent,
     return done, result
 
 
+@functools.lru_cache(maxsize=None)
+def hex_seeds(spec: bb.BoardSpec, device) -> torch.Tensor:
+    """i64[2N-2, words]: the flood's re-seed at step j = 1 .. 2N-2, the
+    row-0 border from column 2+j to N."""
+    n = spec.rows - 1
+    return torch.as_tensor(np.array([
+        bb.from_coords(spec, [(0, c) for c in range(2 + j, n + 1)])
+        for j in range(1, 2 * n - 1)], dtype=np.int64).reshape(
+            -1, spec.nwords), device=device)
+
+
+def hex_is_over_plain(spec: bb.BoardSpec, n: int, bopponent, player):
+    """(bool[G] done, int8[G] result): the flood of ``a = down((a & (b|c))
+    | (b & c))`` with ``b = up(a)``, ``c = right(b)`` from the previous
+    mover's stones (border included), 2N-2 steps, re-seeding part of row
+    0 at each step when the previous mover owns that border
+    (``player == 1``); won where the bottom-right corner is reached."""
+    a = bopponent
+    reseed = (player == 1)[:, None]
+    seeds = hex_seeds(spec, a.device)
+    for j in range(2 * n - 2):
+        b = bb.up(spec, a)
+        c = bb.right(spec, b)
+        a = bb.down(spec, (a & (b | c)) | (b & c))
+        a = torch.where(reseed, a | seeds[j], a)
+    corner = spec.nbits - 1  # (row N, column N)
+    win = ((a[:, corner // bb.WORD_BITS] >> corner % bb.WORD_BITS) & 1) != 0
+    return win, torch.where(win, -player, 0).to(torch.int8)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -305,7 +350,27 @@ def line_is_over(spec: bb.BoardSpec, nvict: int, bplayer, bopponent,
     return done, result
 
 
-RULES = (reversi_play, reversi_is_over, line_is_over)
+def hex_is_over(spec: bb.BoardSpec, n: int, bopponent, player):
+    """``Hex.is_over`` on the previous mover's board i64[G, words] and
+    ``player`` i8[G]: (bool[G] done, int8[G] result)."""
+    if not _on_cuda("hex_is_over", bopponent):
+        return hex_is_over_plain(spec, n, bopponent, player)
+    geo = hex_geometry(spec)
+    if n != geo.rows - 1:
+        raise ValueError(f"hex_is_over: hex{n} on a {geo.rows}x{geo.cols} "
+                         "board")
+    G, dev = _check_boards("hex_is_over", geo, (("bopponent", bopponent),),
+                           player)
+    done = torch.empty((G,), dtype=torch.bool, device=dev)
+    result = torch.empty((G,), dtype=torch.int8, device=dev)
+    _launch("launch_hex_is_over", dev, bopponent.contiguous(),
+            player.contiguous(), done, result, _masks(geo), G, geo.rows,
+            geo.cols, geo.words, rules_threads(G))
+    hex_is_over.launches += 1
+    return done, result
+
+
+RULES = (reversi_play, reversi_is_over, line_is_over, hex_is_over)
 for _k in RULES:
     _k.launches = _k.launches_bf16 = 0
 

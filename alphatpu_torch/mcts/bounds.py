@@ -33,8 +33,10 @@ The game rules' kernels (:func:`rules_cost`) read their boards (32-bit
 words in 8 B elements), the action and the player once and write their
 outputs once; their operations are counted as one per word for each
 shift-step of each direction (the flips' and the legal board's for
-``reversi_play``), at the f32 rate - a lower bound of bit operations,
-which the bytes' time exceeds at every size.
+``reversi_play``; about ten a word for each of ``hex_is_over``'s 2N-2
+flood steps), at the f32 rate - a lower bound of bit operations,
+which the bytes' time exceeds at every size but hex13's (24 steps over
+seven words against 59 bytes a game).
 
 Peaks: NVIDIA's H100 SXM data sheet, at a 700 W power limit.
 """
@@ -59,6 +61,7 @@ _STORAGE = {
 }
 OPS_PER_ACTION = 9
 OPS_PER_EDGE = 3
+HEX_OPS_PER_WORD = 10
 
 
 class Cost(NamedTuple):
@@ -140,4 +143,10 @@ def rules_cost(kernel: str, spec, G: int, action_bytes: int = 8,
     if kernel == "line_is_over":
         return Cost(G * (2 * board + 1) + G * 2,
                     G * 4 * max(nvict - 1, 0) * spec.nwords)
+    if kernel == "hex_is_over":
+        # the previous mover's board and player; 2N-2 flood steps of
+        # HEX_OPS_PER_WORD a word (three shifts, their masks, the step's
+        # and-or, the re-seed)
+        return Cost(G * (board + 1) + G * 2,
+                    G * (2 * spec.rows - 4) * spec.nwords * HEX_OPS_PER_WORD)
     raise ValueError(f"{kernel}: not a rules kernel")

@@ -24,14 +24,14 @@ Phases, each fatal on failure:
    ``select_apply``, ``select`` and ``backup`` (``ALPHATPU_BF16_STATS``)
    against their plain versions, bit for bit and timed, on a connect4 tree
    grown on bf16 planes, on the A=169 tree and (the two walks) in the
-   device placement, both rounded to bf16; then the game rules' three
-   kernels (``reversi_play``, ``reversi_is_over``, ``line_is_over``)
-   against their plain versions, bit for bit (0 lanes that differ), on
-   positions sampled from seeded random games of reversi6x6, reversi8x8,
-   tictactoe, connect4, gobang8, gobang9 (8192 lanes) and gobang13 (2048)
-   - the pass action, lanes past their game's end given any action, full
-   boards - each timed (CUDA events) beside its bound and its plain
-   version's wall,
+   device placement, both rounded to bf16; then the game rules' four
+   kernels (``reversi_play``, ``reversi_is_over``, ``line_is_over``,
+   ``hex_is_over``) against their plain versions, bit for bit (0 lanes
+   that differ), on positions sampled from seeded random games of
+   reversi6x6, reversi8x8, tictactoe, connect4, gobang8, gobang9, hex7
+   (8192 lanes), gobang13 and hex13 (2048) - the pass action, lanes past
+   their game's end given any action, full boards - each timed (CUDA
+   events) beside its bound and its plain version's wall,
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
@@ -53,8 +53,9 @@ Phases, each fatal on failure:
 9. the shapes the CLI and the families give the kernels (PATH_SHAPES):
    the CLI's tictactoe selfplay (16 rollouts, 1024 lanes) and duel halves
    (8 rollouts, 64 lanes, no root noise), reversi6x6 (the pass column)
-   and hex7 at 512 lanes, gobang9, reversi8x8, gobang8 and gobang13 (the
-   training path's <32,6> walk) at 200 lanes (partial blocks and warps);
+   and hex7 at 512 lanes, gobang9, reversi8x8, gobang8, gobang13 and
+   hex13 (the training path's <32,6> walk) at 200 lanes (partial blocks
+   and warps);
    each the level-1 search on the card against the CPU path (which
    reads the card net's outputs), and all five kernels against their
    plain versions on a tree grown there; then deep, narrow 13x13 trees
@@ -66,8 +67,9 @@ Phases, each fatal on failure:
 10. one generation of the training pipeline at full width
    (``pipeline.run_generation``) for each of GEN_GAMES - connect4 (4x512)
    and hex7 (8x512, 49 actions: the 32-lane walk over two slots, and the
-   hex rules) at 8192 games, gobang13 (6x512, 169 actions: the walk over
-   six slots) at the reference's 2048 - generation-mode selfplay at 64
+   hex flood) at 8192 games, gobang13 (6x512, 169 actions: the walk over
+   six slots) at the reference's 2048, hex13 (8x512, 169 actions) at 2048
+   - generation-mode selfplay at 64
    rollouts, one epoch at batch 8192, a 1024-game duel at 32 rollouts,
    Elo, and a checkpoint with the buffer, reloaded and compared with the
    live state bit for bit; launches and graph replays as owed, seconds
@@ -138,9 +140,9 @@ Phases, each fatal on failure:
 18. a JSON line of the kernels (for the four walks also ``ms_device`` and
    ``bound_ms_device``, at the device placement's shape; a row for each
    bf16 instantiation, ``<name>_bf16``; a row for each rules kernel,
-   timed at reversi8x8's 8192 lanes or gobang13's 2048, with its time on
-   every game of phase 3), then the result line
-   ``{"ok": true, "device": {...}}``.
+   timed at reversi8x8's 8192 lanes or gobang13's or hex13's 2048, with
+   its time on every game of phase 3) after each phase's wall, then the
+   result line ``{"ok": true, "device": {...}}``.
 
 Launch counts: before each path every count is set to 0, and after it the
 counts must be exactly what the path owes (launches made for the parity
@@ -152,13 +154,14 @@ x 64 and 2 x 9, the interactive engine 128 and 1 a move.  The rules
 kernels count too: each rollout plays the leaf's move and tests its end
 once, and each move of selfplay, a duel, an evaluation or the probe once
 more, so a round of R rollouts owes R + 1 of the game's ``is_over``
-kernel and, on reversi, R + 1 ``reversi_play`` (the line games play
-with torch ops; hex runs its flood as torch ops and owes none).  The kernels
-line reports, for ``select_apply_packed`` and ``backup``, the launches of
-the CLI run (the main path, phase 11); for the other three kernels those
-of the path that runs each (phases 6 and 7); for the bf16 instantiations
-those of phase 16's bench generation and (``select``) its per-phase
-search.
+kernel (``line_is_over`` on the line games, ``hex_is_over`` on hex) and,
+on reversi, R + 1 ``reversi_play`` (the line games and hex play with
+torch ops).  The kernels line reports, for ``select_apply_packed`` and
+``backup``, the launches of the CLI run (the main path, phase 11); for
+the other three kernels those of the path that runs each (phases 6 and
+7); for the bf16 instantiations those of phase 16's bench generation and
+(``select``) its per-phase search; for the rules kernels those of the
+CLI (``line_is_over``) and of phase 8's reversi8x8 and hex13 selfplay.
 
 Kernel parity: each walk kernel and its plain version sum in the same
 order and round each operation alike, so the stat planes after the apply
@@ -196,7 +199,8 @@ SMALL_G = 512  # lanes of the card-vs-CPU searches
 GEN_DUEL = (1024, 32)  # games, rollouts of the pipeline generation's duel
 # phase 10's generations in order, (game, games): gobang13 at the
 # reference's 2048 lanes (A=169: the 32-lane walk over six slots)
-GEN_GAMES = (("connect4", LANES), ("hex7", LANES), ("gobang13", 2048))
+GEN_GAMES = (("connect4", LANES), ("hex7", LANES), ("gobang13", 2048),
+             ("hex13", 2048))
 CLI_GAMES, CLI_DUEL_GAMES = 1024, 128
 CLI_ROLLOUTS, CLI_DUEL_ROLLOUTS = 16, 8
 L2_ROLLOUTS = 64  # the CLI's level-2 generation: the records' rollouts
@@ -252,6 +256,7 @@ PATH_SHAPES = (
     ("reversi8x8", ROLLOUTS, 200, CPUCT, True),
     ("gobang8", ROLLOUTS, 200, CPUCT, True),
     ("gobang13", ROLLOUTS, 200, CPUCT, True),
+    ("hex13", ROLLOUTS, 200, CPUCT, True),
 )
 # phase 9's deep, narrow trees: game, nodes (64 rollouts), lanes of the
 # kernel parity, lanes of the card-vs-CPU search, the policy head's scale,
@@ -285,18 +290,20 @@ RULES = {
     "reversi_play": "alphatpu/games/reversi.py:124",
     "reversi_is_over": "alphatpu/games/reversi.py:144",
     "line_is_over": "alphatpu/games/gobang.py:65",
+    "hex_is_over": "alphatpu/games/hex.py:95",
 }
 # every wrapper whose launches a path owes
 COUNTED = (*KERNELS, *RULES)
 # phase 3's rules parity: (game, lanes), timed at the shape each record's
 # training path gives the kernels; reversi's two are reported at
-# reversi8x8's shape, line_is_over at gobang13's
+# reversi8x8's shape, line_is_over at gobang13's, hex_is_over at hex13's
 RULES_GAMES = (("reversi6x6", LANES), ("reversi8x8", LANES),
                ("tictactoe", LANES), ("connect4", LANES),
-               ("gobang8", LANES), ("gobang9", LANES), ("gobang13", 2048))
+               ("gobang8", LANES), ("gobang9", LANES), ("gobang13", 2048),
+               ("hex7", LANES), ("hex13", 2048))
 RULES_REPORTED = {"reversi_play": "reversi8x8",
                   "reversi_is_over": "reversi8x8",
-                  "line_is_over": "gobang13"}
+                  "line_is_over": "gobang13", "hex_is_over": "hex13"}
 # the kernels with a bf16 instantiation (ALPHATPU_BF16_STATS): its row in
 # the kernels line is the name + "_bf16"
 BF16_KERNELS = ("select_apply", "select", "backup")
@@ -772,6 +779,14 @@ def rules_parity(dev, card: str) -> dict:
                     lambda p, a: R.reversi_is_over_plain(spec, *p),
                     [(pos, None), (played, None)]),
             }
+        elif game.is_over_kernel == "hex_is_over":
+            n = game.n
+            played = game.play(pos, action)  # torch ops on hex
+            calls = {"hex_is_over": (
+                lambda p, a: R.hex_is_over(spec, n, p.bopponent, p.player),
+                lambda p, a: R.hex_is_over_plain(spec, n, p.bopponent,
+                                                 p.player),
+                [(pos, None), (played, None)])}
         else:
             nvict = game.nvict
             played = game.play(pos, action)  # torch ops on a line game
@@ -2684,6 +2699,14 @@ def smoke(dev, card: str, kind: str) -> int:
     from alphatpu_torch.mcts.tree import init_tree
     from alphatpu_torch.nets import MLP, config_for_game
 
+    # each phase's wall, printed with the result
+    walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        walls[phase] = round(now - t_lap[0], 3)
+        t_lap[0] = now
+
     # ---- 3. kernel parity ----
     game = make_game("connect4")
     net = MLP.from_seed(config_for_game(game), SEED, device=dev)
@@ -2759,11 +2782,15 @@ def smoke(dev, card: str, kind: str) -> int:
     # the game rules' kernels
     rules_results = rules_parity(dev, card)
 
+    lap("3. kernel parity")
+
     # ---- 4. the search on the card against the CPU path ----
     net_cpu = MLP.from_seed(config_for_game(game), SEED,
                             device=torch.device("cpu"))
     for level in (1, 2, 0):
         search_vs_cpu(game, net, net_cpu, dev, V, SMALL_G, level)
+
+    lap("4. the search on the card against the CPU path")
 
     # ---- 5. a pre-grown search at full width ----
     half = ROLLOUTS // 2
@@ -2788,6 +2815,8 @@ def smoke(dev, card: str, kind: str) -> int:
           f"{float(tree.next_idx.float().mean()):.2f} of {V}")
     del tree
     big_tree_searches(K, game, net, net_cpu, dev, card)
+
+    lap("5. a pre-grown search at full width")
 
     # ---- 6. the per-phase search at full width ----
     probs = torch.rand((V, D, G), generator=gen, device=dev)
@@ -2814,6 +2843,8 @@ def smoke(dev, card: str, kind: str) -> int:
         raise AssertionError("per-phase search != the f32 engine")
     del tree, ref, probs
 
+    lap("6. the per-phase search at full width")
+
     # ---- 7. the main paths: continuous selfplay ----
     launches = {}
     rates = {}
@@ -2832,8 +2863,12 @@ def smoke(dev, card: str, kind: str) -> int:
     del net, net_cpu
     torch.cuda.empty_cache()
 
+    lap("7. the main paths: continuous selfplay")
+
     # ---- 8. every other family at full width ----
     family_launches = family_runs(K, dev, card)
+
+    lap("8. every other family at full width")
 
     # ---- 9. the path's shapes: card against CPU, kernels against plain ----
     for k, e in path_shapes(K, dev, gen, PATH_SHAPES).items():
@@ -2841,6 +2876,8 @@ def smoke(dev, card: str, kind: str) -> int:
     for k, e in deep_trees(K, dev, torch.Generator(device=dev).manual_seed(
             SEED + 4), card).items():
         errs[k] = max(errs[k], e)
+
+    lap("9. the path's shapes: card against CPU, kernels against plain")
 
     # ---- 10. one generation of the training pipeline ----
     t_phase = time.perf_counter()
@@ -2850,38 +2887,56 @@ def smoke(dev, card: str, kind: str) -> int:
     print(f"pipeline generations ({', '.join(g for g, _ in GEN_GAMES)}): "
           f"{time.perf_counter() - t_phase:.3f} s  [{card}]")
 
+    lap("10. one generation of the training pipeline")
+
     # ---- 11. the CLI: the main path ----
     cli = cli_run(K, dev, card)
     launches["select_apply_packed"] = cli["select_apply_packed"]
     launches["backup"] = cli["backup"]
     # the rules kernels: reversi's from phase 8's reversi8x8 selfplay (the
-    # record's training path), line_is_over from the CLI's tictactoe
+    # record's training path), hex_is_over from its hex13 selfplay,
+    # line_is_over from the CLI's tictactoe
     launches["line_is_over"] = cli["line_is_over"]
     for name in ("reversi_play", "reversi_is_over"):
         launches[name] = family_launches["reversi8x8"][name]
+    launches["hex_is_over"] = family_launches["hex13"]["hex_is_over"]
     launches["select_apply_packed1"] = cli_level2(
         K, dev, card)["select_apply_packed1"]
+
+    lap("11. the CLI: the main path")
 
     # ---- 12. evaluation and play ----
     for k, e in evaluation_and_play(K, dev, card).items():
         errs[k] = max(errs[k], e)
 
+    lap("12. evaluation and play")
+
     # ---- 13. data parallel on one card ----
     data_parallel(K, dev, card)
     torch.cuda.empty_cache()
+
+    lap("13. data parallel on one card")
 
     # ---- 14. the net zoo ----
     zoo_searches(K, dev, card)
     torch.cuda.empty_cache()
 
+    lap("14. the net zoo")
+
     # ---- 15. the bench and the rollout ablation ----
     bench_runs(card)
+
+    lap("15. the bench and the rollout ablation")
 
     # ---- 16. the bf16 stat storage end to end ----
     bf16_launches = bf16_stats_path(K, dev, card)
 
+    lap("16. the bf16 stat storage end to end")
+
     # ---- 17. captured rounds against eager rounds ----
     captured_rounds(K, dev, card)
+
+    lap("17. captured rounds against eager rounds")
 
     # ---- 18. result ----
     def row(name, src, line, count, err, r, w, d):
@@ -2920,6 +2975,8 @@ def smoke(dev, card: str, kind: str) -> int:
               "ms_by_game": rules_results[name]["ms_by_game"],
               "plain_ms_by_game": rules_results[name]["plain_ms_by_game"]}
              for name, ref in RULES.items()]
+    lap("18. result")
+    print(f"phase walls (s): {json.dumps(walls)}  [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

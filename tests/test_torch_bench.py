@@ -245,7 +245,8 @@ def test_owed_launches(level, rounds_played, superblocks):
                     walk: 64 * rounds_played * superblocks,
                     "backup": rounds_played * superblocks,
                     "reversi_play": 0, "reversi_is_over": 0,
-                    "line_is_over": 65 * rounds_played * superblocks}
+                    "line_is_over": 65 * rounds_played * superblocks,
+                    "hex_is_over": 0}
 
 
 def test_measure_pins_the_engine_and_restores_the_switches(monkeypatch):

@@ -43,6 +43,7 @@ MODULES = (
     "alphatpu_torch.benchmarks.ttt_loss_replay",
     "alphatpu_torch.benchmarks.captured_rounds",
     "alphatpu_torch.benchmarks.train_record",
+    "alphatpu_torch.benchmarks.gate_record",
     "alphatpu_torch.benchmarks.probe_moves",
     "alphatpu_torch.benchmarks.probe_pair",
 )
@@ -120,7 +121,8 @@ def test_signatures_name_every_c_entry_point():
     "launch_select_apply_packed", "launch_select_apply_packed1",
     "launch_select_apply", "launch_select", "launch_backup",
     "launch_select_apply_bf16", "launch_select_bf16", "launch_backup_bf16",
-    "launch_reversi_play", "launch_reversi_is_over", "launch_line_is_over"])
+    "launch_reversi_play", "launch_reversi_is_over", "launch_line_is_over",
+    "launch_hex_is_over"])
 def test_signatures_match_the_c_declarations(entry):
     """ctypes passes what ``_SIGNATURES`` declares: a mismatch with the C
     parameters would show only on the card, as a wrong argument."""
@@ -175,7 +177,7 @@ def _grown(device, G, V, seed):
 
 
 RULES_GAMES = ("reversi6x6", "reversi8x8", "tictactoe", "connect4", "gobang8",
-               "gobang9", "gobang13")
+               "gobang9", "gobang13", "hex4", "hex7", "hex13")
 
 
 @pytest.mark.cuda
@@ -205,6 +207,9 @@ def test_rules_kernels_match_plain(name, cuda):
         over = [R.reversi_is_over_plain(game.spec, *p[:4]) for p in
                 (pos, played)]
         want = [over[0], played, played, over[1]]
+    elif name.startswith("hex"):
+        want = [R.hex_is_over_plain(game.spec, game.n, p.bopponent, p.player)
+                for p in (pos, played)]
     else:
         want = [R.line_is_over_plain(game.spec, game.nvict, p.bplayer,
                                      p.bopponent, p.player)
@@ -214,7 +219,7 @@ def test_rules_kernels_match_plain(name, cuda):
             assert a.dtype == b.dtype and torch.equal(a, b)
     counts = {k: n for k, (n, _) in K.launch_counts().items() if n}
     assert counts == ({"reversi_play": 3, "reversi_is_over": 2} if reversi
-                      else {"line_is_over": 2})
+                      else {game.is_over_kernel: 2})
 
 
 @pytest.mark.cuda
@@ -598,7 +603,8 @@ def test_switches_launch_engines(env, kernel, cuda, monkeypatch):
     assert {k.__name__: k.launches for k in K.KERNELS} == {
         "select_apply_packed": 0, "select_apply_packed1": 0,
         "select_apply": 0, "select": 0, "backup": 1, kernel: 14,
-        "reversi_play": 0, "reversi_is_over": 0, "line_is_over": 14}
+        "reversi_play": 0, "reversi_is_over": 0, "line_is_over": 14,
+        "hex_is_over": 0}
 
 
 @pytest.mark.cuda

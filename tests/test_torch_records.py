@@ -38,7 +38,8 @@ RECORDS = [("Datatictactoe_torch", "Datatictactoe"),
 # a gate: the first GATE_GENERATIONS generations at full width, no probe
 GATES = [("Datareversi8x8_torch", "Datareversi8x8"),
          ("Datagobang13_torch", "Datagobang13"),
-         ("Datareversi6x6_torch", "Datareversi6x6")]
+         ("Datareversi6x6_torch", "Datareversi6x6"),
+         ("Datahex7_torch", "Datahex7")]
 
 
 def load(directory, name):
@@ -269,6 +270,38 @@ def test_port_gate_matches_the_reference(port_dir, ref_dir):
         g["seconds"] for g in gate["generations"]]
 
 
+def test_hex13_gate_plays_clean_generations():
+    """hex13 has no reference record: its gate is the CLI's first two
+    generations at 2048 lanes (gobang13's), every game finished and no
+    illegal move, with each stage's seconds and the 60-generation
+    projection that ``gate_record`` derives from them."""
+    from alphatpu_torch.benchmarks import gate_record
+
+    gate = load("Datahex13_torch", "gate.json")
+    lines = load("Datahex13_torch", gate["stats"])
+    assert gate["game"] == "hex13" and gate["card"]
+    assert gate["training"]["engine"]["level"] == 1
+    assert gate["training"]["rc"] == 0 and gate["faults"] == []
+    assert "--samples 2048" in gate["training"]["command"]
+    check_stats(lines, "Datahex13_torch")
+    assert len(lines) == train_record.GATE_GENERATIONS
+    assert gate["generations"] == gate_record.generations(
+        gate, lines, None)
+    seconds = gate["training"]["seconds_per_generation"]
+    assert gate["projection"] == gate_record.projection(seconds, 60)
+
+
+def test_hex7_gate_equals_the_parent_trees():
+    """hex7's gate on the flood kernel played what the torch-op flood
+    played: the same samples and losses, generation for generation."""
+    gate = load("Datahex7_torch", "gate.json")
+    lines = load("Datahex7_torch", gate["stats"])
+    assert gate["compared"]["equal"]
+    assert gate["compared"]["samples_written"] == [
+        x["samples_written"] for x in lines]
+    assert gate["compared"]["loss"] == [x["loss"] for x in lines]
+
+
 @pytest.mark.parametrize("line,fault", [
     ({"generation": 1, "illegal_moves": 0, "unfinished": 0,
       "samples_written": 650_000}, None),
@@ -412,3 +445,68 @@ def test_record_run_probes_an_earlier_calls_nets(tmp_path, monkeypatch):
             "--game", "connect4", "--ckpt-dir", str(first), "--out",
             str(tmp_path / "third"), "--probe-at", "1", "--probe-only",
             "--device", "cpu"])
+
+
+def _fake_run(path, samples, losses, seconds, illegal=0):
+    """A ``train_record`` run directory of two generations."""
+    os.makedirs(path)
+    lines = [{"generation": g, "samples_written": s, "carried": 7,
+              "games_finished": 3, "mean_length": 9.5, "loss": l,
+              "illegal_moves": illegal if g == 2 else 0, "unfinished": 0,
+              "selfplay_s": 4.0, "train_s": 0.5, "duel_s": 1.5}
+             for g, s, l in zip((1, 2), samples, losses)]
+    with open(os.path.join(path, "stats.jsonl"), "w") as f:
+        f.writelines(json.dumps(x) + "\n" for x in lines)
+    record = {"game": "hex13", "card": "a card, 700.00 W", "torch": "2.x",
+              "ok": True, "training": {
+                  "command": "python -m alphatpu_torch.cli --game hex13",
+                  "engine": {"level": 1}, "rc": 0, "fault": None,
+                  "seconds_per_generation": seconds,
+                  "seconds": sum(seconds)}}
+    with open(os.path.join(path, "record_run.json"), "w") as f:
+        json.dump(record, f)
+    return lines
+
+
+def test_gate_record_writes_the_gate_and_its_projection(tmp_path):
+    """gate_record turns a two-generation run into gate.json and
+    gate_stats.jsonl: each line's stages, its checkpoint seconds (the wall
+    less the stages), the reference's samples beside it, the projection
+    (the first generation's wall and the second's for every later one),
+    and a run on another tree beside it."""
+    from alphatpu_torch.benchmarks import gate_record
+
+    lines = _fake_run(tmp_path / "run", [100, 120], [5.0, 4.5],
+                      [20.0, 10.0])
+    _fake_run(tmp_path / "parent", [100, 120], [5.0, 4.5], [30.0, 18.0])
+    ref = tmp_path / "ref.jsonl"
+    ref.write_text("".join(json.dumps({"generation": g, "samples_written": s})
+                           + "\n" for g, s in ((1, 104), (2, 118), (3, 1))))
+    out = tmp_path / "out"
+    rc = gate_record.main(["--run", str(tmp_path / "run"), "--out", str(out),
+                           "--reference", str(ref), "--compare",
+                           str(tmp_path / "parent")])
+    assert rc == 0
+    gate = json.loads((out / "gate.json").read_text())
+    stats = [json.loads(x) for x in (out / "gate_stats.jsonl").read_text()
+             .splitlines()]
+    assert stats == lines
+    g1, g2 = gate["generations"]
+    assert (g1["reference_samples_written"], g1["gap"]) == (104, -0.03846)
+    assert (g2["checkpoint_s"], g2["seconds"]) == (4.0, 10.0)
+    assert gate["projection"]["seconds_60_generations"] == 20.0 + 59 * 10.0
+    assert gate["projection"]["fits_one_call"]
+    assert gate["compared"]["equal"]
+    assert gate["compared"]["seconds_per_generation"] == [30.0, 18.0]
+    assert gate["faults"] == []
+    # a loss apart on the other tree, or an illegal move, fails the gate
+    _fake_run(tmp_path / "apart", [100, 120], [5.0, 4.25], [30.0, 18.0])
+    assert gate_record.main(["--run", str(tmp_path / "run"), "--out",
+                             str(out), "--compare",
+                             str(tmp_path / "apart")]) == 1
+    assert not json.loads((out / "gate.json").read_text())["compared"][
+        "equal"]
+    _fake_run(tmp_path / "illegal", [100, 120], [5.0, 4.5], [20.0, 10.0],
+              illegal=1)
+    assert gate_record.main(["--run", str(tmp_path / "illegal"), "--out",
+                             str(out)]) == 1

@@ -1,8 +1,9 @@
 """The game rules' kernel wrappers (``alphatpu_torch.games.kernels``) on
 the CPU: their plain versions against the reference's rules on sampled
-positions (dead lanes, passes, full boards), the dispatch (CPU tensors
-take the plain path and count nothing), the geometry each wrapper hands
-its kernel, and the launches a path owes.  The kernels themselves are held
+positions (dead lanes, passes, full boards; hex's flood on hex5 to
+hex13), the dispatch (CPU tensors take the plain path and count
+nothing), the geometry each wrapper hands its kernel, and the launches a
+path owes.  The kernels themselves are held
 to the plain versions on the card (``tests/test_torch_port.py``,
 ``chip_smoke.py``)."""
 import ctypes
@@ -26,6 +27,7 @@ torch.set_num_threads(1)
 
 GAMES = ("reversi6x6", "reversi8x8", "tictactoe", "connect4", "gobang8",
          "gobang9", "gobang13")
+HEX_GAMES = ("hex5", "hex7", "hex11", "hex13")
 
 
 @pytest.fixture(autouse=True)
@@ -84,6 +86,27 @@ def test_sampled_positions_cover_the_hard_cases(name):
                                                        .any())
 
 
+@pytest.mark.parametrize("name", HEX_GAMES)
+def test_hex_flood_matches_reference_on_sampled_positions(name):
+    """``hex_is_over_plain`` equals the reference's ``Hex.is_over``,
+    vmapped, on every lane of 128 sampled positions and of the positions
+    after each lane's action - won positions of both movers among them, so
+    the flood runs with and without the row-0 re-seed."""
+    game, jgame = make_game(name), jax_make_game(name)
+    pos, action = R.sample_positions(game, 128, seed=len(name))
+    played = game.play(pos, action)
+    results = []
+    for p in (pos, played):
+        jp = type(p)(*(jnp.asarray(x.numpy().astype(ref.dtype))
+                       for x, ref in zip(p, jgame.initial())))
+        got = R.hex_is_over_plain(game.spec, game.n, p.bopponent, p.player)
+        for g, w in zip(got, jax.vmap(jgame.is_over)(jp)):
+            _eq(g, w)
+        results.append(got[1])
+    won = torch.cat(results)
+    assert int((won == 1).sum()) and int((won == -1).sum())
+
+
 @pytest.mark.parametrize("name", GAMES + ("hex7",))
 def test_cpu_rules_take_the_plain_path(name):
     """On CPU tensors the four game methods run the plain versions: the
@@ -100,11 +123,12 @@ def test_cpu_rules_take_the_plain_path(name):
         for got, ref in zip(played, R.reversi_play_plain(
                 game.spec, pos.bplayer, pos.bopponent, pos.player, action)):
             assert torch.equal(got, ref)
-    elif not name.startswith("hex"):
+    elif name.startswith("hex"):
+        want = R.hex_is_over_plain(game.spec, game.n, pos.bopponent,
+                                   pos.player)
+    else:
         want = R.line_is_over_plain(game.spec, game.nvict, pos.bplayer,
                                     pos.bopponent, pos.player)
-    else:
-        return
     assert torch.equal(done, want[0]) and torch.equal(result, want[1])
 
 
@@ -112,7 +136,8 @@ def test_launch_counts_name_the_rules_wrappers():
     """The rules wrappers join the search kernels' counters, so a graph
     replay adds their launches as it adds the walks'."""
     names = set(K.launch_counts())
-    assert {"reversi_play", "reversi_is_over", "line_is_over"} <= names
+    assert {"reversi_play", "reversi_is_over", "line_is_over",
+            "hex_is_over"} <= names
     K.reset_launch_counts()
     K.add_launches({n: (3, 0) if n == "line_is_over" else (0, 0)
                     for n in names})
@@ -145,6 +170,40 @@ def test_geometry_refuses_what_the_kernels_do_not_take():
         R.line_geometry(make_game("hex13").spec, 5)
 
 
+@pytest.mark.parametrize("n", range(2, 14))
+def test_hex_geometry_covers_every_size(n):
+    """Every hex<N> the registry plays at N from 2 to 13, one to seven
+    words, with the spec's masks; a board of another size or shape is
+    refused, so a CUDA tensor raises instead of falling back."""
+    spec = make_game(f"hex{n}").spec
+    geo = R.hex_geometry(spec)
+    assert (geo.rows, geo.cols) == (n + 1, n + 1)
+    assert geo.words == spec.nwords == -(-(n + 1) ** 2 // 32)
+    assert geo.masks == tuple(spec.valid_mask) + tuple(
+        spec.not_first_row_mask) + tuple(spec.not_last_row_mask)
+    for rows, cols in ((n + 1, n + 2), (n + 2, n + 1)):
+        with pytest.raises(ValueError, match="hex_is_over"):
+            R.hex_geometry(bb.BoardSpec(rows, cols))
+    if n == 2:
+        assert geo.words == 1
+        with pytest.raises(ValueError, match="hex_is_over"):
+            R.hex_geometry(make_game("hex1").spec)
+    if n == 13:
+        assert geo.words == 7
+        with pytest.raises(ValueError, match="hex_is_over"):
+            R.hex_geometry(bb.BoardSpec(15, 15))  # hex14
+
+
+@pytest.mark.parametrize("name", HEX_GAMES)
+def test_hex_seeds_are_the_reference_borders(name):
+    """The flood's re-seed at step j covers row 0 from column 2 + j to N,
+    as the reference's ``Hex._seeds``."""
+    game, jgame = make_game(name), jax_make_game(name)
+    seeds = R.hex_seeds(game.spec, torch.device("cpu"))
+    assert seeds.shape == (2 * game.n - 2, game.spec.nwords)
+    np.testing.assert_array_equal(seeds.numpy(), np.stack(jgame._seeds))
+
+
 @pytest.mark.parametrize("G,threads", [(1, 32), (2048, 32), (8192, 32),
                                        (16896, 128), (33792, 128),
                                        (16384, 64)])
@@ -160,7 +219,9 @@ def test_rules_threads(G, threads):
     ("reversi8x8", "launch_reversi_play"),
     ("reversi6x6", "launch_reversi_is_over"),
     ("gobang13", "launch_line_is_over"),
-    ("connect4", "launch_line_is_over")])
+    ("connect4", "launch_line_is_over"),
+    ("hex13", "launch_hex_is_over"),
+    ("hex7", "launch_hex_is_over")])
 def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
     """Where the boards are on the card (here: the dispatch told so), each
     wrapper launches its entry point with the geometry of its spec and new
@@ -181,6 +242,7 @@ def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
     assert got == entry
     masks = next(a for a in args if isinstance(a, ctypes.Array))
     geo = (R.reversi_geometry(game.spec) if name.startswith("reversi")
+           else R.hex_geometry(game.spec) if name.startswith("hex")
            else R.line_geometry(game.spec, game.nvict))
     assert list(masks) == list(geo.masks)
     ints = args[[id(a) for a in args].index(id(masks)) + 1:]
@@ -188,6 +250,10 @@ def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
         assert ints == (40, 32, 8, 8, 2, 32)  # G, action bits, geometry
     elif entry == "launch_reversi_is_over":
         assert ints == (40, 6, 6, 2, 32)
+    elif entry == "launch_hex_is_over":
+        assert ints == (40, geo.rows, geo.cols, geo.words, 32)
+        assert (geo.rows, geo.words) == ((14, 7) if name == "hex13"
+                                         else (8, 2))
     else:
         assert ints == (40, geo.rows, geo.cols, geo.words, geo.nvict, 32)
     assert {n: c for n, (c, _) in K.launch_counts().items() if c} == {
@@ -215,28 +281,38 @@ def test_wrappers_check_their_tensors(monkeypatch):
         game.is_over(pos._replace(player=pos.player.long()))
     with pytest.raises(ValueError, match="action"):
         game.play(pos, action.to(torch.int16))
+    game = make_game("hex7")
+    pos, _ = R.sample_positions(game, 8, seed=4)
+    with pytest.raises(ValueError, match="bopponent"):
+        game.is_over(pos._replace(bopponent=pos.bopponent[:, :1]))
+    with pytest.raises(ValueError, match="player"):
+        game.is_over(pos._replace(player=pos.player.long()))
+    with pytest.raises(ValueError, match="hex_is_over: hex6"):
+        R.hex_is_over(game.spec, 6, pos.bopponent, pos.player)
 
 
 @pytest.mark.parametrize("name,owed", [
     ("reversi8x8", {"reversi_play": 10, "reversi_is_over": 10,
-                    "line_is_over": 0}),
+                    "line_is_over": 0, "hex_is_over": 0}),
     ("gobang13", {"reversi_play": 0, "reversi_is_over": 0,
-                  "line_is_over": 10}),
+                  "line_is_over": 10, "hex_is_over": 0}),
     ("connect4", {"reversi_play": 0, "reversi_is_over": 0,
-                  "line_is_over": 10}),
-    ("hex7", {"reversi_play": 0, "reversi_is_over": 0, "line_is_over": 0})])
+                  "line_is_over": 10, "hex_is_over": 0}),
+    ("hex7", {"reversi_play": 0, "reversi_is_over": 0, "line_is_over": 0,
+              "hex_is_over": 10})])
 def test_rules_owed(name, owed):
     """10 calls of play and 10 of is_over owe the game's wrappers; the
-    line games play with torch ops, and hex's flood runs as torch ops and
-    owes none."""
+    line games and hex play with torch ops and owe their end test's
+    kernel alone."""
     assert R.rules_owed(make_game(name), 10) == owed
 
 
 @pytest.mark.parametrize("name,G", [("reversi8x8", 8192),
-                                    ("gobang13", 2048)])
+                                    ("gobang13", 2048), ("hex7", 8192),
+                                    ("hex13", 2048)])
 def test_rules_cost(name, G):
     """Each input byte read once and each output byte written once; the
-    bound is the bytes' time at these sizes."""
+    bound is the bytes' time at these sizes, but for hex13's flood."""
     game = make_game(name)
     W = game.spec.nwords
     if name.startswith("reversi"):
@@ -245,6 +321,15 @@ def test_rules_cost(name, G):
         over = bounds.rules_cost("reversi_is_over", game.spec, G)
         assert over.nbytes == G * (3 * W * 8 + 1) + G * 2
         assert play.bound_by == over.bound_by == "bytes"
+    elif name.startswith("hex"):
+        # the previous mover's board and player read, done and result
+        # written; 2N-2 steps of about ten word operations a word
+        over = bounds.rules_cost("hex_is_over", game.spec, G)
+        assert over.nbytes == G * (W * 8 + 1) + G * 2
+        assert over.ops == G * (2 * game.n - 2) * W * 10
+        # hex13's 24 steps over seven words outweigh its 59 bytes a game
+        assert over.bound_by == ("operations" if name == "hex13"
+                                 else "bytes")
     else:
         over = bounds.rules_cost("line_is_over", game.spec, G, nvict=5)
         assert over.nbytes == G * (2 * W * 8 + 1) + G * 2
