@@ -67,8 +67,9 @@ _SIGNATURES = {
     # pointers x 5, the host masks, G, rows, cols, words, nvict, threads,
     # stream
     "launch_line_is_over": [_P] * 6 + [_I] * 6 + [_P],
-    # pointers x 4, the host masks, G, rows, cols, words, threads, stream
-    "launch_hex_is_over": [_P] * 5 + [_I] * 5 + [_P],
+    # pointers x 4, the host masks, G, rows, cols, words, the launch (lanes
+    # a game, threads, blocks), stream
+    "launch_hex_is_over": [_P] * 5 + [_I] * 7 + [_P],
 }
 # the bf16 instantiations of the three-plane kernels take what their f32
 # entries take

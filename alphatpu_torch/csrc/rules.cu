@@ -13,29 +13,40 @@
 // fusions.  Run op by op, the port's torch versions of the same rules
 // (alphatpu_torch/games/kernels.py, *_plain) cost hundreds of launches a
 // call: these kernels are the port's counterpart of XLA's fusion.  Each
-// does the plain version's operations in the plain version's order, so
-// its outputs equal the plain version's bit for bit for any input.  Hex's
-// flood is 2N-2 dependent steps of three shifts each (up, right, down):
-// the plain version runs each shift word by word, some 5,700 launches a
-// call on hex13.
+// computes every word of the plain version's operations with the plain
+// version's expressions, so its outputs equal the plain version's bit for
+// bit for any input.  Hex's flood is 2N-2 dependent steps of three shifts
+// each (up, right, down): the plain version runs each shift word by word,
+// some 5,700 launches a call on hex13.
 //
-// What bounds them on Hopper: the launch.  At 8192 games a call reads and
-// writes under 1 MB (about 0.3 us at 3.35 TB/s) and does a few thousand
-// word operations a game (well under a microsecond across the card).
-// The design: one thread per game, its boards in registers, the directions,
-// the flip lines and the words unrolled at compile time (the size or the
-// word count is a template argument), nothing in shared memory.  Boards
-// are the port's layout: 32-bit words held in int64 elements, cell (r, c)
-// at bit r + rows * c.  Reversi's two words are joined into one 64-bit
-// value (36 or 64 cells); a shift of that value equals the plain
+// What bounds them on Hopper: the launch, then a chain of dependent word
+// operations.  At 8192 games a call reads and writes under 1 MB (about
+// 0.3 us at 3.35 TB/s) and does a few thousand word operations a game
+// (well under a microsecond across the card), so what is left above the
+// launch is the loads' latency and each game's longest chain.
+// reversi_play, reversi_is_over and line_is_over run one thread a game,
+// the directions, the flip lines and the words unrolled at compile time
+// (the size or the word count a template argument), the masks kernel
+// parameters.  (A lane a direction for reversi_play - eight lanes a game,
+// their flips and legal boards ORed by an xor butterfly of shuffles - was
+// faster at reversi8x8 but slower at reversi6x6's 8192 games; PERF.md
+// has the trials.)  hex_is_over, the longest chain, runs L lanes of a warp
+// a game (the next power of two at or above its W words), lane w word w,
+// every mask arithmetic on the lane's index.  A lane computes b = up(a)
+// for words w-2..w, c = right(b) for w-1..w and the and-or for w-1..w, so
+// each of the 2N-2 steps, unrolled, needs one round of three independent
+// shuffles (words w-2, w-1 and w+1 of a) instead of three rounds.
+// Boards are the port's layout: 32-bit words held in int64 elements, cell
+// (r, c) at bit r + rows * c.  Reversi's two words are joined into one
+// 64-bit value (36 or 64 cells); a shift of that value equals the plain
 // version's two-word shift, and the valid mask clears what the 6x6 board
 // does not hold.  The line and hex kernels keep W 32-bit words (gobang13:
-// six, hex13: seven) and shift across them as bitboard._shift does; the
-// flood's steps run as a loop inside the thread.  Geometry and masks come
-// from Python (games/kernels.py: reversi_geometry, line_geometry,
-// hex_geometry, rules_threads); each entry point checks them against the
-// masks it derives from rows and cols and refuses any geometry it has no
-// instantiation for.
+// six, hex13: seven) and shift across them as bitboard._shift does.
+// Geometry and masks come from Python (games/kernels.py: reversi_geometry,
+// line_geometry, hex_geometry, rules_threads, and spread_geometry for
+// hex_is_over); each entry point checks them against the masks and the
+// launch it derives from rows, cols and G, and refuses any geometry it has
+// no instantiation for.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,6 +57,7 @@ typedef unsigned long long u64;
 typedef uint32_t u32;
 
 constexpr int kMaxThreads = 128;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kMaxWords = 7;      // hex13: 196 cells
 constexpr int kLineMaxWords = 6;  // gobang13: 169 cells
 constexpr int kHexMaxSize = 13;   // hex<N>, N + 1 rows with the border
@@ -80,6 +92,13 @@ int blocks_for(int G, int threads) { return (G + threads - 1) / threads; }
 
 bool threads_ok(int threads) {
   return threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
+}
+
+// A launch of `lanes` lanes of a warp a game (games/kernels.py
+// spread_geometry): whole warps, and exactly the blocks that cover G games.
+bool lanes_ok(int G, int lanes, int threads, int blocks) {
+  return G >= 1 && threads_ok(threads) && threads % lanes == 0 &&
+         blocks == blocks_for(G, threads / lanes);
 }
 
 // ---------------------------------------------------------------------------
@@ -361,59 +380,133 @@ void line(const void* bplayer, const void* bopponent, const void* player,
 // hex: the connectivity flood on W 32-bit words
 // ---------------------------------------------------------------------------
 
-// kernels.hex_is_over_plain on a board of `rows` = N + 1 rows and columns:
-// from the previous mover's stones a, 2N-2 steps of
+// hex_is_over's lanes a game: the next power of two at or above W
+__host__ __device__ constexpr int hex_lanes(int words) {
+  return words <= 1 ? 1 : words <= 2 ? 2 : words <= 4 ? 4 : 8;
+}
+
+// bits 0, rows, 2 rows, ... of a 32-bit word
+__host__ __device__ constexpr u32 row_bits(int rows) {
+  u32 m = 0;
+  for (int b = 0; b < 32; b += rows) m |= 1u << b;
+  return m;
+}
+
+// The spec's masks of a rows x rows board (masks_match's) at word w (0 off
+// the board: w < 0 or past the last word), by arithmetic on w
+template <int rows>
+struct WordMasks {
+  u32 valid, not_first_row, not_last_row;
+
+  __device__ __forceinline__ explicit WordMasks(int w) {
+    constexpr int cells = rows * rows;
+    constexpr u32 every_row = row_bits(rows);
+    const int above = cells - 32 * w;  // cells from word w's bit 0 up
+    valid = w < 0 || above <= 0 ? 0u : above >= 32 ? ~0u : (1u << above) - 1;
+    // row 0 at the bits b of word w with 32 w + b a multiple of rows, the
+    // last row one bit below them
+    const int first = (rows - (32 * w) % rows) % rows;
+    const int last = (first + rows - 1) % rows;
+    not_first_row = valid & ~(every_row << first);
+    not_last_row = valid & ~(every_row << last);
+  }
+};
+
+// kernels.hex_is_over_plain on hex<N>, a board of rows = N + 1 rows and
+// columns: from the previous mover's stones a, 2N-2 steps of
 //   b = up(a), c = right(b), a = down((a & (b | c)) | (b & c)),
 // then, where that side owns the row-0 border (player == 1), a |= the
 // seed of step j: row 0 from column 2 + j to N.  Won where the corner
 // (row N, column N) is reached.
-template <int W>
+//
+// L lanes a game (hex_lanes(W) of its W words), lane w word w; lanes
+// w >= W hold 0 and their masks are 0.  Word w of a step reads words
+// w-2..w+1 of a: up(a)[k] = (a[k] >> 1 | a[k+1] << 31) & valid &
+// not_last_row for k = w-2..w, right(b)[k] = (b[k] << rows | b[k-1] >>
+// (32 - rows)) & valid for k = w-1..w (rows <= 14), then the and-or for
+// w-1..w and down's (x[w] << 1 | x[w-1] >> 31) & valid & not_first_row -
+// bitboard._shift's expressions, the words off the board 0 as there.  A
+// shuffle at a segment's edge returns the lane's own value, so each
+// neighbour is zeroed by its index, not by the shuffle.  N is a template
+// argument, so the steps unroll (a loop of shuffles costs each step a
+// branch and a reconvergence).  Every lane of the warp runs every step
+// (lanes past G hold 0 and store nothing).
+template <int N>
 __global__ void __launch_bounds__(kMaxThreads) hex_is_over_kernel(
     const int64_t* __restrict__ bopponent, const int8_t* __restrict__ player,
-    bool* __restrict__ done, int8_t* __restrict__ result, Masks masks, int G,
-    int rows) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const int n = rows - 1;
-  const int8_t p = player[g];
+    bool* __restrict__ done, int8_t* __restrict__ result, int G) {
+  constexpr int rows = N + 1;
+  constexpr int W = (rows * rows + 31) / 32;
+  constexpr int L = hex_lanes(W);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = t / L;
+  const int w = t % L;
+  const bool live = g < G;
+  // this lane's masks: up's (valid & not_last_row) at words w-2..w,
+  // right's (valid) at w-1..w, down's (valid & not_first_row) and the
+  // re-seed's row 0 (valid & ~not_first_row) at w; 0 off the board
+  const WordMasks<rows> m2(w - 2), m1(w - 1), m0(w);
+  const u32 up2 = m2.valid & m2.not_last_row;
+  const u32 up1 = m1.valid & m1.not_last_row, right1 = m1.valid;
+  const u32 up0 = m0.valid & m0.not_last_row, right0 = m0.valid;
+  const u32 down0 = m0.valid & m0.not_first_row;
+  const u32 row0 = m0.valid & ~m0.not_first_row;
+  const int8_t p = live ? player[g] : int8_t{0};
   const bool reseed = p == 1;
-  Board<W> a = load<W>(bopponent, g);
-  for (int j = 1; j <= 2 * n - 2; ++j) {
-    Board<W> b = shift_down(a, 1, masks);  // up
+  u32 a = live && w < W
+              ? static_cast<u32>(bopponent[static_cast<size_t>(g) * W + w])
+              : 0u;
 #pragma unroll
-    for (int w = 0; w < W; ++w) b.w[w] &= masks.not_last_row[w];
-    const Board<W> c = shift_up(b, rows, masks);  // right
-    Board<W> x;
-#pragma unroll
-    for (int w = 0; w < W; ++w)
-      x.w[w] = (a.w[w] & (b.w[w] | c.w[w])) | (b.w[w] & c.w[w]);
-    a = shift_up(x, 1, masks);  // down
-#pragma unroll
-    for (int w = 0; w < W; ++w) a.w[w] &= masks.not_first_row[w];
-    if (reseed) {
-      // row 0's cells (r = 0: bits rows * c) from bit rows * (2 + j) up
-      const int from = rows * (2 + j);
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        const int lo = from - 32 * w;
-        const u32 upper = lo <= 0 ? ~0u : lo >= 32 ? 0u : ~0u << lo;
-        a.w[w] |= upper & masks.valid[w] & ~masks.not_first_row[w];
+  for (int j = 1; j <= 2 * N - 2; ++j) {
+    u32 am2 = 0, am1 = 0, ap1 = 0;  // words w-2, w-1, w+1 of a
+    if constexpr (L > 1) {
+      const u32 lo1 = __shfl_up_sync(kFullWarp, a, 1, L);
+      const u32 hi1 = __shfl_down_sync(kFullWarp, a, 1, L);
+      am1 = w >= 1 ? lo1 : 0u;
+      ap1 = w + 1 < W ? hi1 : 0u;
+      if constexpr (W > 2) {
+        const u32 lo2 = __shfl_up_sync(kFullWarp, a, 2, L);
+        am2 = w >= 2 ? lo2 : 0u;
       }
     }
+    // up
+    const u32 bm2 = ((am2 >> 1) | (am1 << 31)) & up2;
+    const u32 bm1 = ((am1 >> 1) | (a << 31)) & up1;
+    const u32 b0 = ((a >> 1) | (ap1 << 31)) & up0;
+    // right
+    const u32 cm1 = ((bm1 << rows) | (bm2 >> (32 - rows))) & right1;
+    const u32 c0 = ((b0 << rows) | (bm1 >> (32 - rows))) & right0;
+    const u32 xm1 = (am1 & (bm1 | cm1)) | (bm1 & cm1);
+    const u32 x0 = (a & (b0 | c0)) | (b0 & c0);
+    // down
+    a = ((x0 << 1) | (xm1 >> 31)) & down0;
+    // row 0's cells (r = 0: bits rows * c) from bit rows * (2 + j) up
+    const int lo = rows * (2 + j) - 32 * w;
+    const u32 upper = lo <= 0 ? ~0u : lo >= 32 ? 0u : ~0u << lo;
+    if (reseed) a |= upper & row0;
   }
-  const int corner = rows * rows - 1;
-  const bool win = (a.w[corner / 32] >> (corner % 32)) & 1u;
-  done[g] = win;
-  result[g] = win ? static_cast<int8_t>(-p) : int8_t{0};
+  constexpr int corner = rows * rows - 1;
+  if (live && w == corner / 32) {
+    const bool win = (a >> (corner % 32)) & 1u;
+    done[g] = win;
+    result[g] = win ? static_cast<int8_t>(-p) : int8_t{0};
+  }
 }
 
-template <int W>
-void hex(const void* bopponent, const void* player, void* done, void* result,
-         const Masks& m, int G, int rows, int threads, cudaStream_t stream) {
-  hex_is_over_kernel<W><<<blocks_for(G, threads), threads, 0, stream>>>(
+// the launch of hex<n>'s instantiation, for n from N up to kHexMaxSize
+template <int N>
+void hex(int n, const void* bopponent, const void* player, void* done,
+         void* result, int G, int threads, int blocks, cudaStream_t stream) {
+  if (n != N) {
+    if constexpr (N < kHexMaxSize)
+      hex<N + 1>(n, bopponent, player, done, result, G, threads, blocks,
+                 stream);
+    return;
+  }
+  hex_is_over_kernel<N><<<blocks, threads, 0, stream>>>(
       static_cast<const int64_t*>(bopponent),
       static_cast<const int8_t*>(player), static_cast<bool*>(done),
-      static_cast<int8_t*>(result), m, G, rows);
+      static_cast<int8_t*>(result), G);
 }
 
 }  // namespace
@@ -512,34 +605,20 @@ extern "C" int launch_line_is_over(const void* bplayer, const void* bopponent,
 
 // Hex.is_over on the previous mover's board i64[G, words] (1 to 7) and
 // player i8[G], hex<N> for N from 2 to 13 (rows = cols = N + 1): done
-// bool[G], result i8[G].
+// bool[G], result i8[G].  lanes (the next power of two at or above
+// words), threads and blocks: kernels.spread_geometry.
 extern "C" int launch_hex_is_over(const void* bopponent, const void* player,
                                   void* done, void* result,
                                   const void* masks, int G, int rows,
-                                  int cols, int words, int threads,
-                                  void* stream) {
+                                  int cols, int words, int lanes,
+                                  int threads, int blocks, void* stream) {
   Masks m;
   if (G < 1 || rows != cols || rows < 3 || rows > kHexMaxSize + 1 ||
       words != (rows * cols + 31) / 32 || words > kMaxWords ||
-      !threads_ok(threads) ||
+      lanes != hex_lanes(words) || !lanes_ok(G, lanes, threads, blocks) ||
       !masks_match(static_cast<const u32*>(masks), rows, cols, words, &m))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (words) {
-    case 1: hex<1>(bopponent, player, done, result, m, G, rows, threads, st);
-      break;
-    case 2: hex<2>(bopponent, player, done, result, m, G, rows, threads, st);
-      break;
-    case 3: hex<3>(bopponent, player, done, result, m, G, rows, threads, st);
-      break;
-    case 4: hex<4>(bopponent, player, done, result, m, G, rows, threads, st);
-      break;
-    case 5: hex<5>(bopponent, player, done, result, m, G, rows, threads, st);
-      break;
-    case 6: hex<6>(bopponent, player, done, result, m, G, rows, threads, st);
-      break;
-    default: hex<7>(bopponent, player, done, result, m, G, rows, threads,
-                    st); break;
-  }
+  hex<2>(rows - 1, bopponent, player, done, result, G, threads, blocks,
+         static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

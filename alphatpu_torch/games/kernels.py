@@ -33,9 +33,13 @@ launches; they join the search kernels' accounting
 
 The geometry - rows, cols, words, ``nvict`` and the spec's three masks -
 comes from the :class:`~alphatpu_torch.bitboard.BoardSpec`
-(:func:`reversi_geometry`, :func:`line_geometry`, :func:`hex_geometry`);
-the C entry points refuse any other.  Boards are the port's: 32-bit
-words in int64 elements, cell ``(r, c)`` at bit ``r + rows * c``.
+(:func:`reversi_geometry`, :func:`line_geometry`, :func:`hex_geometry`),
+and the launch from plain Python: ``reversi_play`` and the reversi and
+line games' end tests run a thread a game (:func:`rules_threads`),
+``hex_is_over`` a game over lanes of a warp, a lane a word
+(:func:`spread_geometry`); the C entry points refuse any other.
+Boards are the port's: 32-bit words in int64 elements, cell ``(r, c)``
+at bit ``r + rows * c``.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ RULES_THREADS = 128  # most threads a block of a rules kernel
 REVERSI_SIZES = (6, 8)
 LINE_MAX_WORDS = 6  # gobang13's 169 cells
 HEX_SIZES = range(2, 14)  # hex<N>: hex13's (N+1)^2 = 196 cells, 7 words
+HEX_MAX_WORDS = 7
 
 
 class RulesGeometry(NamedTuple):
@@ -109,15 +114,45 @@ def hex_geometry(spec: bb.BoardSpec) -> RulesGeometry:
     return _geometry(spec, 0)
 
 
-def rules_threads(G: int) -> int:
-    """Threads a block (one thread a game): ``RULES_THREADS``, halved down
-    to one warp while that leaves SMs without a block."""
+def _block_threads(G: int, lanes: int) -> int:
+    """``RULES_THREADS``, halved down to one warp while that leaves SMs
+    without a block (``lanes`` threads a game)."""
     if G < 1:
         raise ValueError(f"rules kernels: G={G} < 1")
     threads = RULES_THREADS
-    while threads > 32 and -(-G // threads) < NUM_SMS:
+    while threads > 32 and -(-G * lanes // threads) < NUM_SMS:
         threads //= 2
     return threads
+
+
+def rules_threads(G: int) -> int:
+    """Threads a block of ``reversi_play``, ``reversi_is_over`` and
+    ``line_is_over`` (one thread a game): ``RULES_THREADS``, halved down
+    to one warp while that leaves SMs without a block."""
+    return _block_threads(G, 1)
+
+
+class SpreadGeometry(NamedTuple):
+    """The launch of ``hex_is_over``, a game over lanes of a warp."""
+
+    lanes: int  # a game's lanes of one warp
+    threads: int  # a block
+    blocks: int  # exactly those that cover G games
+
+
+def spread_geometry(words: int, G: int) -> SpreadGeometry:
+    """``hex_is_over``'s launch: a game's lanes of one warp, the next
+    power of two at or above the board's ``words`` (1, 2, 4 or 8), a lane
+    a word, in blocks of ``RULES_THREADS`` threads halved down to one warp
+    while that leaves SMs without a block."""
+    if G < 1:
+        raise ValueError(f"spread_geometry: G={G} < 1")
+    if not 1 <= words <= HEX_MAX_WORDS:
+        raise ValueError(f"spread_geometry: hex_is_over on {words} words, "
+                         f"expected 1-{HEX_MAX_WORDS}")
+    lanes = 1 << (words - 1).bit_length()
+    threads = _block_threads(G, lanes)
+    return SpreadGeometry(lanes, threads, -(-G // (threads // lanes)))
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +400,7 @@ def hex_is_over(spec: bb.BoardSpec, n: int, bopponent, player):
     result = torch.empty((G,), dtype=torch.int8, device=dev)
     _launch("launch_hex_is_over", dev, bopponent.contiguous(),
             player.contiguous(), done, result, _masks(geo), G, geo.rows,
-            geo.cols, geo.words, rules_threads(G))
+            geo.cols, geo.words, *spread_geometry(geo.words, G))
     hex_is_over.launches += 1
     return done, result
 

@@ -19,7 +19,9 @@ device busy time (the sum of the device kernels' time), the idle share
 ``1 - busy / wall``, device kernel launches (and per rollout for the
 search windows), the CUDA graphs replayed and captured in the window
 (:mod:`alphatpu_torch.graphs`) and the device kernels per replay, host
-copy and sync calls, and the top device kernels.  ``--eager`` runs the
+copy and sync calls, the top device kernels, and the device ms and
+launches of each game-rules kernel by name (``rules_kernels``: they sit
+below the top eight).  ``--eager`` runs the
 rounds eagerly instead (``captured=False``), for comparison.  On the CPU
 (``--device cpu``) it gives the wall times only.
 """
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import tempfile
 import time
@@ -45,6 +48,9 @@ from .train import TrainConfig, adam_init, train_epoch
 
 HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaMemcpyAsync")
+# the game rules' kernels (csrc/rules.cu), as the profiler names them
+RULES_KERNELS = ("reversi_play_kernel", "reversi_is_over_kernel",
+                 "line_is_over_kernel", "hex_is_over_kernel")
 
 
 def card_line() -> str:
@@ -99,9 +105,22 @@ def window(name: str, fn, device: torch.device, rollouts: int | None = None):
             "host_copy_or_sync_calls": sum(1 for e in events
                                            if e.name in HOST_SYNCS),
             "top_kernels_ms": top_kernels(by_name),
+            "rules_kernels": rules_kernels(kernels),
         })
     print(json.dumps(rec))
     return rec
+
+
+def rules_kernels(kernels) -> dict:
+    """Each rules kernel's device ms and launches in the window, by the
+    name of its ``__global__`` function (every instantiation summed)."""
+    out = {}
+    for name in RULES_KERNELS:
+        pattern = re.compile(rf"\b{name}\b")
+        rows = [e for e in kernels if pattern.search(e.name)]
+        out[name] = {"ms": sum(e.device_time_total for e in rows) / 1e3,
+                     "launches": len(rows)}
+    return out
 
 
 def top_kernels(by_name: dict, n: int = 8) -> list:

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch / CUDA port (``alphatpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rules   # phases 1-2 and phase 3's rules parity
 
 Phases, each fatal on failure:
 
@@ -29,9 +30,11 @@ Phases, each fatal on failure:
    ``hex_is_over``) against their plain versions, bit for bit (0 lanes
    that differ), on positions sampled from seeded random games of
    reversi6x6, reversi8x8, tictactoe, connect4, gobang8, gobang9, hex7
-   (8192 lanes), gobang13 and hex13 (2048) - the pass action, lanes past
+   (8192 lanes), gobang13 and hex13 (2048), and reversi8x8 and hex13 at
+   their duel halves' 512 and 128 lanes - the pass action, lanes past
    their game's end given any action, full boards - each timed (CUDA
-   events) beside its bound and its plain version's wall,
+   events) beside its bound, the launch floor (a one-element add, timed
+   the same way) and its plain version's wall,
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
@@ -141,8 +144,12 @@ Phases, each fatal on failure:
    ``bound_ms_device``, at the device placement's shape; a row for each
    bf16 instantiation, ``<name>_bf16``; a row for each rules kernel,
    timed at reversi8x8's 8192 lanes or gobang13's or hex13's 2048, with
-   its time on every game of phase 3) after each phase's wall, then the
-   result line ``{"ok": true, "device": {...}}``.
+   its time on every game of phase 3 and the launch floor) after each
+   phase's wall, then the result line ``{"ok": true, "device": {...}}``.
+
+``--rules`` runs phases 1-2 and phase 3's rules parity alone and ends
+with the rules' JSON line (no result line): the rules kernels of another
+tree of the port, timed by this script (copy it to that tree's root).
 
 Launch counts: before each path every count is set to 0, and after it the
 counts must be exactly what the path owes (launches made for the parity
@@ -295,15 +302,19 @@ RULES = {
 # every wrapper whose launches a path owes
 COUNTED = (*KERNELS, *RULES)
 # phase 3's rules parity: (game, lanes), timed at the shape each record's
-# training path gives the kernels; reversi's two are reported at
-# reversi8x8's shape, line_is_over at gobang13's, hex_is_over at hex13's
+# training path gives the kernels, and at the duel halves' lanes (a
+# sixteenth) of reversi8x8 and hex13; reversi's two are reported at
+# reversi8x8's 8192 lanes, line_is_over at gobang13's 2048, hex_is_over at
+# hex13's 2048
 RULES_GAMES = (("reversi6x6", LANES), ("reversi8x8", LANES),
                ("tictactoe", LANES), ("connect4", LANES),
                ("gobang8", LANES), ("gobang9", LANES), ("gobang13", 2048),
-               ("hex7", LANES), ("hex13", 2048))
-RULES_REPORTED = {"reversi_play": "reversi8x8",
-                  "reversi_is_over": "reversi8x8",
-                  "line_is_over": "gobang13", "hex_is_over": "hex13"}
+               ("hex7", LANES), ("hex13", 2048), ("reversi8x8", LANES // 16),
+               ("hex13", 2048 // 16))
+RULES_REPORTED = {"reversi_play": ("reversi8x8", LANES),
+                  "reversi_is_over": ("reversi8x8", LANES),
+                  "line_is_over": ("gobang13", 2048),
+                  "hex_is_over": ("hex13", 2048)}
 # the kernels with a bf16 instantiation (ALPHATPU_BF16_STATS): its row in
 # the kernels line is the name + "_bf16"
 BF16_KERNELS = ("select_apply", "select", "backup")
@@ -749,9 +760,11 @@ def rules_parity(dev, card: str) -> dict:
     game launches against its plain version on the same tensors - every
     output, lane by lane; reversi's move with 64- and 32-bit actions, and
     the end test after the move too.  Each kernel is timed (CUDA events,
-    back to back) beside its bound (``mcts.bounds.rules_cost``) and its
-    plain version's wall.  Returns {kernel: result} at RULES_REPORTED's
-    game, each result with its time on every game."""
+    back to back) beside its bound (``mcts.bounds.rules_cost``), the
+    launch floor (a one-element in-place add on the card, timed alike:
+    what any launch costs) and its plain version's wall.  Returns
+    {kernel: result} at RULES_REPORTED's shape, each result with its time
+    on every (game, lanes) and the floor."""
     import torch
 
     from alphatpu_torch.games import kernels as R
@@ -759,6 +772,10 @@ def rules_parity(dev, card: str) -> dict:
     from alphatpu_torch.mcts.bounds import rules_cost
 
     t_phase = time.perf_counter()
+    one = torch.zeros(1, device=dev)
+    floor = device_ms(lambda i: one.add_(1.0), 50)
+    print(f"rules parity: launch floor {floor:.4f} ms (a one-element add_, "
+          f"50 launches back to back)  [{card}]")
     out = {}
     for name, G in RULES_GAMES:
         game = make_game(name)
@@ -821,19 +838,21 @@ def rules_parity(dev, card: str) -> dict:
                   f"{int(done.sum())} games over, {int(full.sum())} full "
                   f"boards" + (f", {passing} passes" if passing else "")
                   + f"): lanes that differ {int(bad.sum())}/{G}, max abs "
-                  f"err {err}; {ms:.4f} ms a launch, bound {cost.bound_ms:.6f}"
-                  f" ms ({cost.bound_by}, {cost.nbytes} B; share "
+                  f"err {err}; {ms:.4f} ms a launch, {ms - floor:.4f} ms "
+                  f"over the floor, bound {cost.bound_ms:.6f} ms ("
+                  f"{cost.bound_by}, {cost.nbytes} B; share "
                   f"{cost.bound_ms / ms:.1%}), plain {plain_ms:.3f} ms  "
                   f"[{card}]")
             if int(bad.sum()) or err:
                 raise AssertionError(f"{kernel} on {name}: {int(bad.sum())} "
                                      "lanes differ from the plain version")
             r = out.setdefault(kernel, {"ms_by_game": {},
-                                        "plain_ms_by_game": {}, "err": 0.0})
-            r["ms_by_game"][name] = ms
-            r["plain_ms_by_game"][name] = plain_ms
+                                        "plain_ms_by_game": {}, "err": 0.0,
+                                        "launch_floor_ms": floor})
+            r["ms_by_game"][f"{name} G={G}"] = ms
+            r["plain_ms_by_game"][f"{name} G={G}"] = plain_ms
             r["err"] = max(r["err"], err)
-            if RULES_REPORTED[kernel] == name:
+            if RULES_REPORTED[kernel] == (name, G):
                 r.update(ms=ms, plain_ms=plain_ms, cost=cost,
                          shape=f"{name} G={G}")
     print(f"rules parity: {time.perf_counter() - t_phase:.3f} s  [{card}]")
@@ -2599,8 +2618,16 @@ def captured_ablation(K, dev, card: str) -> None:
           f"ms a move captured/eager: {', '.join(line)}  [{card}]")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "NVIDIA GPU.")
+    ap.add_argument("--rules", action="store_true",
+                    help="phases 1-2 and phase 3's rules parity alone")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; this smoke needs an "
@@ -2630,6 +2657,16 @@ def main() -> int:
     for line in ptxas_lines(_build.build_report["log"]):
         print(f"  ptxas: {line}")
 
+    if args.rules:
+        print(json.dumps({"rules": {
+            name: {"shape": r["shape"], "ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["cost"].bound_ms,
+                   "bound_by": r["cost"].bound_by, "max_abs_err": r["err"],
+                   "launch_floor_ms": r["launch_floor_ms"],
+                   "ms_by_game": r["ms_by_game"],
+                   "plain_ms_by_game": r["plain_ms_by_game"]}
+            for name, r in rules_parity(dev, card).items()}}))
+        return 0
     return smoke(dev, card, kind)
 
 
@@ -2972,6 +3009,9 @@ def smoke(dev, card: str, kind: str) -> int:
               "bound_ms": rules_results[name]["cost"].bound_ms,
               "bound_by": rules_results[name]["cost"].bound_by,
               "library_ms": None, "shape": rules_results[name]["shape"],
+              "launch_floor_ms": rules_results[name]["launch_floor_ms"],
+              "over_floor_ms": rules_results[name]["ms"]
+              - rules_results[name]["launch_floor_ms"],
               "ms_by_game": rules_results[name]["ms_by_game"],
               "plain_ms_by_game": rules_results[name]["plain_ms_by_game"]}
              for name, ref in RULES.items()]

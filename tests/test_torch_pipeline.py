@@ -470,3 +470,33 @@ def test_profile_summary_keeps_whole_kernel_names():
     assert top[0] == (long, 100.0)
     assert [n for n, _ in top[1:]] == [f"k{i}" for i in range(11, 4, -1)]
     assert top_kernels(by_name, 2) == [(long, 100.0), ("k11", 11.0)]
+
+
+def test_profile_names_every_rules_kernel():
+    """Each rules kernel's device ms and launches by its function's name,
+    every instantiation summed, whether or not it is in the top eight; a
+    kernel the window did not run reports 0."""
+    from types import SimpleNamespace
+
+    from alphatpu_torch.profile_generation import RULES_KERNELS, rules_kernels
+
+    def event(name, us):
+        return SimpleNamespace(name=name, device_time_total=us)
+
+    kernels = [
+        event("void (anonymous namespace)::hex_is_over_kernel<7, 8>(long "
+              "const*, signed char const*, bool*, signed char*, ...)", 6.0),
+        event("void (anonymous namespace)::hex_is_over_kernel<2, 2>(...)",
+              3.0),
+        event("void (anonymous namespace)::reversi_play_kernel<8, long>"
+              "(...)", 4.0),
+        event("void (anonymous namespace)::reversi_is_over_kernel<8>(...)",
+              2.5),
+        event("void walk::select_apply_packed_kernel<32, 6>(...)", 100.0),
+    ]
+    got = rules_kernels(kernels)
+    assert set(got) == set(RULES_KERNELS)
+    assert got["hex_is_over_kernel"] == {"ms": 0.009, "launches": 2}
+    assert got["reversi_play_kernel"] == {"ms": 0.004, "launches": 1}
+    assert got["reversi_is_over_kernel"] == {"ms": 0.0025, "launches": 1}
+    assert got["line_is_over_kernel"] == {"ms": 0.0, "launches": 0}

@@ -72,6 +72,20 @@ def test_port_never_imports_jax():
     assert out.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("argv", [[], ["--rules"]])
+def test_smoke_refuses_without_a_card(argv):
+    """chip_smoke.py - the whole smoke, and ``--rules``, its phases 1-2 and
+    rules parity alone (how the rules kernels of another tree of the port
+    are timed beside this one's, the script copied to that tree) - exits
+    non-zero and prints no result where torch finds no card."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py", *argv], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "no CUDA device" in out.stderr
+
+
 def test_build_paths_are_inside_the_package():
     from alphatpu_torch import _build
 
@@ -181,18 +195,20 @@ RULES_GAMES = ("reversi6x6", "reversi8x8", "tictactoe", "connect4", "gobang8",
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 127, 1021])
 @pytest.mark.parametrize("name", RULES_GAMES)
-def test_rules_kernels_match_plain(name, cuda):
+def test_rules_kernels_match_plain(name, G, cuda):
     """The rules kernels equal their plain versions bit for bit on sampled
     positions - dead lanes given any action, reversi's pass, full boards
-    - at a lane count that leaves the last block part full; each call
-    launches one kernel."""
+    - at lane counts that leave the last warp part full (one game; 127
+    and 1021 games, a thread a game or a lane a word);
+    each call launches one kernel."""
     from alphatpu_torch.games import kernels as R
     from alphatpu_torch.games import make_game
     from alphatpu_torch.mcts import kernels as K
 
     game = make_game(name)
-    pos, action = R.sample_positions(game, 1021, seed=7, device=cuda)
+    pos, action = R.sample_positions(game, G, seed=7, device=cuda)
     reversi = name.startswith("reversi")
     K.reset_launch_counts()
     got = [game.is_over(pos)]
@@ -220,6 +236,31 @@ def test_rules_kernels_match_plain(name, cuda):
     counts = {k: n for k, (n, _) in K.launch_counts().items() if n}
     assert counts == ({"reversi_play": 3, "reversi_is_over": 2} if reversi
                       else {game.is_over_kernel: 2})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(2, 14))
+def test_hex_kernel_matches_plain_at_every_size(n, cuda):
+    """hex_is_over on hex<N> for every N from 2 to 13 - one to seven words
+    over 1, 2, 4 or 8 lanes a game, among them the sizes whose words fill
+    their lanes (hex5-hex7, hex9-hex10), where no spare lane supplies the
+    zero past the last word - equals hex_is_over_plain bit for bit, before
+    and after each lane's move, in one launch a call."""
+    from alphatpu_torch.games import kernels as R
+    from alphatpu_torch.games import make_game
+    from alphatpu_torch.mcts import kernels as K
+
+    game = make_game(f"hex{n}")
+    pos, action = R.sample_positions(game, 509, seed=n, device=cuda)
+    played = game.play(pos, action)
+    K.reset_launch_counts()
+    got = [game.is_over(p) for p in (pos, played)]
+    torch.cuda.synchronize()
+    assert K.launch_counts()["hex_is_over"] == (2, 0)
+    for g, p in zip(got, (pos, played)):
+        want = R.hex_is_over_plain(game.spec, n, p.bopponent, p.player)
+        for a, b in zip(g, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -215,6 +215,66 @@ def test_rules_threads(G, threads):
         R.rules_threads(0)
 
 
+@pytest.mark.parametrize("n", range(2, 14))
+def test_spread_geometry_covers_every_hex_size(n):
+    """hex_is_over spreads hex<N>'s W words over L lanes of a warp a game:
+    L the next power of two at or above W, so it divides 32 and no game
+    crosses a warp; every lane below W holds a word."""
+    W = R.hex_geometry(make_game(f"hex{n}").spec).words
+    lanes = R.spread_geometry(W, 2048).lanes
+    assert lanes >= W > lanes // 2
+    assert lanes & (lanes - 1) == 0 and 32 % lanes == 0
+    assert lanes == {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 6: 8, 7: 8}[W]
+
+
+@pytest.mark.parametrize("G", [1, 127, 128, 1021, 2048, 8192])
+@pytest.mark.parametrize("words", [1, 2, 3, 7])
+def test_spread_geometry_covers_G(words, G):
+    """Whole games a warp, the fewest blocks that cover G games, in
+    blocks of 128 threads halved to a warp while the 132 SMs would not
+    each get one."""
+    geo = R.spread_geometry(words, G)
+    assert geo.threads in (32, 64, 128) and geo.threads % geo.lanes == 0
+    games = geo.threads // geo.lanes
+    assert (geo.blocks - 1) * games < G <= geo.blocks * games
+    assert geo.threads == 32 or geo.blocks >= R.NUM_SMS
+    if geo.threads < 128:  # twice the threads would leave SMs idle
+        assert -(-G * geo.lanes // (2 * geo.threads)) < R.NUM_SMS
+    with pytest.raises(ValueError):
+        R.spread_geometry(words, 0)
+
+
+def test_spread_geometry_refuses_boards_past_hex13():
+    """hex boards of 1-7 words."""
+    for words in (0, 8):
+        with pytest.raises(ValueError, match="hex_is_over"):
+            R.spread_geometry(words, 64)
+
+
+@pytest.mark.parametrize("name,G", [("reversi8x8", 1), ("reversi8x8", 127),
+                                    ("reversi6x6", 1021), ("hex13", 1),
+                                    ("hex13", 128), ("hex7", 1021),
+                                    ("hex3", 127)])
+def test_wrappers_launch_the_spread_geometry(name, G, monkeypatch):
+    """hex_is_over launches with ``spread_geometry`` for its G and words;
+    the other rules kernels keep ``rules_threads``."""
+    game = make_game(name)
+    pos, action = R.sample_positions(game, G, seed=5)
+    launched = []
+    monkeypatch.setattr(R, "_on_cuda", lambda kernel, t: True)
+    monkeypatch.setattr(R, "_launch",
+                        lambda e, dev, *a: launched.append((e, a)))
+    if name.startswith("reversi"):
+        game.play(pos, action)
+    game.is_over(pos)
+    for entry, args in launched:
+        if entry == "launch_hex_is_over":
+            assert args[-3:] == tuple(R.spread_geometry(game.spec.nwords, G))
+        else:
+            assert args[-1] == R.rules_threads(G)
+    assert [e for e, _ in launched][-1] == "launch_" + game.is_over_kernel
+
+
 @pytest.mark.parametrize("name,entry", [
     ("reversi8x8", "launch_reversi_play"),
     ("reversi6x6", "launch_reversi_is_over"),
@@ -251,7 +311,10 @@ def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
     elif entry == "launch_reversi_is_over":
         assert ints == (40, 6, 6, 2, 32)
     elif entry == "launch_hex_is_over":
-        assert ints == (40, geo.rows, geo.cols, geo.words, 32)
+        # 8 lanes a game for hex13's 7 words, 2 for hex7's 2
+        lanes = 8 if name == "hex13" else 2
+        assert ints == (40, geo.rows, geo.cols, geo.words, lanes, 32,
+                        -(-40 * lanes // 32))
         assert (geo.rows, geo.words) == ((14, 7) if name == "hex13"
                                          else (8, 2))
     else:
@@ -336,3 +399,4 @@ def test_rules_cost(name, G):
         assert over.bound_by == "bytes"
     with pytest.raises(ValueError):
         bounds.rules_cost("select", game.spec, G)
+
