@@ -15,7 +15,9 @@
 // call: these kernels are the port's counterpart of XLA's fusion.  Each
 // computes every word of the plain version's operations with the plain
 // version's expressions, so its outputs equal the plain version's bit for
-// bit for any input.  Hex's flood is 2N-2 dependent steps of three shifts
+// bit for any input; reversi_play folds each direction's step - two
+// shifts, each then masked - into one shift and one mask, an identity
+// (Reversi::shifted; tests/test_torch_rules.py holds it).  Hex's flood is 2N-2 dependent steps of three shifts
 // each (up, right, down): the plain version runs each shift word by word,
 // some 5,700 launches a call on hex13.
 //
@@ -23,19 +25,28 @@
 // operations.  At 8192 games a call reads and writes under 1 MB (about
 // 0.3 us at 3.35 TB/s) and does a few thousand word operations a game
 // (well under a microsecond across the card), so what is left above the
-// launch is the loads' latency and each game's longest chain.
-// reversi_play, reversi_is_over and line_is_over run one thread a game,
-// the directions, the flip lines and the words unrolled at compile time
-// (the size or the word count a template argument), the masks kernel
-// parameters.  (A lane a direction for reversi_play - eight lanes a game,
-// their flips and legal boards ORed by an xor butterfly of shuffles - was
-// faster at reversi8x8 but slower at reversi6x6's 8192 games; PERF.md
-// has the trials.)  hex_is_over, the longest chain, runs L lanes of a warp
-// a game (the next power of two at or above its W words), lane w word w,
-// every mask arithmetic on the lane's index.  A lane computes b = up(a)
-// for words w-2..w, c = right(b) for w-1..w and the and-or for w-1..w, so
-// each of the 2N-2 steps, unrolled, needs one round of three independent
-// shuffles (words w-2, w-1 and w+1 of a) instead of three rounds.
+// launch is the loads' latency and each game's longest chain.  So the
+// kernels split a game's independent chains - its directions - over
+// threads, where each thread keeps whole 64-bit boards or whole words:
+// - reversi_play and line_is_over run four warps a block of 32 games, lane
+//   l game l of the block in every warp, warp k direction k of the line
+//   games' four, or reversi's directions 2k and 2k+1, so the direction's
+//   shifts are constants and its branch uniform across the warp.  The
+//   warps meet in shared memory: line_is_over ORs four ballots of "a
+//   stone left" after one barrier; reversi_play ORs the four warps' flips
+//   (one barrier), forms the new boards in every warp, ORs their legal
+//   boards (a second barrier), and warp 0 stores.  (A lane a direction for
+//   reversi_play - eight lanes a game, ORed by shuffles - waited on each
+//   lane's loads and lost at reversi6x6; PERF.md has the trials.)
+// - reversi_is_over runs one thread a game, the directions, the flip lines
+//   and the words unrolled at compile time (the size a template argument).
+// - hex_is_over, the longest chain, runs L lanes of a warp a game (the
+//   next power of two at or above its W words), lane w word w, every mask
+//   arithmetic on the lane's index.  A lane computes b = up(a) for words
+//   w-2..w, c = right(b) for w-1..w and the and-or for w-1..w, so each of
+//   the 2N-2 steps, unrolled, needs one round of three independent
+//   shuffles (words w-2, w-1 and w+1 of a) instead of three rounds.
+// The masks of the reversi and line kernels are kernel parameters.
 // Boards are the port's layout: 32-bit words held in int64 elements, cell
 // (r, c) at bit r + rows * c.  Reversi's two words are joined into one
 // 64-bit value (36 or 64 cells); a shift of that value equals the plain
@@ -43,10 +54,11 @@
 // does not hold.  The line and hex kernels keep W 32-bit words (gobang13:
 // six, hex13: seven) and shift across them as bitboard._shift does.
 // Geometry and masks come from Python (games/kernels.py: reversi_geometry,
-// line_geometry, hex_geometry, rules_threads, and spread_geometry for
-// hex_is_over); each entry point checks them against the masks and the
-// launch it derives from rows, cols and G, and refuses any geometry it has
-// no instantiation for.
+// line_geometry, hex_geometry; the launches direction_geometry for
+// reversi_play and line_is_over, rules_threads for reversi_is_over and
+// spread_geometry for hex_is_over); each entry point checks them against
+// the masks and the launch it derives from rows, cols and G, and refuses
+// any geometry it has no instantiation for.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -57,6 +69,11 @@ typedef unsigned long long u64;
 typedef uint32_t u32;
 
 constexpr int kMaxThreads = 128;
+// reversi_play and line_is_over: four warps a block, a warp a direction (or
+// a pair), a lane a game: kDirGames games a block
+constexpr int kDirWarps = 4;
+constexpr int kDirGames = 32;
+constexpr int kDirThreads = kDirWarps * kDirGames;
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kMaxWords = 7;      // hex13: 196 cells
 constexpr int kLineMaxWords = 6;  // gobang13: 169 cells
@@ -99,6 +116,14 @@ bool threads_ok(int threads) {
 bool lanes_ok(int G, int lanes, int threads, int blocks) {
   return G >= 1 && threads_ok(threads) && threads % lanes == 0 &&
          blocks == blocks_for(G, threads / lanes);
+}
+
+// A launch of a warp a direction (games/kernels.py direction_geometry):
+// four warps a block and exactly the blocks that cover G games, a lane a
+// game.
+bool directions_ok(int G, int threads, int blocks) {
+  return G >= 1 && threads == kDirThreads &&
+         blocks == blocks_for(G, kDirGames);
 }
 
 // ---------------------------------------------------------------------------
@@ -170,48 +195,130 @@ struct Reversi {
     return out;
   }
 
-  // kernels.flip_board_plain: the discs of `adv` a disc on `played` flips
-  __device__ __forceinline__ u64 flips(u64 me, u64 adv, u64 played) const {
-    u64 out = 0;
+  // step(D, x) as one shift and one mask.  Each of up, down, left and
+  // right is a shift then an AND, and a shift distributes over an AND, so
+  // step(D, x) == shifted<D>(x) & step(D, ~0): shifted<D> the net shift of
+  // D's composition (up >> 1, down << 1, left >> SIZE, right << SIZE).
+  template <int D>
+  static __device__ __forceinline__ u64 shifted(u64 x) {
+    constexpr int s = D == 0 ? -1 : D == 1 ? 1 : D == 2 ? -SIZE
+                    : D == 3 ? SIZE : D == 4 ? -(SIZE + 1)
+                    : D == 5 ? -(SIZE - 1) : D == 6 ? SIZE - 1 : SIZE + 1;
+    if constexpr (s > 0) return x << s;
+    else return x >> -s;
+  }
+
+  // kernels.flip_board_plain's body for direction D, its step folded as
+  // above (adv and me masked once): the discs of `adv` a disc on `played`
+  // flips along D
+  template <int D>
+  __device__ __forceinline__ u64 flips_dir(u64 me, u64 adv,
+                                           u64 played) const {
+    const u64 mask = step(D, ~0ull);
+    const u64 a = adv & mask;
+    u64 cand = a & shifted<D>(played);
+    u64 toflip = cand;
 #pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      u64 cand = step(d, played) & adv;
-      u64 toflip = cand;
-#pragma unroll
-      for (int i = 0; i < SIZE - 2; ++i) {
-        cand = adv & step(d, cand);
-        toflip |= cand;
-      }
-      if ((step(d, toflip) & me) != 0) out |= toflip;
+    for (int i = 0; i < SIZE - 2; ++i) {
+      cand = a & shifted<D>(cand);
+      toflip |= cand;
     }
-    return out;
+    return (shifted<D>(toflip) & mask & me) != 0 ? toflip : 0ull;
+  }
+
+  // kernels.legal_board_plain's body for direction D, its step folded (adv
+  // and the empty cells masked once): the empty cells a run of `adv` from
+  // `me` ends on along D
+  template <int D>
+  __device__ __forceinline__ u64 legal_dir(u64 me, u64 adv,
+                                           u64 emptyc) const {
+    const u64 mask = step(D, ~0ull);
+    const u64 a = adv & mask;
+    const u64 e = emptyc & mask;
+    u64 out = 0;
+    u64 cand = a & shifted<D>(me);
+#pragma unroll
+    for (int i = 0; i < SIZE - 2; ++i) {
+      const u64 dc = shifted<D>(cand);
+      out |= e & dc;
+      cand = a & dc;
+    }
+    return out | (e & shifted<D>(cand));
+  }
+
+  // directions 2k and 2k+1 (k the warp's index, uniform across it)
+  __device__ __forceinline__ u64 flips_pair(int k, u64 me, u64 adv,
+                                            u64 played) const {
+    switch (k) {
+      case 0: return flips_dir<0>(me, adv, played) |
+                     flips_dir<1>(me, adv, played);
+      case 1: return flips_dir<2>(me, adv, played) |
+                     flips_dir<3>(me, adv, played);
+      case 2: return flips_dir<4>(me, adv, played) |
+                     flips_dir<5>(me, adv, played);
+      default: return flips_dir<6>(me, adv, played) |
+                      flips_dir<7>(me, adv, played);
+    }
+  }
+  __device__ __forceinline__ u64 legal_pair(int k, u64 me, u64 adv) const {
+    const u64 emptyc = ~(me | adv) & m.valid;
+    switch (k) {
+      case 0: return legal_dir<0>(me, adv, emptyc) |
+                     legal_dir<1>(me, adv, emptyc);
+      case 1: return legal_dir<2>(me, adv, emptyc) |
+                     legal_dir<3>(me, adv, emptyc);
+      case 2: return legal_dir<4>(me, adv, emptyc) |
+                     legal_dir<5>(me, adv, emptyc);
+      default: return legal_dir<6>(me, adv, emptyc) |
+                      legal_dir<7>(me, adv, emptyc);
+    }
   }
 };
 
+// Reversi.play, a warp a pair of directions: a block of kDirThreads threads
+// (four warps) plays kDirGames games, lane l game blockIdx.x * kDirGames +
+// l in every warp, warp k directions 2k and 2k+1.  Each warp ORs its two
+// directions' flips into shared memory; after a barrier every warp forms
+// the new boards from the four, ORs its two directions of the new mover's
+// legal board into shared memory, and after a second barrier warp 0 stores
+// the boards, the legal board and -player.  Lanes past G hold empty boards
+// and store nothing, and every lane reaches both barriers.
 template <int SIZE, class Action>
-__global__ void __launch_bounds__(kMaxThreads) reversi_play_kernel(
+__global__ void __launch_bounds__(kDirThreads) reversi_play_kernel(
     const int64_t* __restrict__ bplayer, const int64_t* __restrict__ bopponent,
     const Action* __restrict__ action, const int8_t* __restrict__ player,
     int64_t* __restrict__ out_bplayer, int64_t* __restrict__ out_bopponent,
     int64_t* __restrict__ out_legal, int8_t* __restrict__ out_player,
     Masks64 masks, int G) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
+  __shared__ u64 flipped[kDirWarps][kDirGames], legal[kDirWarps][kDirGames];
+  const int k = threadIdx.x / 32;
+  const int l = threadIdx.x % 32;
+  const int g = blockIdx.x * kDirGames + l;
+  const bool live = g < G;
   const Reversi<SIZE> R{masks};
-  const u64 bp = load64(bplayer, g);
-  const u64 bo = load64(bopponent, g);
-  const long long a = static_cast<long long>(action[g]);
+  const u64 bp = live ? load64(bplayer, g) : 0ull;
+  const u64 bo = live ? load64(bopponent, g) : 0ull;
+  const long long a = live ? static_cast<long long>(action[g]) : -1ll;
+  const int8_t p = live && k == 0 ? player[g] : int8_t{0};
   // the pass action (size*size and above) places and flips nothing; a
   // negative index sets no bit (bitboard.set_bit)
   const bool is_pass = a >= SIZE * SIZE;
   const u64 placed = (!is_pass && a >= 0) ? (1ull << a) : 0ull;
-  const u64 h = is_pass ? 0ull : R.flips(bp, bo, placed);
+  flipped[k][l] = is_pass ? 0ull : R.flips_pair(k, bp, bo, placed);
+  __syncthreads();
+  const u64 h = flipped[0][l] | flipped[1][l] | flipped[2][l] | flipped[3][l];
   const u64 me = (bp ^ h) | placed;
   const u64 adv = bo ^ h;
-  store64(out_bplayer, g, adv);
-  store64(out_bopponent, g, me);
-  store64(out_legal, g, R.legal(adv, me));
-  out_player[g] = static_cast<int8_t>(-player[g]);
+  if (live && k == 0) {
+    store64(out_bplayer, g, adv);
+    store64(out_bopponent, g, me);
+    out_player[g] = static_cast<int8_t>(-p);
+  }
+  legal[k][l] = R.legal_pair(k, adv, me);
+  __syncthreads();
+  if (live && k == 0)
+    store64(out_legal, g,
+            legal[0][l] | legal[1][l] | legal[2][l] | legal[3][l]);
 }
 
 template <int SIZE>
@@ -242,10 +349,9 @@ Masks64 join(const Masks& m) {
 
 // A reversi board: square, 6x6 or 8x8, in two words, with its own masks.
 bool reversi_geometry(const void* masks, int G, int rows, int cols,
-                      int words, int threads, Masks64* out) {
+                      int words, Masks64* out) {
   Masks m;
   if (G < 1 || rows != cols || (rows != 6 && rows != 8) || words != 2 ||
-      !threads_ok(threads) ||
       !masks_match(static_cast<const u32*>(masks), rows, cols, words, &m))
     return false;
   *out = join(m);
@@ -255,10 +361,9 @@ bool reversi_geometry(const void* masks, int G, int rows, int cols,
 template <int SIZE, class Action>
 void play(const void* bplayer, const void* bopponent, const void* action,
           const void* player, void* out_bplayer, void* out_bopponent,
-          void* out_legal, void* out_player, Masks64 m, int G, int threads,
+          void* out_legal, void* out_player, Masks64 m, int G, int blocks,
           cudaStream_t stream) {
-  reversi_play_kernel<SIZE, Action>
-      <<<blocks_for(G, threads), threads, 0, stream>>>(
+  reversi_play_kernel<SIZE, Action><<<blocks, kDirThreads, 0, stream>>>(
           static_cast<const int64_t*>(bplayer),
           static_cast<const int64_t*>(bopponent),
           static_cast<const Action*>(action),
@@ -339,37 +444,72 @@ __device__ __forceinline__ Board<W> load(const int64_t* p, int g) {
   return b;
 }
 
+// kernels.line_win_plain's direction D: nvict - 1 shift-ANDs of the board,
+// then whether a stone is left
+template <int W, int D>
+__device__ __forceinline__ bool line_dir(Board<W> b, int rows, int nvict,
+                                         const Masks& m) {
+  for (int i = 0; i < nvict - 1; ++i) {
+    const Board<W> s = line_step(D, b, rows, m);
+#pragma unroll
+    for (int w = 0; w < W; ++w) b.w[w] &= s.w[w];
+  }
+  u32 any = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) any |= b.w[w];
+  return any != 0;
+}
+
+// Gobang.is_over / Connect4.is_over, a warp a direction: a block of
+// kDirThreads threads (four warps) tests kDirGames games, lane l game
+// blockIdx.x * kDirGames + l in every warp, warp d direction d of
+// line_win_plain (uniform across the warp).  Each warp's ballot of "a
+// stone left" goes to shared memory; after a barrier warp 0 ORs the four
+// and adds the full-board test on both boards, which it loaded before the
+// barrier.  Lanes past G hold an empty board and store nothing, and every
+// lane reaches the barrier.
 template <int W>
-__global__ void __launch_bounds__(kMaxThreads) line_is_over_kernel(
+__global__ void __launch_bounds__(kDirThreads) line_is_over_kernel(
     const int64_t* __restrict__ bplayer, const int64_t* __restrict__ bopponent,
     const int8_t* __restrict__ player, bool* __restrict__ done,
     int8_t* __restrict__ result, Masks masks, int G, int rows, int cells,
     int nvict) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const Board<W> bp = load<W>(bplayer, g);
-  const Board<W> board = load<W>(bopponent, g);  // the previous mover's
-  bool win = false;
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    Board<W> b = board;
-    for (int i = 0; i < nvict - 1; ++i) {
-      const Board<W> s = line_step(d, b, rows, masks);
-#pragma unroll
-      for (int w = 0; w < W; ++w) b.w[w] &= s.w[w];
-    }
-    win |= popcount(b) != 0;
+  __shared__ u32 won[kDirWarps];
+  const int d = threadIdx.x / 32;
+  const int l = threadIdx.x % 32;
+  const int g = blockIdx.x * kDirGames + l;
+  const bool live = g < G;
+  Board<W> board = {};  // the previous mover's
+  if (live) board = load<W>(bopponent, g);
+  Board<W> bp = {};
+  int8_t p = 0;
+  if (live && d == 0) {
+    bp = load<W>(bplayer, g);
+    p = player[g];
   }
-  const bool full = popcount(bp) + popcount(board) == cells;
-  done[g] = win || full;
-  result[g] = win ? static_cast<int8_t>(-player[g]) : int8_t{0};
+  bool win;
+  switch (d) {
+    case 0: win = line_dir<W, 0>(board, rows, nvict, masks); break;
+    case 1: win = line_dir<W, 1>(board, rows, nvict, masks); break;
+    case 2: win = line_dir<W, 2>(board, rows, nvict, masks); break;
+    default: win = line_dir<W, 3>(board, rows, nvict, masks); break;
+  }
+  const u32 ballot = __ballot_sync(kFullWarp, win);
+  if (l == 0) won[d] = ballot;
+  __syncthreads();
+  if (live && d == 0) {
+    const bool w = ((won[0] | won[1] | won[2] | won[3]) >> l) & 1u;
+    const bool full = popcount(bp) + popcount(board) == cells;
+    done[g] = w || full;
+    result[g] = w ? static_cast<int8_t>(-p) : int8_t{0};
+  }
 }
 
 template <int W>
 void line(const void* bplayer, const void* bopponent, const void* player,
           void* done, void* result, const Masks& m, int G, int rows,
-          int cols, int nvict, int threads, cudaStream_t stream) {
-  line_is_over_kernel<W><<<blocks_for(G, threads), threads, 0, stream>>>(
+          int cols, int nvict, int blocks, cudaStream_t stream) {
+  line_is_over_kernel<W><<<blocks, kDirThreads, 0, stream>>>(
       static_cast<const int64_t*>(bplayer),
       static_cast<const int64_t*>(bopponent),
       static_cast<const int8_t*>(player), static_cast<bool*>(done),
@@ -513,32 +653,34 @@ void hex(int n, const void* bopponent, const void* player, void* done,
 
 // Reversi.play on boards i64[G, 2]: action i32 (action_bits 32) or i64
 // (64), player i8[G]; writes the swapped boards, the new legal board and
-// -player.  masks: host u32[3 * words].
+// -player.  masks: host u32[3 * words]; threads and blocks:
+// kernels.direction_geometry.
 extern "C" int launch_reversi_play(const void* bplayer, const void* bopponent,
                                    const void* action, const void* player,
                                    void* out_bplayer, void* out_bopponent,
                                    void* out_legal, void* out_player,
                                    const void* masks, int G, int action_bits,
                                    int rows, int cols, int words, int threads,
-                                   void* stream) {
+                                   int blocks, void* stream) {
   Masks64 m;
-  if (!reversi_geometry(masks, G, rows, cols, words, threads, &m) ||
+  if (!reversi_geometry(masks, G, rows, cols, words, &m) ||
+      !directions_ok(G, threads, blocks) ||
       (action_bits != 32 && action_bits != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool a64 = action_bits == 64;
   if (rows == 6 && a64)
     play<6, int64_t>(bplayer, bopponent, action, player, out_bplayer,
-                     out_bopponent, out_legal, out_player, m, G, threads, st);
+                     out_bopponent, out_legal, out_player, m, G, blocks, st);
   else if (rows == 6)
     play<6, int32_t>(bplayer, bopponent, action, player, out_bplayer,
-                     out_bopponent, out_legal, out_player, m, G, threads, st);
+                     out_bopponent, out_legal, out_player, m, G, blocks, st);
   else if (a64)
     play<8, int64_t>(bplayer, bopponent, action, player, out_bplayer,
-                     out_bopponent, out_legal, out_player, m, G, threads, st);
+                     out_bopponent, out_legal, out_player, m, G, blocks, st);
   else
     play<8, int32_t>(bplayer, bopponent, action, player, out_bplayer,
-                     out_bopponent, out_legal, out_player, m, G, threads, st);
+                     out_bopponent, out_legal, out_player, m, G, blocks, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,7 +694,8 @@ extern "C" int launch_reversi_is_over(const void* bplayer,
                                       int cols, int words, int threads,
                                       void* stream) {
   Masks64 m;
-  if (!reversi_geometry(masks, G, rows, cols, words, threads, &m))
+  if (!reversi_geometry(masks, G, rows, cols, words, &m) ||
+      !threads_ok(threads))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = blocks_for(G, threads);
@@ -572,33 +715,34 @@ extern "C" int launch_reversi_is_over(const void* bplayer,
 }
 
 // Gobang.is_over / Connect4.is_over on boards i64[G, words] (1 to 6) and
-// player i8[G]: done bool[G], result i8[G].
+// player i8[G]: done bool[G], result i8[G].  threads and blocks:
+// kernels.direction_geometry.
 extern "C" int launch_line_is_over(const void* bplayer, const void* bopponent,
                                    const void* player, void* done,
                                    void* result, const void* masks, int G,
                                    int rows, int cols, int words, int nvict,
-                                   int threads, void* stream) {
+                                   int threads, int blocks, void* stream) {
   Masks m;
   if (G < 1 || rows < 1 || rows > 31 || cols < 1 || cols > 31 ||
       words < 1 || words > kLineMaxWords ||
       words != (rows * cols + 31) / 32 ||
-      nvict < 1 || nvict > 32 || !threads_ok(threads) ||
+      nvict < 1 || nvict > 32 || !directions_ok(G, threads, blocks) ||
       !masks_match(static_cast<const u32*>(masks), rows, cols, words, &m))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (words) {
     case 1: line<1>(bplayer, bopponent, player, done, result, m, G, rows,
-                    cols, nvict, threads, st); break;
+                    cols, nvict, blocks, st); break;
     case 2: line<2>(bplayer, bopponent, player, done, result, m, G, rows,
-                    cols, nvict, threads, st); break;
+                    cols, nvict, blocks, st); break;
     case 3: line<3>(bplayer, bopponent, player, done, result, m, G, rows,
-                    cols, nvict, threads, st); break;
+                    cols, nvict, blocks, st); break;
     case 4: line<4>(bplayer, bopponent, player, done, result, m, G, rows,
-                    cols, nvict, threads, st); break;
+                    cols, nvict, blocks, st); break;
     case 5: line<5>(bplayer, bopponent, player, done, result, m, G, rows,
-                    cols, nvict, threads, st); break;
+                    cols, nvict, blocks, st); break;
     default: line<6>(bplayer, bopponent, player, done, result, m, G, rows,
-                     cols, nvict, threads, st); break;
+                     cols, nvict, blocks, st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,10 +34,12 @@ launches; they join the search kernels' accounting
 The geometry - rows, cols, words, ``nvict`` and the spec's three masks -
 comes from the :class:`~alphatpu_torch.bitboard.BoardSpec`
 (:func:`reversi_geometry`, :func:`line_geometry`, :func:`hex_geometry`),
-and the launch from plain Python: ``reversi_play`` and the reversi and
-line games' end tests run a thread a game (:func:`rules_threads`),
-``hex_is_over`` a game over lanes of a warp, a lane a word
-(:func:`spread_geometry`); the C entry points refuse any other.
+and the launch from plain Python: ``reversi_play`` and ``line_is_over``
+run four warps a block of 32 games, a warp a direction or a pair of them
+(:func:`direction_geometry`), ``reversi_is_over`` a thread a game
+(:func:`rules_threads`), ``hex_is_over`` a game over lanes of a warp, a
+lane a word (:func:`spread_geometry`); the C entry points refuse any
+other.
 Boards are the port's: 32-bit words in int64 elements, cell ``(r, c)``
 at bit ``r + rows * c``.
 """
@@ -56,6 +58,8 @@ from .._build import on_cuda as _on_cuda
 
 NUM_SMS = 132  # H100 SXM
 RULES_THREADS = 128  # most threads a block of a rules kernel
+DIRECTION_WARPS = 4  # reversi_play, line_is_over: a warp a direction (pair)
+DIRECTION_GAMES = 32  # a lane a game in each warp
 REVERSI_SIZES = (6, 8)
 LINE_MAX_WORDS = 6  # gobang13's 169 cells
 HEX_SIZES = range(2, 14)  # hex<N>: hex13's (N+1)^2 = 196 cells, 7 words
@@ -126,10 +130,29 @@ def _block_threads(G: int, lanes: int) -> int:
 
 
 def rules_threads(G: int) -> int:
-    """Threads a block of ``reversi_play``, ``reversi_is_over`` and
-    ``line_is_over`` (one thread a game): ``RULES_THREADS``, halved down
-    to one warp while that leaves SMs without a block."""
+    """Threads a block of ``reversi_is_over`` (one thread a game):
+    ``RULES_THREADS``, halved down to one warp while that leaves SMs
+    without a block."""
     return _block_threads(G, 1)
+
+
+class DirectionGeometry(NamedTuple):
+    """The launch of ``reversi_play`` and ``line_is_over``."""
+
+    threads: int  # a block: DIRECTION_WARPS warps
+    blocks: int  # exactly those that cover G games, DIRECTION_GAMES each
+
+
+def direction_geometry(G: int) -> DirectionGeometry:
+    """``reversi_play``'s and ``line_is_over``'s launch: blocks of
+    ``DIRECTION_WARPS`` warps that share ``DIRECTION_GAMES`` games, lane
+    ``l`` of every warp game ``l`` of the block, warp ``k`` the line games'
+    direction ``k`` or reversi's directions ``2k`` and ``2k+1``; the
+    fewest blocks that cover ``G`` games (at 2048 games 64 blocks, 256
+    warps)."""
+    if G < 1:
+        raise ValueError(f"direction_geometry: G={G} < 1")
+    return DirectionGeometry(DIRECTION_WARPS * 32, -(-G // DIRECTION_GAMES))
 
 
 class SpreadGeometry(NamedTuple):
@@ -341,7 +364,7 @@ def reversi_play(spec: bb.BoardSpec, bplayer, bopponent, player, action):
             bopponent.contiguous(), action.contiguous(),
             player.contiguous(), *out, _masks(geo), G,
             action.element_size() * 8, geo.rows, geo.cols, geo.words,
-            rules_threads(G))
+            *direction_geometry(G))
     reversi_play.launches += 1
     return out
 
@@ -380,7 +403,7 @@ def line_is_over(spec: bb.BoardSpec, nvict: int, bplayer, bopponent,
     _launch("launch_line_is_over", dev, bplayer.contiguous(),
             bopponent.contiguous(), player.contiguous(), done, result,
             _masks(geo), G, geo.rows, geo.cols, geo.words, geo.nvict,
-            rules_threads(G))
+            *direction_geometry(G))
     line_is_over.launches += 1
     return done, result
 

@@ -303,13 +303,14 @@ RULES = {
 COUNTED = (*KERNELS, *RULES)
 # phase 3's rules parity: (game, lanes), timed at the shape each record's
 # training path gives the kernels, and at the duel halves' lanes (a
-# sixteenth) of reversi8x8 and hex13; reversi's two are reported at
-# reversi8x8's 8192 lanes, line_is_over at gobang13's 2048, hex_is_over at
-# hex13's 2048
+# sixteenth) of reversi8x8, connect4, gobang13 and hex13; reversi's two are
+# reported at reversi8x8's 8192 lanes, line_is_over at gobang13's 2048,
+# hex_is_over at hex13's 2048
 RULES_GAMES = (("reversi6x6", LANES), ("reversi8x8", LANES),
                ("tictactoe", LANES), ("connect4", LANES),
                ("gobang8", LANES), ("gobang9", LANES), ("gobang13", 2048),
                ("hex7", LANES), ("hex13", 2048), ("reversi8x8", LANES // 16),
+               ("connect4", LANES // 16), ("gobang13", 2048 // 16),
                ("hex13", 2048 // 16))
 RULES_REPORTED = {"reversi_play": ("reversi8x8", LANES),
                   "reversi_is_over": ("reversi8x8", LANES),
@@ -2658,6 +2659,8 @@ def main(argv=None) -> int:
         print(f"  ptxas: {line}")
 
     if args.rules:
+        for line in sass_counts(_build.library_path()):
+            print(f"  sass: {line}")
         print(json.dumps({"rules": {
             name: {"shape": r["shape"], "ms": r["ms"],
                    "plain_ms": r["plain_ms"], "bound_ms": r["cost"].bound_ms,
@@ -2670,46 +2673,76 @@ def main(argv=None) -> int:
     return smoke(dev, card, kind)
 
 
+def demangle(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name."""
+    import re
+
+    # _ZN <length><identifier>... [I<template arguments>E]: the last
+    # identifier is the function, after its (possibly hashed)
+    # namespaces; the arguments are ints (Li<n>E: lanes, slots), the
+    # packed kernels' column view (N4walk<length><view>E), the
+    # three-plane kernels' storage type (f, or <length>__nv_bfloat16)
+    # and reversi_play's action type (i or l)
+    rest, ident = re.sub(r"^_ZN?", "", mangled), mangled
+    while (n := re.match(r"\d+", rest)):
+        size = int(n.group())
+        ident = rest[len(n.group()):len(n.group()) + size]
+        rest = rest[len(n.group()) + size:]
+    if not rest.startswith("I"):
+        return ident
+    rest, args = rest[1:], []
+    while True:
+        if (m := re.match(r"Li(\d+)E", rest)):
+            args.append(m.group(1))
+        elif (m := re.match(r"N4walk(\d+)", rest)):
+            end = m.end() + int(m.group(1))
+            args.append(rest[m.end():end])
+            m = re.match(r".{%d}E" % end, rest)
+        elif (m := re.match(r"f", rest)):
+            args.append("float")
+        elif (m := re.match(r"[il]", rest)):  # the rules' action type
+            args.append({"i": "int32_t", "l": "int64_t"}[m.group()])
+        elif (m := re.match(r"(\d+)", rest)):
+            end = m.end() + int(m.group(1))
+            args.append(rest[m.end():end])
+            m = re.match(r".{%d}" % end, rest)
+        else:
+            break
+        rest = rest[m.end():]
+    return f"{ident}<{', '.join(args)}>" if args else ident
+
+
+def sass_counts(library) -> list:
+    """The SASS instruction count of each rules kernel instantiation in
+    the built ``library`` (``cuobjdump -sass``, one line an instruction,
+    the padding after the last included); empty where the toolkit has no
+    ``cuobjdump``."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return []
+    dump = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = demangle(m.group(1))
+            kernel = name.split("<")[0].removesuffix("_kernel")
+            name = name if kernel in RULES else None
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[name] = counts.get(name, 0) + 1
+    return [f"{k}: {n} instructions" for k, n in sorted(counts.items())]
+
+
 def ptxas_lines(log: str) -> list:
     """One line per kernel instantiation from ptxas's ``-v`` report: the
     kernel and its <lanes, slots> (read off the mangled name), registers,
     stack frame and spills."""
     import re
-
-    def demangle(mangled):
-        # _ZN <length><identifier>... [I<template arguments>E]: the last
-        # identifier is the function, after its (possibly hashed)
-        # namespaces; the arguments are ints (Li<n>E: lanes, slots), the
-        # packed kernels' column view (N4walk<length><view>E), the
-        # three-plane kernels' storage type (f, or <length>__nv_bfloat16)
-        # and reversi_play's action type (i or l)
-        rest, ident = re.sub(r"^_ZN?", "", mangled), mangled
-        while (n := re.match(r"\d+", rest)):
-            size = int(n.group())
-            ident = rest[len(n.group()):len(n.group()) + size]
-            rest = rest[len(n.group()) + size:]
-        if not rest.startswith("I"):
-            return ident
-        rest, args = rest[1:], []
-        while True:
-            if (m := re.match(r"Li(\d+)E", rest)):
-                args.append(m.group(1))
-            elif (m := re.match(r"N4walk(\d+)", rest)):
-                end = m.end() + int(m.group(1))
-                args.append(rest[m.end():end])
-                m = re.match(r".{%d}E" % end, rest)
-            elif (m := re.match(r"f", rest)):
-                args.append("float")
-            elif (m := re.match(r"[il]", rest)):  # the rules' action type
-                args.append({"i": "int32_t", "l": "int64_t"}[m.group()])
-            elif (m := re.match(r"(\d+)", rest)):
-                end = m.end() + int(m.group(1))
-                args.append(rest[m.end():end])
-                m = re.match(r".{%d}" % end, rest)
-            else:
-                break
-            rest = rest[m.end():]
-        return f"{ident}<{', '.join(args)}>" if args else ident
 
     lines, name, frame = [], None, ""
     for line in log.splitlines():

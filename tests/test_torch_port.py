@@ -195,13 +195,14 @@ RULES_GAMES = ("reversi6x6", "reversi8x8", "tictactoe", "connect4", "gobang8",
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 127, 1021])
+@pytest.mark.parametrize("G", [1, 33, 127, 1021])
 @pytest.mark.parametrize("name", RULES_GAMES)
 def test_rules_kernels_match_plain(name, G, cuda):
     """The rules kernels equal their plain versions bit for bit on sampled
     positions - dead lanes given any action, reversi's pass, full boards
-    - at lane counts that leave the last warp part full (one game; 127
-    and 1021 games, a thread a game or a lane a word);
+    - at lane counts that leave the last warp or block part full (one
+    game; 33, 127 and 1021 games: a thread a game, a lane a word, or the
+    tail of a block of 32 games a warp a direction);
     each call launches one kernel."""
     from alphatpu_torch.games import kernels as R
     from alphatpu_torch.games import make_game

@@ -86,6 +86,87 @@ def test_sampled_positions_cover_the_hard_cases(name):
                                                        .any())
 
 
+def _joined(t):
+    """A reversi board i64[G, 2] as one 64-bit value a game (the kernel's
+    layout)."""
+    w = t.numpy().astype(np.uint64)
+    return w[:, 0] | (w[:, 1] << np.uint64(32))
+
+
+def _split(x):
+    return torch.from_numpy(np.stack([x & np.uint64(0xFFFFFFFF),
+                                      x >> np.uint64(32)], 1).astype(np.int64))
+
+
+def _fold(spec, d):
+    """reversi_play's folded step (``Reversi::shifted`` in rules.cu): the
+    net shift of direction ``d`` and its mask, ``step(d, ~0)``."""
+    s = spec.rows
+    shift = {0: -1, 1: 1, 2: -s, 3: s, 4: -(s + 1), 5: -(s - 1), 6: s - 1,
+             7: s + 1}[d]
+    full = _split(np.full(1, ~np.uint64(0), dtype=np.uint64))
+    mask = _joined(R.reversi_dirs(spec)[d](full))[0]
+
+    def step(x):
+        x = x << np.uint64(shift) if shift > 0 else x >> np.uint64(-shift)
+        return x & mask
+
+    return step, mask
+
+
+@pytest.mark.parametrize("d", range(8))
+@pytest.mark.parametrize("name", ("reversi6x6", "reversi8x8"))
+def test_reversi_step_folds_into_one_shift_and_mask(name, d):
+    """Each of reversi's eight steps is up to two shifts, each then masked;
+    a shift distributes over an AND, so the step equals its net shift
+    masked by the step of a full board - on any 64-bit value, off-board
+    bits included (reversi_play's kernel runs the steps so)."""
+    spec = make_game(name).spec
+    rng = np.random.default_rng(d)
+    x = rng.integers(0, 2**63, size=4096, dtype=np.uint64) * np.uint64(2) \
+        | rng.integers(0, 2, size=4096, dtype=np.uint64)
+    x = np.concatenate([x, np.array([0, ~np.uint64(0)], dtype=np.uint64)])
+    step, _ = _fold(spec, d)
+    np.testing.assert_array_equal(
+        step(x), _joined(R.reversi_dirs(spec)[d](_split(x))))
+
+
+@pytest.mark.parametrize("name", ("reversi6x6", "reversi8x8"))
+def test_folded_flips_and_legal_boards_equal_the_plain_ones(name):
+    """reversi_play's per-direction flips and legal boards with the folded
+    steps, ORed over the eight directions, equal ``flip_board_plain`` and
+    ``legal_board_plain`` on sampled positions (the kernel's arithmetic,
+    written out in numpy)."""
+    game = make_game(name)
+    spec = game.spec
+    pos, action = R.sample_positions(game, 256, seed=9)
+    me, adv = _joined(pos.bplayer), _joined(pos.bopponent)
+    placed = _joined(bb.cell_onehot(spec, action.clamp(max=spec.nbits - 1)))
+    valid = _joined(_split(np.full(1, ~np.uint64(0), dtype=np.uint64))
+                    & torch.tensor(spec.valid_mask)[None])[0]
+    emptyc = ~(me | adv) & valid
+    flips = legal = np.zeros_like(me)
+    for d in range(8):
+        step, mask = _fold(spec, d)
+        a, e = adv & mask, emptyc & mask
+        cand = toflip = a & step(placed)
+        for _ in range(spec.rows - 2):
+            cand = a & step(cand)
+            toflip = toflip | cand
+        flips = flips | np.where(step(toflip) & me != 0, toflip, 0)
+        cand = a & step(me)
+        for _ in range(spec.rows - 2):
+            dc = step(cand)
+            legal, cand = legal | (e & dc), a & dc
+        legal = legal | (e & step(cand))
+    want = R.flip_board_plain(spec, pos.bplayer, pos.bopponent,
+                              _split(placed))
+    np.testing.assert_array_equal(flips, _joined(want))
+    want = R.legal_board_plain(spec, pos.bplayer, pos.bopponent)
+    np.testing.assert_array_equal(legal, _joined(want))
+    assert flips.any() and legal.any()
+
+
 @pytest.mark.parametrize("name", HEX_GAMES)
 def test_hex_flood_matches_reference_on_sampled_positions(name):
     """``hex_is_over_plain`` equals the reference's ``Hex.is_over``,
@@ -168,6 +249,9 @@ def test_geometry_refuses_what_the_kernels_do_not_take():
     # of falling back (the check runs before any launch)
     with pytest.raises(ValueError, match="line_is_over"):
         R.line_geometry(make_game("hex13").spec, 5)
+    # reversi_play's and line_is_over's launch needs a game
+    with pytest.raises(ValueError, match="direction_geometry"):
+        R.direction_geometry(0)
 
 
 @pytest.mark.parametrize("n", range(2, 14))
@@ -215,6 +299,17 @@ def test_rules_threads(G, threads):
         R.rules_threads(0)
 
 
+@pytest.mark.parametrize("G", [1, 31, 32, 33, 127, 2048, 8192])
+def test_direction_geometry(G):
+    """reversi_play and line_is_over: four warps a block of 32 games (a
+    warp a direction, a lane a game), the fewest blocks that cover G."""
+    geo = R.direction_geometry(G)
+    assert geo.threads == 128 == R.DIRECTION_WARPS * 32
+    assert geo.blocks == -(-G // 32)
+    assert (geo.blocks - 1) * R.DIRECTION_GAMES < G <= \
+        geo.blocks * R.DIRECTION_GAMES
+
+
 @pytest.mark.parametrize("n", range(2, 14))
 def test_spread_geometry_covers_every_hex_size(n):
     """hex_is_over spreads hex<N>'s W words over L lanes of a warp a game:
@@ -254,10 +349,12 @@ def test_spread_geometry_refuses_boards_past_hex13():
 @pytest.mark.parametrize("name,G", [("reversi8x8", 1), ("reversi8x8", 127),
                                     ("reversi6x6", 1021), ("hex13", 1),
                                     ("hex13", 128), ("hex7", 1021),
-                                    ("hex3", 127)])
+                                    ("hex3", 127), ("tictactoe", 1),
+                                    ("gobang13", 33)])
 def test_wrappers_launch_the_spread_geometry(name, G, monkeypatch):
-    """hex_is_over launches with ``spread_geometry`` for its G and words;
-    the other rules kernels keep ``rules_threads``."""
+    """hex_is_over launches with ``spread_geometry`` for its G and words,
+    reversi_play and line_is_over with ``direction_geometry`` for their
+    G; reversi_is_over keeps ``rules_threads``."""
     game = make_game(name)
     pos, action = R.sample_positions(game, G, seed=5)
     launched = []
@@ -270,6 +367,8 @@ def test_wrappers_launch_the_spread_geometry(name, G, monkeypatch):
     for entry, args in launched:
         if entry == "launch_hex_is_over":
             assert args[-3:] == tuple(R.spread_geometry(game.spec.nwords, G))
+        elif entry in ("launch_reversi_play", "launch_line_is_over"):
+            assert args[-2:] == tuple(R.direction_geometry(G))
         else:
             assert args[-1] == R.rules_threads(G)
     assert [e for e, _ in launched][-1] == "launch_" + game.is_over_kernel
@@ -306,8 +405,10 @@ def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
            else R.line_geometry(game.spec, game.nvict))
     assert list(masks) == list(geo.masks)
     ints = args[[id(a) for a in args].index(id(masks)) + 1:]
+    # reversi_play and line_is_over: 128 threads a block, 2 blocks of 32
+    # games for 40
     if entry == "launch_reversi_play":
-        assert ints == (40, 32, 8, 8, 2, 32)  # G, action bits, geometry
+        assert ints == (40, 32, 8, 8, 2, 128, 2)  # G, action bits, geometry
     elif entry == "launch_reversi_is_over":
         assert ints == (40, 6, 6, 2, 32)
     elif entry == "launch_hex_is_over":
@@ -318,7 +419,8 @@ def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
         assert (geo.rows, geo.words) == ((14, 7) if name == "hex13"
                                          else (8, 2))
     else:
-        assert ints == (40, geo.rows, geo.cols, geo.words, geo.nvict, 32)
+        assert ints == (40, geo.rows, geo.cols, geo.words, geo.nvict, 128,
+                        2)
     assert {n: c for n, (c, _) in K.launch_counts().items() if c} == {
         entry[len("launch_"):]: 1}
     for t in out:
