@@ -62,8 +62,9 @@ _SIGNATURES = {
     # action's width (32 or 64 bits), the geometry (rows, cols, words),
     # the launch (threads, blocks), stream
     "launch_reversi_play": [_P] * 9 + [_I] * 7 + [_P],
-    # pointers x 6, the host masks, G, rows, cols, words, threads, stream
-    "launch_reversi_is_over": [_P] * 7 + [_I] * 5 + [_P],
+    # pointers x 6, the host masks, G, rows, cols, words, the launch
+    # (threads, blocks), stream
+    "launch_reversi_is_over": [_P] * 7 + [_I] * 6 + [_P],
     # pointers x 5, the host masks, G, rows, cols, words, nvict, the launch
     # (threads, blocks), stream
     "launch_line_is_over": [_P] * 6 + [_I] * 7 + [_P],

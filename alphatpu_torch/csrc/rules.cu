@@ -15,11 +15,12 @@
 // call: these kernels are the port's counterpart of XLA's fusion.  Each
 // computes every word of the plain version's operations with the plain
 // version's expressions, so its outputs equal the plain version's bit for
-// bit for any input; reversi_play folds each direction's step - two
+// bit for any input; the reversi kernels fold each direction's step - two
 // shifts, each then masked - into one shift and one mask, an identity
-// (Reversi::shifted; tests/test_torch_rules.py holds it).  Hex's flood is 2N-2 dependent steps of three shifts
-// each (up, right, down): the plain version runs each shift word by word,
-// some 5,700 launches a call on hex13.
+// (Reversi::shifted; tests/test_torch_rules.py holds it).  Hex's flood is
+// 2N-2 dependent steps of three shifts each (up, right, down): the plain
+// version runs each shift word by word, some 5,700 launches a call on
+// hex13.
 //
 // What bounds them on Hopper: the launch, then a chain of dependent word
 // operations.  At 8192 games a call reads and writes under 1 MB (about
@@ -28,18 +29,19 @@
 // launch is the loads' latency and each game's longest chain.  So the
 // kernels split a game's independent chains - its directions - over
 // threads, where each thread keeps whole 64-bit boards or whole words:
-// - reversi_play and line_is_over run four warps a block of 32 games, lane
-//   l game l of the block in every warp, warp k direction k of the line
-//   games' four, or reversi's directions 2k and 2k+1, so the direction's
-//   shifts are constants and its branch uniform across the warp.  The
-//   warps meet in shared memory: line_is_over ORs four ballots of "a
-//   stone left" after one barrier; reversi_play ORs the four warps' flips
-//   (one barrier), forms the new boards in every warp, ORs their legal
-//   boards (a second barrier), and warp 0 stores.  (A lane a direction for
-//   reversi_play - eight lanes a game, ORed by shuffles - waited on each
-//   lane's loads and lost at reversi6x6; PERF.md has the trials.)
-// - reversi_is_over runs one thread a game, the directions, the flip lines
-//   and the words unrolled at compile time (the size a template argument).
+// - reversi_play, reversi_is_over and line_is_over run four warps a block
+//   of 32 games, lane l game l of the block in every warp, warp k
+//   direction k of the line games' four, or reversi's directions 2k and
+//   2k+1, so the direction's shifts are constants and its branch uniform
+//   across the warp.  The warps meet in shared memory: line_is_over ORs
+//   four ballots of "a stone left" after one barrier; reversi_play ORs the
+//   four warps' flips (one barrier), forms the new boards in every warp,
+//   ORs their legal boards (a second barrier), and warp 0 stores;
+//   reversi_is_over ORs the opponent's legal board (one barrier), and a
+//   warp none of whose games is stuck skips that chain by a vote.  (A lane
+//   a direction for reversi_play - eight lanes a game, ORed by shuffles -
+//   waited on each lane's loads and lost at reversi6x6; PERF.md has the
+//   trials.)
 // - hex_is_over, the longest chain, runs L lanes of a warp a game (the
 //   next power of two at or above its W words), lane w word w, every mask
 //   arithmetic on the lane's index.  A lane computes b = up(a) for words
@@ -54,11 +56,10 @@
 // does not hold.  The line and hex kernels keep W 32-bit words (gobang13:
 // six, hex13: seven) and shift across them as bitboard._shift does.
 // Geometry and masks come from Python (games/kernels.py: reversi_geometry,
-// line_geometry, hex_geometry; the launches direction_geometry for
-// reversi_play and line_is_over, rules_threads for reversi_is_over and
-// spread_geometry for hex_is_over); each entry point checks them against
-// the masks and the launch it derives from rows, cols and G, and refuses
-// any geometry it has no instantiation for.
+// line_geometry, hex_geometry; the launches direction_geometry for the
+// reversi kernels and line_is_over, spread_geometry for hex_is_over); each
+// entry point checks them against the masks and the launch it derives from
+// rows, cols and G, and refuses any geometry it has no instantiation for.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -69,8 +70,8 @@ typedef unsigned long long u64;
 typedef uint32_t u32;
 
 constexpr int kMaxThreads = 128;
-// reversi_play and line_is_over: four warps a block, a warp a direction (or
-// a pair), a lane a game: kDirGames games a block
+// reversi_play, reversi_is_over and line_is_over: four warps a block, a
+// warp a direction (or a pair), a lane a game: kDirGames games a block
 constexpr int kDirWarps = 4;
 constexpr int kDirGames = 32;
 constexpr int kDirThreads = kDirWarps * kDirGames;
@@ -175,24 +176,6 @@ struct Reversi {
       case 6: return up(right(x));
       default: return down(right(x));
     }
-  }
-
-  // kernels.legal_board_plain: the placing moves of `me`
-  __device__ __forceinline__ u64 legal(u64 me, u64 adv) const {
-    const u64 emptyc = ~(me | adv) & m.valid;
-    u64 out = 0;
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      u64 cand = step(d, me) & adv;
-#pragma unroll
-      for (int i = 0; i < SIZE - 2; ++i) {
-        const u64 dc = step(d, cand);
-        out |= emptyc & dc;
-        cand = adv & dc;
-      }
-      out |= emptyc & step(d, cand);
-    }
-    return out;
   }
 
   // step(D, x) as one shift and one mask.  Each of up, down, left and
@@ -321,22 +304,46 @@ __global__ void __launch_bounds__(kDirThreads) reversi_play_kernel(
             legal[0][l] | legal[1][l] | legal[2][l] | legal[3][l]);
 }
 
+// Reversi.is_over, a warp a pair of directions of the opponent's legal
+// board: a block of kDirThreads threads (four warps) tests kDirGames games,
+// lane l game blockIdx.x * kDirGames + l in every warp, warp k directions
+// 2k and 2k+1, each step folded into one shift and one mask.  Every load is
+// issued before any arithmetic (player by warp 0, which stores).  A game
+// can be over only where its mover has no move (legal == 0), and the four
+// warps load the same legal boards, so their votes agree: a warp none of
+// whose games is stuck skips the chain, and warp 0 stores done = false,
+// result = 0.  Otherwise each warp ORs its two directions into shared
+// memory and, after a barrier, warp 0 ORs the four.  Lanes past G hold a
+// nonzero legal board (they never ask for the chain) and store nothing,
+// and every lane reaches the barrier.
 template <int SIZE>
-__global__ void __launch_bounds__(kMaxThreads) reversi_is_over_kernel(
+__global__ void __launch_bounds__(kDirThreads) reversi_is_over_kernel(
     const int64_t* __restrict__ bplayer, const int64_t* __restrict__ bopponent,
     const int64_t* __restrict__ legal, const int8_t* __restrict__ player,
     bool* __restrict__ done, int8_t* __restrict__ result, Masks64 masks,
     int G) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
+  __shared__ u64 opp[kDirWarps][kDirGames];
+  const int k = threadIdx.x / 32;
+  const int l = threadIdx.x % 32;
+  const int g = blockIdx.x * kDirGames + l;
+  const bool live = g < G;
   const Reversi<SIZE> R{masks};
-  const u64 bp = load64(bplayer, g);
-  const u64 bo = load64(bopponent, g);
-  const bool over = load64(legal, g) == 0 && R.legal(bo, bp) == 0;
-  const int diff = __popcll(bp) - __popcll(bo);
-  const int sign = (diff > 0) - (diff < 0);
-  done[g] = over;
-  result[g] = over ? static_cast<int8_t>(sign * player[g]) : int8_t{0};
+  const u64 bp = live ? load64(bplayer, g) : 0ull;
+  const u64 bo = live ? load64(bopponent, g) : 0ull;
+  const u64 lg = live ? load64(legal, g) : ~0ull;
+  const int8_t p = live && k == 0 ? player[g] : int8_t{0};
+  const bool stuck = lg == 0;  // the mover has no move
+  if (__any_sync(kFullWarp, stuck)) opp[k][l] = R.legal_pair(k, bo, bp);
+  __syncthreads();
+  if (live && k == 0) {
+    // stuck only where this warp (and so every warp) ran the chain
+    const bool over =
+        stuck && (opp[0][l] | opp[1][l] | opp[2][l] | opp[3][l]) == 0;
+    const int diff = __popcll(bp) - __popcll(bo);
+    const int sign = (diff > 0) - (diff < 0);
+    done[g] = over;
+    result[g] = over ? static_cast<int8_t>(sign * p) : int8_t{0};
+  }
 }
 
 Masks64 join(const Masks& m) {
@@ -685,30 +692,29 @@ extern "C" int launch_reversi_play(const void* bplayer, const void* bopponent,
 }
 
 // Reversi.is_over on boards i64[G, 2] and player i8[G]: done bool[G],
-// result i8[G].
+// result i8[G].  threads and blocks: kernels.direction_geometry.
 extern "C" int launch_reversi_is_over(const void* bplayer,
                                       const void* bopponent,
                                       const void* legal, const void* player,
                                       void* done, void* result,
                                       const void* masks, int G, int rows,
                                       int cols, int words, int threads,
-                                      void* stream) {
+                                      int blocks, void* stream) {
   Masks64 m;
   if (!reversi_geometry(masks, G, rows, cols, words, &m) ||
-      !threads_ok(threads))
+      !directions_ok(G, threads, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for(G, threads);
   const int64_t* bp = static_cast<const int64_t*>(bplayer);
   const int64_t* bo = static_cast<const int64_t*>(bopponent);
   const int64_t* lg = static_cast<const int64_t*>(legal);
   const int8_t* p = static_cast<const int8_t*>(player);
   if (rows == 6)
-    reversi_is_over_kernel<6><<<blocks, threads, 0, st>>>(
+    reversi_is_over_kernel<6><<<blocks, kDirThreads, 0, st>>>(
         bp, bo, lg, p, static_cast<bool*>(done), static_cast<int8_t*>(result),
         m, G);
   else
-    reversi_is_over_kernel<8><<<blocks, threads, 0, st>>>(
+    reversi_is_over_kernel<8><<<blocks, kDirThreads, 0, st>>>(
         bp, bo, lg, p, static_cast<bool*>(done), static_cast<int8_t*>(result),
         m, G);
   return static_cast<int>(cudaGetLastError());

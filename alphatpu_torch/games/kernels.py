@@ -15,7 +15,9 @@ counterpart of that fusion:
   (the pass action, index ``size*size`` and above, places and flips
   nothing), the swap of sides and the new mover's legal board,
 * :func:`reversi_is_over` - ``Reversi.is_over``: done when neither side
-  can move, the sign of the disc difference times ``player``,
+  can move, the sign of the disc difference times ``player``; the
+  opponent's legal board is computed only for the warps where some
+  mover has no move,
 * :func:`line_is_over` - ``Gobang.is_over`` and ``Connect4.is_over``
   (``Game._line_win``): ``nvict`` in a row along four directions, or a
   full board; ``-player`` on a win,
@@ -34,12 +36,11 @@ launches; they join the search kernels' accounting
 The geometry - rows, cols, words, ``nvict`` and the spec's three masks -
 comes from the :class:`~alphatpu_torch.bitboard.BoardSpec`
 (:func:`reversi_geometry`, :func:`line_geometry`, :func:`hex_geometry`),
-and the launch from plain Python: ``reversi_play`` and ``line_is_over``
-run four warps a block of 32 games, a warp a direction or a pair of them
-(:func:`direction_geometry`), ``reversi_is_over`` a thread a game
-(:func:`rules_threads`), ``hex_is_over`` a game over lanes of a warp, a
-lane a word (:func:`spread_geometry`); the C entry points refuse any
-other.
+and the launch from plain Python: ``reversi_play``, ``reversi_is_over``
+and ``line_is_over`` run four warps a block of 32 games, a warp a
+direction or a pair of them (:func:`direction_geometry`),
+``hex_is_over`` a game over lanes of a warp, a lane a word
+(:func:`spread_geometry`); the C entry points refuse any other.
 Boards are the port's: 32-bit words in int64 elements, cell ``(r, c)``
 at bit ``r + rows * c``.
 """
@@ -58,7 +59,7 @@ from .._build import on_cuda as _on_cuda
 
 NUM_SMS = 132  # H100 SXM
 RULES_THREADS = 128  # most threads a block of a rules kernel
-DIRECTION_WARPS = 4  # reversi_play, line_is_over: a warp a direction (pair)
+DIRECTION_WARPS = 4  # the reversi and line kernels: a warp a direction (pair)
 DIRECTION_GAMES = 32  # a lane a game in each warp
 REVERSI_SIZES = (6, 8)
 LINE_MAX_WORDS = 6  # gobang13's 169 cells
@@ -129,27 +130,21 @@ def _block_threads(G: int, lanes: int) -> int:
     return threads
 
 
-def rules_threads(G: int) -> int:
-    """Threads a block of ``reversi_is_over`` (one thread a game):
-    ``RULES_THREADS``, halved down to one warp while that leaves SMs
-    without a block."""
-    return _block_threads(G, 1)
-
-
 class DirectionGeometry(NamedTuple):
-    """The launch of ``reversi_play`` and ``line_is_over``."""
+    """The launch of ``reversi_play``, ``reversi_is_over`` and
+    ``line_is_over``."""
 
     threads: int  # a block: DIRECTION_WARPS warps
     blocks: int  # exactly those that cover G games, DIRECTION_GAMES each
 
 
 def direction_geometry(G: int) -> DirectionGeometry:
-    """``reversi_play``'s and ``line_is_over``'s launch: blocks of
-    ``DIRECTION_WARPS`` warps that share ``DIRECTION_GAMES`` games, lane
-    ``l`` of every warp game ``l`` of the block, warp ``k`` the line games'
-    direction ``k`` or reversi's directions ``2k`` and ``2k+1``; the
-    fewest blocks that cover ``G`` games (at 2048 games 64 blocks, 256
-    warps)."""
+    """The launch of ``reversi_play``, ``reversi_is_over`` and
+    ``line_is_over``: blocks of ``DIRECTION_WARPS`` warps that share
+    ``DIRECTION_GAMES`` games, lane ``l`` of every warp game ``l`` of the
+    block, warp ``k`` the line games' direction ``k`` or reversi's
+    directions ``2k`` and ``2k+1``; the fewest blocks that cover ``G``
+    games (at 2048 games 64 blocks, 256 warps)."""
     if G < 1:
         raise ValueError(f"direction_geometry: G={G} < 1")
     return DirectionGeometry(DIRECTION_WARPS * 32, -(-G // DIRECTION_GAMES))
@@ -383,7 +378,7 @@ def reversi_is_over(spec: bb.BoardSpec, bplayer, bopponent, legal, player):
     _launch("launch_reversi_is_over", dev, bplayer.contiguous(),
             bopponent.contiguous(), legal.contiguous(), player.contiguous(),
             done, result, _masks(geo), G, geo.rows, geo.cols, geo.words,
-            rules_threads(G))
+            *direction_geometry(G))
     reversi_is_over.launches += 1
     return done, result
 
@@ -489,3 +484,13 @@ def sample_positions(game, G: int, seed: int, device=None):
         action = np.where(rng.random(G) < 0.25, game.max_actions - 1, action)
     return (type(pos)(*(x.to(device) for x in pos)),
             torch.from_numpy(action).to(device))
+
+
+def stuck_first(pos):
+    """Reversi positions with their lanes reordered (a stable sort), the
+    movers without a move first: blocks of 32 games in which every mover
+    has a move, where ``reversi_is_over`` skips the opponent's chain,
+    beside blocks that run it."""
+    order = torch.argsort((pos.legal != 0).any(-1).to(torch.int8),
+                          stable=True)
+    return type(pos)(*(x[order] for x in pos))

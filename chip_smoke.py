@@ -11,7 +11,9 @@ Phases, each fatal on failure:
 2. build the CUDA kernels from ``alphatpu_torch/csrc`` (nvcc, sm_90a, one
    process per source) and print ptxas's register, stack and spill lines
    (one per instantiation: the packed kernels' carry their column view,
-   ``SharedColumns`` or ``DeviceColumns`` - the device placement),
+   ``SharedColumns`` or ``DeviceColumns`` - the device placement) and each
+   rules kernel instantiation's SASS instructions and branches
+   (``cuobjdump``),
 3. kernel parity on the card: each of the five search kernels against its plain
    torch version on the same inputs - at the production shape (connect4,
    A=7, V=64, G=8192, D=42, on a tree grown by the port's own search) and
@@ -32,9 +34,11 @@ Phases, each fatal on failure:
    reversi6x6, reversi8x8, tictactoe, connect4, gobang8, gobang9, hex7
    (8192 lanes), gobang13 and hex13 (2048), and reversi8x8 and hex13 at
    their duel halves' 512 and 128 lanes - the pass action, lanes past
-   their game's end given any action, full boards - each timed (CUDA
-   events) beside its bound, the launch floor (a one-element add, timed
-   the same way) and its plain version's wall,
+   their game's end given any action, full boards; ``reversi_is_over``
+   also with the movers without a move gathered first, so that blocks
+   skip the opponent's chain - each timed (CUDA events) beside its bound,
+   the launch floor (a one-element add, timed the same way) and its plain
+   version's wall,
 4. the search on the card against the port's CPU path on a small input,
    at each of the three engine levels,
 5. a pre-grown search at 8192 lanes: a fresh level-1 search, then a second
@@ -760,12 +764,13 @@ def rules_parity(dev, card: str) -> dict:
     given any action, reversi's pass, full boards), and each kernel the
     game launches against its plain version on the same tensors - every
     output, lane by lane; reversi's move with 64- and 32-bit actions, and
-    the end test after the move too.  Each kernel is timed (CUDA events,
-    back to back) beside its bound (``mcts.bounds.rules_cost``), the
-    launch floor (a one-element in-place add on the card, timed alike:
-    what any launch costs) and its plain version's wall.  Returns
-    {kernel: result} at RULES_REPORTED's shape, each result with its time
-    on every (game, lanes) and the floor."""
+    the end test after the move too (reversi's also on the positions
+    reordered by ``games.kernels.stuck_first``).  Each kernel is timed
+    (CUDA events, back to back) beside its bound
+    (``mcts.bounds.rules_cost``), the launch floor (a one-element in-place
+    add on the card, timed alike: what any launch costs) and its plain
+    version's wall.  Returns {kernel: result} at RULES_REPORTED's shape,
+    each result with its time on every (game, lanes) and the floor."""
     import torch
 
     from alphatpu_torch.games import kernels as R
@@ -795,7 +800,8 @@ def rules_parity(dev, card: str) -> dict:
                 "reversi_is_over": (
                     lambda p, a: R.reversi_is_over(spec, *p),
                     lambda p, a: R.reversi_is_over_plain(spec, *p),
-                    [(pos, None), (played, None)]),
+                    [(pos, None), (played, None),
+                     (R.stuck_first(pos), None)]),
             }
         elif game.is_over_kernel == "hex_is_over":
             n = game.n
@@ -2657,10 +2663,10 @@ def main(argv=None) -> int:
           f"({_build.library_path().name})")
     for line in ptxas_lines(_build.build_report["log"]):
         print(f"  ptxas: {line}")
+    for line in sass_counts(_build.library_path()):
+        print(f"  sass: {line}")
 
     if args.rules:
-        for line in sass_counts(_build.library_path()):
-            print(f"  sass: {line}")
         print(json.dumps({"rules": {
             name: {"shape": r["shape"], "ms": r["ms"],
                    "plain_ms": r["plain_ms"], "bound_ms": r["cost"].bound_ms,
@@ -2715,8 +2721,9 @@ def demangle(mangled: str) -> str:
 def sass_counts(library) -> list:
     """The SASS instruction count of each rules kernel instantiation in
     the built ``library`` (``cuobjdump -sass``, one line an instruction,
-    the padding after the last included); empty where the toolkit has no
-    ``cuobjdump``."""
+    the padding after the last included) and its branches (``BRA``, the
+    trap loop after the last ``EXIT`` included); empty where the toolkit
+    has no ``cuobjdump``."""
     import re
     import shutil
 
@@ -2726,7 +2733,7 @@ def sass_counts(library) -> list:
         return []
     dump = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
-    counts, name = {}, None
+    counts, branches, name = {}, {}, None
     for line in dump.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
@@ -2735,7 +2742,10 @@ def sass_counts(library) -> list:
             name = name if kernel in RULES else None
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
             counts[name] = counts.get(name, 0) + 1
-    return [f"{k}: {n} instructions" for k, n in sorted(counts.items())]
+            branches[name] = branches.get(name, 0) + bool(
+                re.search(r"\bBRA\b", line))
+    return [f"{k}: {n} instructions, {branches[k]} BRA"
+            for k, n in sorted(counts.items())]
 
 
 def ptxas_lines(log: str) -> list:

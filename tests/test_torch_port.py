@@ -201,9 +201,10 @@ def test_rules_kernels_match_plain(name, G, cuda):
     """The rules kernels equal their plain versions bit for bit on sampled
     positions - dead lanes given any action, reversi's pass, full boards
     - at lane counts that leave the last warp or block part full (one
-    game; 33, 127 and 1021 games: a thread a game, a lane a word, or the
-    tail of a block of 32 games a warp a direction);
-    each call launches one kernel."""
+    game; 33, 127 and 1021 games: a lane a word, or the tail of a block of
+    32 games a warp a direction); reversi's end test also with the movers
+    without a move gathered first (blocks that skip the opponent's chain
+    beside blocks that run it); each call launches one kernel."""
     from alphatpu_torch.games import kernels as R
     from alphatpu_torch.games import make_game
     from alphatpu_torch.mcts import kernels as K
@@ -216,14 +217,16 @@ def test_rules_kernels_match_plain(name, G, cuda):
     if reversi:
         got += [game.play(pos, action), game.play(pos, action.int())]
     got.append(game.is_over(game.play(pos, action)))
+    if reversi:
+        got.append(game.is_over(R.stuck_first(pos)))
     torch.cuda.synchronize()
     played = game.play(pos, action) if not reversi else type(pos)(
         *R.reversi_play_plain(game.spec, pos.bplayer, pos.bopponent,
                               pos.player, action))
     if reversi:
         over = [R.reversi_is_over_plain(game.spec, *p[:4]) for p in
-                (pos, played)]
-        want = [over[0], played, played, over[1]]
+                (pos, played, R.stuck_first(pos))]
+        want = [over[0], played, played, over[1], over[2]]
     elif name.startswith("hex"):
         want = [R.hex_is_over_plain(game.spec, game.n, p.bopponent, p.player)
                 for p in (pos, played)]
@@ -235,7 +238,7 @@ def test_rules_kernels_match_plain(name, G, cuda):
         for a, b in zip(g, w):
             assert a.dtype == b.dtype and torch.equal(a, b)
     counts = {k: n for k, (n, _) in K.launch_counts().items() if n}
-    assert counts == ({"reversi_play": 3, "reversi_is_over": 2} if reversi
+    assert counts == ({"reversi_play": 3, "reversi_is_over": 3} if reversi
                       else {game.is_over_kernel: 2})
 
 

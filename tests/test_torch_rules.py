@@ -98,20 +98,68 @@ def _split(x):
                                       x >> np.uint64(32)], 1).astype(np.int64))
 
 
-def _fold(spec, d):
-    """reversi_play's folded step (``Reversi::shifted`` in rules.cu): the
-    net shift of direction ``d`` and its mask, ``step(d, ~0)``."""
+def _shifted(spec, d):
+    """``Reversi::shifted<d>`` in rules.cu: direction ``d``'s net shift,
+    unmasked."""
     s = spec.rows
     shift = {0: -1, 1: 1, 2: -s, 3: s, 4: -(s + 1), 5: -(s - 1), 6: s - 1,
              7: s + 1}[d]
+    return lambda x: (x << np.uint64(shift) if shift > 0
+                      else x >> np.uint64(-shift))
+
+
+def _fold(spec, d):
+    """The reversi kernels' folded step: the net shift of direction ``d``
+    and its mask, ``step(d, ~0)``."""
     full = _split(np.full(1, ~np.uint64(0), dtype=np.uint64))
     mask = _joined(R.reversi_dirs(spec)[d](full))[0]
+    shifted = _shifted(spec, d)
+    return (lambda x: shifted(x) & mask), mask
 
-    def step(x):
-        x = x << np.uint64(shift) if shift > 0 else x >> np.uint64(-shift)
-        return x & mask
 
-    return step, mask
+def _valid(spec):
+    return _joined(_split(np.full(1, ~np.uint64(0), dtype=np.uint64))
+                   & torch.tensor(spec.valid_mask)[None])[0]
+
+
+def _legal_pair(spec, k, me, adv):
+    """``Reversi::legal_pair``: directions ``2k`` and ``2k+1`` of the
+    legal board of ``me``, each ``legal_dir`` with the kernel's unmasked
+    shifts (adv and the empty cells masked once)."""
+    emptyc = ~(me | adv) & _valid(spec)
+    out = np.zeros_like(me)
+    for d in (2 * k, 2 * k + 1):
+        _, mask = _fold(spec, d)
+        shifted = _shifted(spec, d)
+        a, e = adv & mask, emptyc & mask
+        cand = a & shifted(me)
+        for _ in range(spec.rows - 2):
+            dc = shifted(cand)
+            out, cand = out | (e & dc), a & dc
+        out = out | (e & shifted(cand))
+    return out
+
+
+def _reversi_is_over_model(spec, pos):
+    """``reversi_is_over_kernel``'s arithmetic in numpy, lane by lane:
+    each block of 32 lanes votes on "a mover without a move"; a block that
+    votes no stores done False and result 0 without the chain, the others
+    OR the four warps' pairs of the opponent's legal board."""
+    bp, bo, legal = (_joined(t) for t in (pos.bplayer, pos.bopponent,
+                                          pos.legal))
+    G = len(bp)
+    stuck = legal == 0
+    vote = np.repeat(np.pad(stuck, (0, -G % 32)).reshape(-1, 32).any(1),
+                     32)[:G]
+    done = np.zeros(G, dtype=bool)
+    opp = np.zeros(int(vote.sum()), dtype=np.uint64)
+    for k in range(4):
+        opp |= _legal_pair(spec, k, bo[vote], bp[vote])
+    done[vote] = stuck[vote] & (opp == 0)
+    diff = (np.bitwise_count(bp).astype(np.int64)
+            - np.bitwise_count(bo).astype(np.int64))
+    result = np.where(done, np.sign(diff) * pos.player.numpy(), 0)
+    return done, result.astype(np.int8), vote
 
 
 @pytest.mark.parametrize("d", range(8))
@@ -142,9 +190,7 @@ def test_folded_flips_and_legal_boards_equal_the_plain_ones(name):
     pos, action = R.sample_positions(game, 256, seed=9)
     me, adv = _joined(pos.bplayer), _joined(pos.bopponent)
     placed = _joined(bb.cell_onehot(spec, action.clamp(max=spec.nbits - 1)))
-    valid = _joined(_split(np.full(1, ~np.uint64(0), dtype=np.uint64))
-                    & torch.tensor(spec.valid_mask)[None])[0]
-    emptyc = ~(me | adv) & valid
+    emptyc = ~(me | adv) & _valid(spec)
     flips = legal = np.zeros_like(me)
     for d in range(8):
         step, mask = _fold(spec, d)
@@ -165,6 +211,58 @@ def test_folded_flips_and_legal_boards_equal_the_plain_ones(name):
     want = R.legal_board_plain(spec, pos.bplayer, pos.bopponent)
     np.testing.assert_array_equal(legal, _joined(want))
     assert flips.any() and legal.any()
+
+
+@pytest.mark.parametrize("seed", (3, 11, 29))
+@pytest.mark.parametrize("name", ("reversi6x6", "reversi8x8"))
+def test_folded_opponent_legal_board_equals_the_plain_one(name, seed):
+    """reversi_is_over's opponent legal board - four pairs of directions,
+    each ``legal_dir`` with one unmasked shift a step, ORed - equals
+    ``legal_board_plain(bopponent, bplayer)`` on sampled positions and
+    after their move (passes, dead lanes, full boards)."""
+    game = make_game(name)
+    spec = game.spec
+    pos, action = R.sample_positions(game, 256, seed=seed)
+    played = type(pos)(*R.reversi_play_plain(
+        spec, pos.bplayer, pos.bopponent, pos.player, action))
+    for p in (pos, played):
+        me, adv = _joined(p.bopponent), _joined(p.bplayer)
+        got = np.zeros_like(me)
+        for k in range(4):
+            got |= _legal_pair(spec, k, me, adv)
+        want = R.legal_board_plain(spec, p.bopponent, p.bplayer)
+        np.testing.assert_array_equal(got, _joined(want))
+        assert got.any() and not got.all()
+
+
+@pytest.mark.parametrize("seed", (3, 11, 29))
+@pytest.mark.parametrize("name", ("reversi6x6", "reversi8x8"))
+def test_reversi_is_over_skip_rule_equals_the_plain_one(name, seed):
+    """A block of 32 lanes in which every mover has a move is not over
+    and scores 0, so reversi_is_over skips the opponent's chain there: its
+    model gives ``reversi_is_over_plain``'s done and result on every lane,
+    before and after the move, with the lanes as sampled and with the
+    movers without a move gathered first (blocks that skip beside blocks
+    that do not, a partial last block)."""
+    game = make_game(name)
+    spec = game.spec
+    G = 250  # eight blocks, the last one part full
+    pos, action = R.sample_positions(game, G, seed=seed)
+    played = type(pos)(*R.reversi_play_plain(
+        spec, pos.bplayer, pos.bopponent, pos.player, action))
+    votes = []
+    for p in (pos, played):
+        for q in (p, R.stuck_first(p)):
+            done, result, vote = _reversi_is_over_model(spec, q)
+            want = R.reversi_is_over_plain(spec, *q[:4])
+            np.testing.assert_array_equal(done, want[0].numpy())
+            np.testing.assert_array_equal(result, want[1].numpy())
+            votes.append(vote)
+    stones = bb.popcount(spec, pos.bplayer | pos.bopponent)
+    assert bool((stones == spec.nbits).any()) and bool(
+        (action == game.max_actions - 1).any())
+    assert all(v.any() for v in votes) and not all(v.all() for v in votes)
+    assert bool(R.reversi_is_over_plain(spec, *pos[:4])[0].any())
 
 
 @pytest.mark.parametrize("name", HEX_GAMES)
@@ -288,21 +386,11 @@ def test_hex_seeds_are_the_reference_borders(name):
     np.testing.assert_array_equal(seeds.numpy(), np.stack(jgame._seeds))
 
 
-@pytest.mark.parametrize("G,threads", [(1, 32), (2048, 32), (8192, 32),
-                                       (16896, 128), (33792, 128),
-                                       (16384, 64)])
-def test_rules_threads(G, threads):
-    """128 threads a block, halved down to a warp while the card's 132 SMs
-    would not each get a block."""
-    assert R.rules_threads(G) == threads
-    with pytest.raises(ValueError):
-        R.rules_threads(0)
-
-
 @pytest.mark.parametrize("G", [1, 31, 32, 33, 127, 2048, 8192])
 def test_direction_geometry(G):
-    """reversi_play and line_is_over: four warps a block of 32 games (a
-    warp a direction, a lane a game), the fewest blocks that cover G."""
+    """reversi_play, reversi_is_over and line_is_over: four warps a block
+    of 32 games (a warp a direction, a lane a game), the fewest blocks
+    that cover G."""
     geo = R.direction_geometry(G)
     assert geo.threads == 128 == R.DIRECTION_WARPS * 32
     assert geo.blocks == -(-G // 32)
@@ -353,8 +441,8 @@ def test_spread_geometry_refuses_boards_past_hex13():
                                     ("gobang13", 33)])
 def test_wrappers_launch_the_spread_geometry(name, G, monkeypatch):
     """hex_is_over launches with ``spread_geometry`` for its G and words,
-    reversi_play and line_is_over with ``direction_geometry`` for their
-    G; reversi_is_over keeps ``rules_threads``."""
+    reversi_play, reversi_is_over and line_is_over with
+    ``direction_geometry`` for their G."""
     game = make_game(name)
     pos, action = R.sample_positions(game, G, seed=5)
     launched = []
@@ -367,10 +455,10 @@ def test_wrappers_launch_the_spread_geometry(name, G, monkeypatch):
     for entry, args in launched:
         if entry == "launch_hex_is_over":
             assert args[-3:] == tuple(R.spread_geometry(game.spec.nwords, G))
-        elif entry in ("launch_reversi_play", "launch_line_is_over"):
-            assert args[-2:] == tuple(R.direction_geometry(G))
         else:
-            assert args[-1] == R.rules_threads(G)
+            assert entry in ("launch_reversi_play", "launch_reversi_is_over",
+                             "launch_line_is_over")
+            assert args[-2:] == tuple(R.direction_geometry(G))
     assert [e for e, _ in launched][-1] == "launch_" + game.is_over_kernel
 
 
@@ -405,12 +493,12 @@ def test_wrappers_launch_their_kernel(name, entry, monkeypatch):
            else R.line_geometry(game.spec, game.nvict))
     assert list(masks) == list(geo.masks)
     ints = args[[id(a) for a in args].index(id(masks)) + 1:]
-    # reversi_play and line_is_over: 128 threads a block, 2 blocks of 32
-    # games for 40
+    # reversi_play, reversi_is_over and line_is_over: 128 threads a block,
+    # 2 blocks of 32 games for 40
     if entry == "launch_reversi_play":
         assert ints == (40, 32, 8, 8, 2, 128, 2)  # G, action bits, geometry
     elif entry == "launch_reversi_is_over":
-        assert ints == (40, 6, 6, 2, 32)
+        assert ints == (40, 6, 6, 2, 128, 2)
     elif entry == "launch_hex_is_over":
         # 8 lanes a game for hex13's 7 words, 2 for hex7's 2
         lanes = 8 if name == "hex13" else 2
